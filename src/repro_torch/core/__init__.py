@@ -1,0 +1,21 @@
+"""Synopsis kinds (port of ``repro/core/__init__.py``).
+
+This slice registers CountMin and HyperLogLog only; building any other
+kind answers ok=False through the registry's KeyError
+(``synopsis.make_kind``).
+"""
+from . import hashing  # noqa: F401
+from .synopsis import (Synopsis, register_kind, make_kind, known_kinds,
+                       kind_params)  # noqa: F401
+from .countmin import CountMin
+from .hll import HyperLogLog
+from . import batched  # noqa: F401
+
+for _name, _factory in {
+    "countmin": CountMin,
+    "hyperloglog": HyperLogLog,
+}.items():
+    register_kind(_name, _factory)
+
+__all__ = ["Synopsis", "register_kind", "make_kind", "known_kinds",
+           "kind_params", "CountMin", "HyperLogLog", "batched"]

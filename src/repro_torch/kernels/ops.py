@@ -1,0 +1,182 @@
+"""Entry points the engine calls around the kernels, and the update-kernel
+registry (port of a subset of ``repro/kernels/ops.py``).
+
+Kernel dispatch is a REGISTRY, as in the reference: a kind declares
+``update_kernel = "<name>"`` and :func:`resolve_update_kernel` returns the
+matching builder's update function -- uniform signature, probe fused into
+the kernel when ``SDE_FUSED_PROBE`` is on (the default).
+
+Differences from the reference:
+
+  * No padding helpers: the CUDA kernels mask their own ragged edge.
+  * No interpret-mode switch and no jit caches: PyTorch runs eagerly, and
+    the wrappers pick the kernel or the plain version from the device of
+    the tensors they are given.
+  * The data-source fold builds the batch's fresh single sketch with the
+    SAME kernel (n = 1, every tuple routed to row 0) and then applies it to
+    the distinct source rows with ``index_add_`` (CM) or
+    ``torch.maximum`` (HLL). The reference computes it with a plain
+    scatter, which on the card would sum floats in no fixed order.
+  * Bucket hashing and ``_hll_prep`` are plain torch ops on the state's
+    device, as the reference keeps them outside its Pallas kernels.
+
+Not yet ported: the sharded, collective, merged and subpopulation
+estimate paths, and the Bloom / FM / RHP / AMS kernels.
+"""
+from __future__ import annotations
+
+import collections
+import os
+from typing import Callable, Dict, Optional
+
+import torch
+
+from repro_torch.core import batched, hashing
+from . import hll_max, onehot_matmul, probe
+
+_FALSY = ("0", "false", "no", "off")
+
+
+def probe_fusion_enabled() -> bool:
+    """Whether registry kernels fuse the routing probe into the kernel --
+    on unless ``SDE_FUSED_PROBE`` is falsy. Off, the probe runs as plain
+    torch ops ahead of the rows-given kernel, so both entry points of each
+    kernel stay reachable."""
+    return os.environ.get("SDE_FUSED_PROBE", "1").strip().lower() \
+        not in _FALSY
+
+
+def route_probe(keys_lo, keys_hi, rows, sid_lo, sid_hi, *,
+                n_probe: int) -> torch.Tensor:
+    """int32 rows for a batch of stream ids (uint32 halves as int32 bit
+    patterns) via linear probing: ``-1`` for unrouted ids."""
+    return probe.probe_rows(keys_lo, keys_hi, rows, sid_lo, sid_hi,
+                            n_probe=n_probe)
+
+
+def _source_fold(out: torch.Tensor, idx: torch.Tensor, values: torch.Tensor,
+                 signs: Optional[torch.Tensor],
+                 source_rows: torch.Tensor) -> torch.Tensor:
+    """Add the batch's fresh single sketch into the data-source rows of
+    ``out [n, d, w]`` in place. CM and AMS merges are linear, so adding
+    the fresh sketch is exact; work is proportional to the number of
+    source rows, not capacity."""
+    _, d, w = out.shape
+    fresh = torch.zeros((1, d, w), dtype=torch.float32, device=out.device)
+    to_row0 = torch.zeros(values.shape, dtype=torch.int32, device=out.device)
+    onehot_matmul.onehot_scatter_add(fresh, to_row0, idx, values, signs)
+    out.index_add_(0, source_rows, fresh.expand(source_rows.shape[0], d, w))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# ``TRACE_COUNT`` counts, per kernel source, the nvcc builds of this process
+# (the port has no tracing; a build is its one compile event).
+# ``DISPATCH_COUNT`` counts red-path estimate calls per kind and blue-path
+# updates per ``update:<kind>``.
+# ---------------------------------------------------------------------------
+
+TRACE_COUNT: collections.Counter = collections.Counter()
+DISPATCH_COUNT: collections.Counter = collections.Counter()
+
+
+def estimate_all(kind, state, rows: torch.Tensor, *query_args):
+    """Batched red-path entry point: estimates for ``rows`` of ``state``
+    with per-query args (leading axis == rows) in one call."""
+    DISPATCH_COUNT[type(kind).__name__] += 1
+    return batched.stacked_estimate(kind, state, rows, *query_args)
+
+
+def _hll_prep(items, seed: int, p: int):
+    """int32 (bucket, raw rank) per item, as ``HyperLogLog._bucket_rank``."""
+    h = hashing.hash_u32(items, seed)
+    bucket = (h >> (32 - p)).to(torch.int32)
+    rest = (h << p) & hashing.MASK32
+    raw_rank = torch.where(rest == 0, 32 - p + 1,
+                           hashing.clz32(rest) + 1).to(torch.int32)
+    return bucket, raw_rank
+
+
+# ---------------------------------------------------------------------------
+# the update-kernel registry. Every registered builder returns an update fn
+# with the SAME signature:
+#
+#     fn(state, keys_lo, keys_hi, table_rows, sid_lo, sid_hi,
+#        items, values, mask, source_rows, *, n_probe) -> state
+#
+# updating ``state`` in place. ``source_rows`` may be None. Built with
+# ``fuse_probe=True`` the probe runs inside the kernel; with False it runs
+# as ``route_probe`` ahead of the rows-given kernel (same results).
+# ---------------------------------------------------------------------------
+
+UPDATE_KERNELS: Dict[str, Callable] = {}
+
+
+def register_update_kernel(name: str, builder: Callable, *,
+                           overwrite: bool = False) -> None:
+    """Register ``builder(kind, fuse_probe) -> update_fn`` under ``name``."""
+    if name in UPDATE_KERNELS and not overwrite:
+        raise ValueError(f"update kernel {name!r} already registered "
+                         "(pass overwrite=True to replace)")
+    UPDATE_KERNELS[name] = builder
+
+
+def resolve_update_kernel(kind, fuse_probe: bool | None = None):
+    """The kind's built update fn, or None when the kind declares no
+    ``update_kernel``. ``fuse_probe`` defaults to
+    :func:`probe_fusion_enabled`."""
+    name = getattr(kind, "update_kernel", None)
+    if name is None:
+        return None
+    builder = UPDATE_KERNELS.get(name)
+    if builder is None:
+        raise KeyError(
+            f"{type(kind).__name__} declares update_kernel={name!r} but no "
+            f"such kernel is registered")
+    if fuse_probe is None:
+        fuse_probe = probe_fusion_enabled()
+    return builder(kind, fuse_probe)
+
+
+def _countmin_kernel(kind, fuse):
+    def fn(state, klo, khi, trows, slo, shi, items, vals, msk, src_rows, *,
+           n_probe):
+        idx = hashing.bucket_hash(items, kind._seeds(), kind.log2_width)
+        v = vals if kind.weighted else torch.ones_like(vals)
+        vm = v * msk.to(torch.float32)
+        if fuse:
+            onehot_matmul.onehot_probe_scatter(state, klo, khi, trows, slo,
+                                               shi, idx, vm, n_probe=n_probe)
+        else:
+            syn = route_probe(klo, khi, trows, slo, shi, n_probe=n_probe)
+            onehot_matmul.onehot_scatter_add(state, syn, idx, vm)
+        if src_rows is not None:
+            _source_fold(state, idx, vm, None, src_rows)
+        return state
+    return fn
+
+
+def _hll_kernel(kind, fuse):
+    def fn(state, klo, khi, trows, slo, shi, items, vals, msk, src_rows, *,
+           n_probe):
+        bucket, raw_rank = _hll_prep(items, kind.seed, kind.p)
+        rank = torch.where(msk, raw_rank, 0).to(torch.int32)
+        if fuse:
+            hll_max.hll_probe_max_update(state, klo, khi, trows, slo, shi,
+                                         bucket, rank, n_probe=n_probe)
+        else:
+            syn = route_probe(klo, khi, trows, slo, shi, n_probe=n_probe)
+            hll_max.hll_max_update(state, syn, bucket, rank)
+        if src_rows is not None:
+            fresh = torch.zeros((1, state.shape[1]), dtype=torch.int32,
+                                device=state.device)
+            to_row0 = torch.zeros(rank.shape, dtype=torch.int32,
+                                  device=state.device)
+            hll_max.hll_max_update(fresh, to_row0, bucket, rank)
+            state[src_rows] = torch.maximum(state[src_rows], fresh)
+        return state
+    return fn
+
+
+register_update_kernel("countmin_scatter", _countmin_kernel)
+register_update_kernel("hll_max", _hll_kernel)

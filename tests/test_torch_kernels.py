@@ -1,0 +1,184 @@
+"""The port's registry update functions and plain kernel versions against
+the JAX package's: the Pallas kernels in interpret mode
+(``repro.kernels.ops.resolve_update_kernel``), ``batched.stacked_update``
+and the pure-jnp oracles of ``repro/kernels/ref.py``, at the sizes of
+``tests/test_kernel_registry.py``.
+
+Integer weights must agree byte for byte. Float weights agree to
+``rtol=1e-6, atol=1e-5``: the reference's one-hot matmul and the port's
+sequential scatter add the same terms in another order.
+"""
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from repro import core as jcore
+from repro.core import batched as jbatched
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.service import routing as jrouting
+from repro_torch import core as tcore
+from repro_torch.core import batched as tbatched
+from repro_torch.kernels import hll_max, onehot_matmul, ops as tops, ref
+
+_KINDS = {
+    "cm_unweighted": ({"eps": 0.1, "delta": 0.1, "weighted": False},
+                      "countmin"),
+    "cm_weighted": ({"eps": 0.05, "delta": 0.05}, "countmin"),
+    "hll": ({"rse": 0.1}, "hyperloglog"),
+}
+
+
+def _inputs(seed, n=24, t=300, float_weights=False):
+    rng = np.random.RandomState(seed)
+    pop = np.unique(rng.randint(0, 2**62, size=4 * n, dtype=np.int64))[:n]
+    table = jrouting.RouteTable()
+    table.insert_many(pop, np.arange(n, dtype=np.int32))
+    sids = pop[rng.randint(0, n, t)]
+    sids[::13] = int(pop.max()) + 7          # unrouted: must be dropped
+    vals = (rng.rand(t) * 4 if float_weights
+            else rng.randint(1, 4, t)).astype(np.float32)
+    return dict(table=table, sids=sids, vals=vals, msk=rng.rand(t) > 0.2,
+                src=np.asarray([1, 5], np.int32), n=n,
+                n_probe=jrouting.next_pow2(table.max_probe))
+
+
+def _jax_args(x):
+    klo, khi = (jnp.asarray(h) for h in jrouting.split64(x["table"].keys))
+    slo, shi = (jnp.asarray(h) for h in jrouting.split64(x["sids"]))
+    return (klo, khi, jnp.asarray(x["table"].rows), slo, shi,
+            jnp.asarray(jrouting.fold64(x["sids"])), jnp.asarray(x["vals"]),
+            jnp.asarray(x["msk"]), jnp.asarray(x["src"]))
+
+
+def _torch_args(x):
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a))
+    klo, khi = (t(h.view(np.int32)) for h in jrouting.split64(
+        x["table"].keys))
+    slo, shi = (t(h.view(np.int32)) for h in jrouting.split64(x["sids"]))
+    return (klo, khi, t(x["table"].rows), slo, shi,
+            t(jrouting.fold64(x["sids"]).view(np.int32)), t(x["vals"]),
+            t(x["msk"]), t(x["src"]).long())
+
+
+def _check(got, want, exact):
+    if exact:
+        assert np.array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("fuse", [True, False], ids=["fused", "unfused"])
+@pytest.mark.parametrize("float_weights", [False, True],
+                         ids=["int_weights", "float_weights"])
+@pytest.mark.parametrize("name", sorted(_KINDS))
+def test_update_fn_matches_pallas_and_stacked_update(name, float_weights,
+                                                     fuse):
+    params, registry_name = _KINDS[name]
+    jkind = jcore.make_kind(registry_name, **params)
+    tkind = tcore.make_kind(registry_name, **params)
+    x = _inputs(3, float_weights=float_weights)
+    ja = _jax_args(x)
+    state0 = np.asarray(jbatched.stacked_init(jkind, x["n"]))
+
+    pallas = np.asarray(jops.resolve_update_kernel(jkind, fuse)(
+        jnp.asarray(state0), *ja, n_probe=x["n_probe"]))
+    rows = jops.route_probe(*ja[:5], n_probe=x["n_probe"])
+    xla = np.asarray(jbatched.stacked_update(jkind, jnp.asarray(state0),
+                                             rows, *ja[5:]))
+
+    ta = _torch_args(x)
+    state = torch.from_numpy(state0.copy())
+    out = tops.resolve_update_kernel(tkind, fuse)(state, *ta,
+                                                  n_probe=x["n_probe"])
+    assert out.data_ptr() == state.data_ptr()          # updated in place
+    exact = not float_weights
+    _check(out.numpy(), pallas, exact)
+    _check(out.numpy(), xla, exact)
+
+    # the port's own plain oracle path agrees too
+    trows = tops.route_probe(*ta[:5], n_probe=x["n_probe"])
+    plain = tbatched.stacked_update(tkind, torch.from_numpy(state0.copy()),
+                                    trows, *ta[5:])
+    _check(plain.numpy(), xla, exact)
+
+
+def test_cm_plain_drops_minus_one_rows_where_jax_oracle_wraps():
+    """``repro/kernels/ref.py`` adds a ``syn = -1`` tuple into the LAST
+    row (``.at[-1]`` wraps). The port drops it; fed ``values = 0`` where
+    ``syn = -1``, the JAX oracle agrees."""
+    rng = np.random.RandomState(0)
+    n, d, w, t = 6, 3, 16, 200
+    syn = rng.randint(-1, n, t).astype(np.int32)
+    idx = rng.randint(0, w, (t, d)).astype(np.int32)
+    vals = rng.randint(1, 5, t).astype(np.float32)
+    signs = np.where(rng.rand(t, d) > 0.5, 1.0, -1.0).astype(np.float32)
+    counts0 = rng.randint(0, 3, (n, d, w)).astype(np.float32)
+    masked = np.where(syn >= 0, vals, 0).astype(np.float32)
+    for sg in (None, signs):
+        want = np.asarray(jref.onehot_scatter_add(
+            jnp.asarray(counts0), jnp.asarray(syn), jnp.asarray(idx),
+            jnp.asarray(masked),
+            jnp.ones((t, d), jnp.float32) if sg is None else jnp.asarray(sg)))
+        got = onehot_matmul.onehot_scatter_add(
+            torch.from_numpy(counts0.copy()), torch.from_numpy(syn),
+            torch.from_numpy(idx), torch.from_numpy(vals),
+            None if sg is None else torch.from_numpy(sg))
+        assert np.array_equal(got.numpy(), want)
+    wrapped = np.asarray(jref.onehot_scatter_add(
+        jnp.asarray(counts0), jnp.asarray(syn), jnp.asarray(idx),
+        jnp.asarray(vals), jnp.ones((t, d), jnp.float32)))
+    assert not np.array_equal(wrapped[-1], want[-1])    # the hazard is real
+
+
+def test_hll_plain_matches_jax_oracle():
+    rng = np.random.RandomState(1)
+    n, m, t = 5, 32, 300
+    syn = rng.randint(0, n, t).astype(np.int32)
+    bucket = rng.randint(0, m, t).astype(np.int32)
+    rank = rng.randint(0, 9, t).astype(np.int32)
+    regs0 = rng.randint(0, 4, (n, m)).astype(np.int32)
+    want = np.asarray(jref.hll_max_update(jnp.asarray(regs0),
+                                          jnp.asarray(syn),
+                                          jnp.asarray(bucket),
+                                          jnp.asarray(rank)))
+    got = hll_max.hll_max_update(torch.from_numpy(regs0.copy()),
+                                 torch.from_numpy(syn),
+                                 torch.from_numpy(bucket),
+                                 torch.from_numpy(rank))
+    assert np.array_equal(got.numpy(), want)
+    syn[::7] = -1                        # dropped, not wrapped
+    got = ref.hll_max_update(torch.from_numpy(regs0.copy()),
+                             torch.from_numpy(syn), torch.from_numpy(bucket),
+                             torch.from_numpy(rank))
+    keep = syn >= 0
+    want = np.asarray(jref.hll_max_update(
+        jnp.asarray(regs0), jnp.asarray(syn[keep]),
+        jnp.asarray(bucket[keep]), jnp.asarray(rank[keep])))
+    assert np.array_equal(got.numpy(), want)
+
+
+def test_operand_checks_raise_before_any_launch():
+    """What the CUDA path validates before passing pointers on; a meta
+    tensor has no kernel at all."""
+    from repro_torch.kernels import build
+    dev = torch.device("cpu")
+    x = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        build.check(x.float(), "x", torch.int32, (4,), dev)
+    with pytest.raises(ValueError, match="shape"):
+        build.check(x, "x", torch.int32, (5,), dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        build.check(torch.zeros((4, 2), dtype=torch.int32).t(), "x",
+                    torch.int32, (2, 4), dev)
+    with pytest.raises(ValueError, match="power of two"):
+        build.check_table(torch.zeros(48, dtype=torch.int32),
+                          x, x, x, x, 4, dev)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        onehot_matmul.onehot_scatter_add(
+            torch.zeros((2, 3, 8), device="meta"),
+            torch.zeros(4, dtype=torch.int32, device="meta"),
+            torch.zeros((4, 3), dtype=torch.int32, device="meta"),
+            torch.zeros(4, device="meta"))
