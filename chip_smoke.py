@@ -2,29 +2,43 @@
 """Drive the PyTorch port's main path on one CUDA card and hold every
 hand-written kernel against its plain PyTorch version.
 
-    python3 chip_smoke.py            # needs one CUDA card; ~1-2 minutes
+    python3 chip_smoke.py            # needs one CUDA card; ~1 minute
 
 Phases (any failure raises, so the script exits non-zero without its
-last line):
+last line; each phase prints its peak device memory, held under 48 GiB):
 
-  1. Card and build: ``nvidia-smi`` name and power limit, then both
+  1. Card and build: ``nvidia-smi`` name and power limit, then the three
      kernel sources built by ``nvcc`` in parallel.
-  2. Each of the four kernel entry points against its plain version at
-     the main path's shapes: CountMin eps=0.002, delta=0.01 (the paper's
-     parameters, ``benchmarks/fig5_scalability.py``) -> rows [5, 2048]
-     f32; HyperLogLog rse=0.03 -> 2048 registers; n = 131,072 rows (the
-     capacity of phase 3's stacks); a batch of 65,536 tuples with
-     unrouted and -1 lanes. Integer weights must match exactly, float
-     weights to a stated tolerance and byte for byte across two kernel
-     runs. Times are CUDA-event medians.
-  3. The main path through ``SDE(device="cuda").handle``: per-stream CM
-     and HLL over 65,536 hashed 63-bit ids, a data-source CM and HLL and
-     one continuous HLL; 16 ingest batches of 65,536 Zipf(1.1) tuples
-     (half with SDE_FUSED_PROBE=0); 1,024 CM queries in one query_many
-     and HLL adhoc queries. The final state must equal a replay of the
-     same batches through the plain versions on the card.
+  2. Each of the eight kernel entry points against its plain version at
+     the main path's shapes, on a batch of 65,536 tuples with unrouted,
+     -1 and masked (upd 0 / rank 0 / weight 0) lanes: CountMin
+     eps=0.002, delta=0.01 (the paper's parameters,
+     ``benchmarks/fig5_scalability.py``) -> rows [5, 2048] f32;
+     HyperLogLog rse=0.03 -> 2048 registers; n = 131,072 rows (the
+     capacity of phase 3's stacks); Bloom(1024, 0.01) -> 16,384 lanes,
+     k = 11, n = 131,072 (8 GiB); FM defaults -> [131,072, 64, 32]. Plus
+     the one-row fresh-sketch launch each data-source fold makes
+     (``<name>@fresh``), and an untimed exactness run of both bit-set
+     entry points on a 262,144 x 16,384 stack (2**32 lanes) with tuples
+     routed to its last rows. Integer results must match exactly, CM
+     float weights to a stated tolerance and byte for byte across two
+     kernel runs. Times are CUDA-event medians of one call (host enqueue
+     included), each with its ``torch.profiler`` device time per call
+     beside it. One entry's tensors are held at a time.
+  3. The main path through ``SDE(device="cuda").handle``: per-stream CM,
+     HLL, Bloom and FM over 65,536 hashed 63-bit ids; a data-source CM,
+     HLL, Bloom(1,048,576, 0.01) (own stack: 64 x 2**24 lanes) and FM;
+     continuous HLL and FM; 16 ingest batches of 65,536 Zipf(1.1) tuples
+     (half with SDE_FUSED_PROBE=0), then 2 more under ``torch.profiler``
+     (device-busy share and top kernels); 1,024 CM and 1,024 Bloom
+     queries in query_many, Bloom false positives, HLL and FM adhoc
+     queries. Every stack must equal a replay of the same batches through
+     the plain versions on the card, and no ingested id may be missing
+     from its Bloom.
   4. One JSON line with each kernel's launches in phase 3 and its
-     phase-2 numbers, then the device line.
+     phase-2 numbers (``ms``, ``plain_ms``, ``library_ms`` by CUDA event;
+     ``device_ms``, ``plain_device_ms``, ``library_device_ms`` by
+     ``torch.profiler``), then the device line.
 """
 from __future__ import annotations
 
@@ -35,6 +49,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -45,6 +60,10 @@ F32_OPS_PER_S = 67e12          # H100 SXM fp32 outside the tensor cores
 TIMING_RUNS = 25
 FLOAT_RTOL, FLOAT_ATOL = 1e-4, 1e-3   # float sums of up to ~10^4 terms
                                       # taken in another order
+PEAK_LIMIT_GIB = 48.0
+SRC_BLOOM_ELEMENTS = 1 << 20          # phase 3's data-source Bloom
+TABLE_B = 12                          # a probed slot: key lo, key hi, row
+GIB = 2.0 ** 30
 
 
 def require(cond, msg: str) -> None:
@@ -67,10 +86,64 @@ def cuda_ms(fn, runs: int = TIMING_RUNS) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, runs: int = 5) -> float:
+    """Mean device time of ``fn()`` per run from ``torch.profiler``: the
+    summed durations of its kernels and copies, without the host's enqueue
+    time, which a CUDA-event time of a few-µs launch mostly is."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    require(spans, "torch.profiler recorded no device activity")
+    return sum(spans) / runs / 1e3
+
+
 def bound_ms(n_bytes: int, n_ops: int):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / F32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def compare(a: torch.Tensor, b: torch.Tensor, chunk: int = 4096):
+    """(equal, max abs err, allclose at FLOAT_RTOL/ATOL) of two tensors of
+    one shape, row chunk by row chunk: no full-size temporary."""
+    equal, err, close = True, 0.0, True
+    for i in range(0, a.shape[0], chunk):
+        x, y = a[i:i + chunk], b[i:i + chunk]
+        equal = equal and torch.equal(x, y)
+        if x.numel():
+            err = max(err, float((x - y).abs().max()))
+        if x.is_floating_point():
+            close = close and torch.allclose(x, y, rtol=FLOAT_RTOL,
+                                             atol=FLOAT_ATOL)
+    return equal, err, close
+
+
+def same_bytes(a: torch.Tensor, b: torch.Tensor, chunk: int = 4096) -> bool:
+    return all(torch.equal(a[i:i + chunk].view(torch.int32),
+                           b[i:i + chunk].view(torch.int32))
+               for i in range(0, a.shape[0], chunk))
+
+
+def peak_gib(phase: str) -> float:
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / GIB
+    print(f"[{phase}] peak device memory {peak:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated)", flush=True)
+    require(peak < PEAK_LIMIT_GIB,
+            f"{phase} peaked at {peak:.3f} GiB, over {PEAK_LIMIT_GIB} GiB")
+    return peak
+
+
+def free() -> None:
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
 
 def zipf_streams(rng, n_streams: int, t: int, s: float = 1.1) -> np.ndarray:
@@ -90,19 +163,19 @@ def make_batch(rng, pop: np.ndarray, t: int) -> tuple:
     return sids, vals
 
 
-def probed_slots(klo, khi, slo, shi, n_probe: int, lanes) -> int:
+def probed_slots(b, lanes) -> int:
     """Distinct table slots the probe reads for the ``lanes`` ids."""
     from repro_torch.core import hashing
     from repro_torch.kernels import probe
-    size = klo.shape[0]
-    kh = hashing.as_u32(khi)
-    kl = hashing.as_u32(klo)
-    lo = hashing.as_u32(slo[lanes])
-    hi = hashing.as_u32(shi[lanes])
+    size = b.klo.shape[0]
+    kh = hashing.as_u32(b.khi)
+    kl = hashing.as_u32(b.klo)
+    lo = hashing.as_u32(b.slo[lanes])
+    hi = hashing.as_u32(b.shi[lanes])
     slot = probe.slot0(lo, hi, size)
     done = torch.zeros_like(lo, dtype=torch.bool)
     seen = []
-    for _ in range(n_probe):
+    for _ in range(b.n_probe):
         seen.append(slot[~done])
         hit = (kl[slot] == lo) & (kh[slot] == hi)
         done = done | hit | (kh[slot] == probe.ROUTE_EMPTY_HI)
@@ -110,98 +183,103 @@ def probed_slots(klo, khi, slo, shi, n_probe: int, lanes) -> int:
     return int(torch.unique(torch.cat(seen)).numel())
 
 
+def distinct(flat: torch.Tensor) -> int:
+    return int(torch.unique(flat).numel())
+
+
 # ---------------------------------------------------------------------------
 # phase 2: every kernel entry point against its plain version
 # ---------------------------------------------------------------------------
-def phase2(dev, seed: int, n: int, n_streams: int, t: int) -> dict:
-    from repro_torch import core
-    from repro_torch.core import hashing
-    from repro_torch.kernels import hll_max, onehot_matmul, ops, probe, ref
+def record(results, name, fn_kernel, fn_plain, fn_lib, state0, n_bytes,
+           n_ops, floats=None):
+    """Hold ``fn_kernel`` against ``fn_plain`` on copies of ``state0``
+    (torch.equal), then time kernel, plain and library call."""
+    k = state0.clone()
+    fn_kernel(k)
+    p = state0.clone()
+    fn_plain(p)
+    torch.cuda.synchronize()
+    equal, err, _ = compare(k, p)
+    require(equal, f"{name}: kernel disagrees with its plain version "
+                   f"(max abs err {err})")
+    del p
+    if floats is not None:
+        floats(state0)
+    kms = cuda_ms(lambda: fn_kernel(k))
+    kdev = device_ms(lambda: fn_kernel(k))
+    p = state0.clone()
+    pms = cuda_ms(lambda: fn_plain(p))
+    pdev = device_ms(lambda: fn_plain(p))
+    lms = cuda_ms(lambda: fn_lib(p))
+    ldev = device_ms(lambda: fn_lib(p))
+    del k, p
+    free()
+    bms, by = bound_ms(n_bytes, n_ops)
+    results[name] = dict(max_abs_err=err, ms=kms, plain_ms=pms,
+                         library_ms=lms, bound_ms=bms, bound_by=by,
+                         device_ms=kdev, plain_device_ms=pdev,
+                         library_device_ms=ldev)
+    print(f"[phase2] {name}: exact match, kernel {kms:.4f} ms (device "
+          f"{kdev:.4f} ms), plain {pms:.4f} ms (device {pdev:.4f} ms), "
+          f"library {lms:.4f} ms (device {ldev:.4f} ms), bound {bms:.4f} ms "
+          f"({by}, {n_bytes} B)", flush=True)
+
+
+def phase2_batch(dev, seed: int, n_streams: int, t: int):
+    """The route table, one batch and its routed rows, shared by every
+    entry."""
+    from repro_torch.kernels import ops
     from repro_torch.service import routing
 
     rng = np.random.RandomState(seed)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    cm = core.CountMin(eps=0.002, delta=0.01)
-    hll = core.HyperLogLog(rse=0.03)
-    d, w, m = cm.depth, cm.width, hll.m
     pop = np.unique(rng.randint(0, 2**63 - 1, size=n_streams, dtype=np.int64))
     table = routing.RouteTable()
     table.insert_many(pop, np.arange(len(pop), dtype=np.int32))
-    n_probe = routing.next_pow2(table.max_probe)
     dt = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     klo, khi = (dt(h.view(np.int32)) for h in routing.split64(table.keys))
-    trows = dt(table.rows)
     sids, vals = make_batch(rng, pop, t)
     slo, shi = (dt(h.view(np.int32)) for h in routing.split64(sids))
-    items = dt(routing.fold64(sids).view(np.int32))
-    mask = dt((rng.rand(t) > 0.05) & (sids >= 0))
-    rows = ops.route_probe(klo, khi, trows, slo, shi, n_probe=n_probe)
-    require(int((rows < 0).sum()) > 0, "batch has no -1 lanes")
-    idx = hashing.bucket_hash(items, cm._seeds(), cm.log2_width)
-    v_int = dt(vals) * mask.float()
-    v_flt = torch.rand(t, generator=gen, device=dev) * 4 * mask.float()
-    bucket, raw_rank = ops._hll_prep(items, hll.seed, hll.p)
-    rank = torch.where(mask, raw_rank, 0).to(torch.int32)
-    print(f"[phase2] n={n} d={d} w={w} m={m} T={t} unrouted="
-          f"{int((rows < 0).sum())} table size={table.size} "
-          f"n_probe={n_probe}", flush=True)
+    b = types.SimpleNamespace(
+        dev=dev, t=t, pop=pop, klo=klo, khi=khi, trows=dt(table.rows),
+        slo=slo, shi=shi, n_probe=routing.next_pow2(table.max_probe),
+        items=dt(routing.fold64(sids).view(np.int32)), vals=dt(vals),
+        mask=dt((rng.rand(t) > 0.05) & (sids >= 0)), table_size=table.size,
+        gen=torch.Generator(device=dev).manual_seed(seed))
+    b.rows = ops.route_probe(b.klo, b.khi, b.trows, b.slo, b.shi,
+                             n_probe=b.n_probe)
+    b.to_row0 = torch.zeros(t, dtype=torch.int32, device=dev)
+    require(int((b.rows < 0).sum()) > 0, "batch has no -1 lanes")
+    require(int((~b.mask).sum()) > 0, "batch has no masked lanes")
+    print(f"[phase2] T={t} unrouted={int((b.rows < 0).sum())} masked="
+          f"{int((~b.mask).sum())} table size={table.size} "
+          f"n_probe={b.n_probe}", flush=True)
+    return b
 
-    keep = rows >= 0
+
+def phase2_countmin(b, n: int, results: dict) -> None:
+    from repro_torch import core
+    from repro_torch.core import hashing
+    from repro_torch.kernels import onehot_matmul, probe, ref
+
+    cm = core.CountMin(eps=0.002, delta=0.01)
+    d, w, t, dev = cm.depth, cm.width, b.t, b.dev
+    idx = hashing.bucket_hash(b.items, cm._seeds(), cm.log2_width)
+    v_int = b.vals * b.mask.float()
+    v_flt = torch.rand(t, generator=b.gen, device=dev) * 4 * b.mask.float()
+    rows, keep = b.rows, b.rows >= 0
     kept_rows = rows[keep].long()
     ix = idx[keep].long()
     js = torch.arange(d, device=dev)[None, :].expand(ix.shape)
-    lib_cm_index = (kept_rows[:, None].expand(ix.shape), js, ix)
-    hkeep = keep & (rank > 0)
-    lib_hll_flat = rows[hkeep].long() * m + bucket[hkeep].long()
-    lib_hll_src = rank[hkeep]
-
+    lib_index = (kept_rows[:, None].expand(ix.shape), js, ix)
+    lib_vals = v_int[keep][:, None].expand(ix.shape).contiguous()
     nz = v_int[keep] != 0
-    cm_touched = int(torch.unique(
-        ((kept_rows[:, None] * d + js) * w + ix)[nz]).numel())
-    lib_cm_vals = v_int[keep][:, None].expand(ix.shape).contiguous()
-    cm_updates = int(keep.sum()) * d
-    hll_touched = int(torch.unique(lib_hll_flat).numel())
-    probe_slots_cm = probed_slots(klo, khi, slo, shi, n_probe,
-                                  torch.ones_like(mask))
-    probe_slots_hll = probed_slots(klo, khi, slo, shi, n_probe, rank > 0)
-    batch_cm = t * d * 4 + t * 4                    # idx, values
-    batch_hll = t * 4 * 2                           # bucket, rank
-    table_b = 12                                    # key lo, key hi, row
+    state_b = 8 * distinct(((kept_rows[:, None] * d + js) * w + ix)[nz])
+    batch_b = t * d * 4 + t * 4                     # idx, values
+    n_upd = int(keep.sum()) * d
+    slots = probed_slots(b, torch.ones_like(b.mask))
+    print(f"[phase2] CountMin: n={n} d={d} w={w}", flush=True)
 
-    results = {}
-
-    def record(name, fn_kernel, fn_plain, fn_lib, state0, n_bytes, n_ops,
-               floats=None):
-        k = state0.clone()
-        fn_kernel(k)
-        p = state0.clone()
-        fn_plain(p)
-        torch.cuda.synchronize()
-        err = float((k - p).abs().max())
-        require(torch.equal(k, p),
-                f"{name}: kernel disagrees with its plain version "
-                f"(max abs err {err})")
-        del p
-        if floats is not None:
-            floats(state0)
-        kms = cuda_ms(lambda: fn_kernel(k))
-        p = state0.clone()
-        pms = cuda_ms(lambda: fn_plain(p))
-        lms = cuda_ms(lambda: fn_lib(p))
-        del k, p
-        bms, by = bound_ms(n_bytes, n_ops)
-        results[name] = dict(max_abs_err=err, ms=kms, plain_ms=pms,
-                             library_ms=lms, bound_ms=bms, bound_by=by,
-                             bytes=n_bytes)
-        print(f"[phase2] {name}: exact match, kernel {kms:.4f} ms, plain "
-              f"{pms:.4f} ms, library {lms:.4f} ms, bound {bms:.4f} ms "
-              f"({by}, {n_bytes} B)", flush=True)
-
-    # -- CountMin: integer weights exact, float weights reproducible ----
-    cm0 = torch.randint(0, 8, (n, d, w), generator=gen, device=dev,
-                        dtype=torch.int32).to(torch.float32)
-
-    def cm_float_checks(state0):
+    def float_checks(state0):
         for label, kern, plain in (
                 ("onehot_scatter_add",
                  lambda s: onehot_matmul.onehot_scatter_add(s, rows, idx,
@@ -209,127 +287,399 @@ def phase2(dev, seed: int, n: int, n_streams: int, t: int) -> dict:
                  lambda s: ref.onehot_scatter_add(s, rows, idx, v_flt)),
                 ("onehot_probe_scatter",
                  lambda s: onehot_matmul.onehot_probe_scatter(
-                     s, klo, khi, trows, slo, shi, idx, v_flt,
-                     n_probe=n_probe),
+                     s, b.klo, b.khi, b.trows, b.slo, b.shi, idx, v_flt,
+                     n_probe=b.n_probe),
                  lambda s: ref.onehot_scatter_add(s, rows, idx, v_flt))):
             a = state0.clone()
             kern(a)
-            b = state0.clone()
-            kern(b)
+            c = state0.clone()
+            kern(c)
             torch.cuda.synchronize()
-            require(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+            require(same_bytes(a, c),
                     f"{label}: float-weight runs differ byte-wise")
-            del b
+            del c
             p = state0.clone()
             plain(p)
-            ferr = float((a - p).abs().max())
-            require(torch.allclose(a, p, rtol=FLOAT_RTOL, atol=FLOAT_ATOL),
-                    f"{label}: float weights off by {ferr}")
+            _, ferr, close = compare(a, p)
+            require(close, f"{label}: float weights off by {ferr}")
             print(f"[phase2] {label}: float weights byte-identical over 2 "
                   f"runs; max abs err vs plain {ferr:.3g} (rtol "
                   f"{FLOAT_RTOL}, atol {FLOAT_ATOL})", flush=True)
             del a, p
+            free()
 
-    cm_state_b = 8 * cm_touched
-    record("onehot_scatter_add",
+    cm0 = torch.randint(0, 8, (n, d, w), generator=b.gen, device=dev,
+                        dtype=torch.int32).to(torch.float32)
+    record(results, "onehot_scatter_add",
            lambda s: onehot_matmul.onehot_scatter_add(s, rows, idx, v_int),
            lambda s: ref.onehot_scatter_add(s, rows, idx, v_int),
-           lambda s: s.index_put_(lib_cm_index, lib_cm_vals,
-                                  accumulate=True),
-           cm0, t * 4 + batch_cm + cm_state_b, cm_updates,
-           floats=cm_float_checks)
-    record("onehot_probe_scatter",
+           lambda s: s.index_put_(lib_index, lib_vals, accumulate=True),
+           cm0, t * 4 + batch_b + state_b, n_upd, floats=float_checks)
+    record(results, "onehot_probe_scatter",
            lambda s: onehot_matmul.onehot_probe_scatter(
-               s, klo, khi, trows, slo, shi, idx, v_int, n_probe=n_probe),
+               s, b.klo, b.khi, b.trows, b.slo, b.shi, idx, v_int,
+               n_probe=b.n_probe),
            lambda s: ref.onehot_scatter_add(
-               s, probe.probe_rows(klo, khi, trows, slo, shi,
-                                   n_probe=n_probe), idx, v_int),
-           lambda s: s.index_put_(lib_cm_index, lib_cm_vals,
-                                  accumulate=True),
-           cm0, t * 8 + table_b * probe_slots_cm + batch_cm + cm_state_b,
-           cm_updates)
+               s, probe.probe_rows(b.klo, b.khi, b.trows, b.slo, b.shi,
+                                   n_probe=b.n_probe), idx, v_int),
+           lambda s: s.index_put_(lib_index, lib_vals, accumulate=True),
+           cm0, t * 8 + TABLE_B * slots + batch_b + state_b, n_upd)
     del cm0
-    torch.cuda.empty_cache()
+    free()
 
-    # -- HyperLogLog -----------------------------------------------------
-    hll0 = torch.randint(0, 4, (n, m), generator=gen, device=dev,
+    # the data-source fold's fresh sketch: n = 1, every tuple to row 0
+    js_all = torch.arange(d, device=dev)[None, :].expand(idx.shape)
+    fresh_index = (torch.zeros_like(idx, dtype=torch.long), js_all,
+                   idx.long())
+    fresh_vals = v_int[:, None].expand(idx.shape).contiguous()
+    fresh_b = 8 * distinct((js_all * w + idx.long())[v_int != 0])
+    record(results, "onehot_scatter_add@fresh",
+           lambda s: onehot_matmul.onehot_scatter_add(s, b.to_row0, idx,
+                                                      v_int),
+           lambda s: ref.onehot_scatter_add(s, b.to_row0, idx, v_int),
+           lambda s: s.index_put_(fresh_index, fresh_vals, accumulate=True),
+           torch.zeros((1, d, w), device=dev), t * 4 + batch_b + fresh_b,
+           t * d)
+
+
+def phase2_hll(b, n: int, results: dict) -> None:
+    from repro_torch import core
+    from repro_torch.kernels import hll_max, ops, probe, ref
+
+    hll = core.HyperLogLog(rse=0.03)
+    m, t, dev, rows = hll.m, b.t, b.dev, b.rows
+    bucket, raw_rank = ops._hll_prep(b.items, hll.seed, hll.p)
+    rank = torch.where(b.mask, raw_rank, 0).to(torch.int32)
+    hkeep = (rows >= 0) & (rank > 0)
+    lib_flat = rows[hkeep].long() * m + bucket[hkeep].long()
+    lib_src = rank[hkeep]
+    state_b = 8 * distinct(lib_flat)
+    batch_b = t * 4 * 2                             # bucket, rank
+    slots = probed_slots(b, rank > 0)
+    print(f"[phase2] HyperLogLog: n={n} m={m}", flush=True)
+    hll0 = torch.randint(0, 4, (n, m), generator=b.gen, device=dev,
                          dtype=torch.int32)
-    hll_state_b = 8 * hll_touched
-    record("hll_max_update",
+    lib = lambda s: s.view(-1).scatter_reduce_(0, lib_flat, lib_src,
+                                               reduce="amax")
+    record(results, "hll_max_update",
            lambda s: hll_max.hll_max_update(s, rows, bucket, rank),
            lambda s: ref.hll_max_update(s, rows, bucket, rank),
-           lambda s: s.view(-1).scatter_reduce_(0, lib_hll_flat, lib_hll_src,
-                                                reduce="amax"),
-           hll0, t * 4 + batch_hll + hll_state_b, int(hkeep.sum()))
-    record("hll_probe_max_update",
+           lib, hll0, t * 4 + batch_b + state_b, int(hkeep.sum()))
+    record(results, "hll_probe_max_update",
            lambda s: hll_max.hll_probe_max_update(
-               s, klo, khi, trows, slo, shi, bucket, rank, n_probe=n_probe),
+               s, b.klo, b.khi, b.trows, b.slo, b.shi, bucket, rank,
+               n_probe=b.n_probe),
            lambda s: ref.hll_max_update(
-               s, probe.probe_rows(klo, khi, trows, slo, shi,
-                                   n_probe=n_probe), bucket, rank),
-           lambda s: s.view(-1).scatter_reduce_(0, lib_hll_flat, lib_hll_src,
-                                                reduce="amax"),
-           hll0, t * 8 + table_b * probe_slots_hll + batch_hll + hll_state_b,
+               s, probe.probe_rows(b.klo, b.khi, b.trows, b.slo, b.shi,
+                                   n_probe=b.n_probe), bucket, rank),
+           lib, hll0, t * 8 + TABLE_B * slots + batch_b + state_b,
            int(hkeep.sum()))
     del hll0
-    torch.cuda.empty_cache()
+    free()
+    fkeep = rank > 0
+    fresh_flat, fresh_src = bucket[fkeep].long(), rank[fkeep]
+    record(results, "hll_max_update@fresh",
+           lambda s: hll_max.hll_max_update(s, b.to_row0, bucket, rank),
+           lambda s: ref.hll_max_update(s, b.to_row0, bucket, rank),
+           lambda s: s.view(-1).scatter_reduce_(0, fresh_flat, fresh_src,
+                                                reduce="amax"),
+           torch.zeros((1, m), dtype=torch.int32, device=dev),
+           t * 4 + batch_b + 8 * distinct(fresh_flat), int(fkeep.sum()))
+
+
+def record_bitset(b, results, name, kernel, plain, state0, rows, idx, upd,
+                  fused):
+    """Record one bit-set entry (``fused``: the probe runs in the kernel)
+    with its library call and bound."""
+    m = state0.shape[1:].numel()
+    k = idx.shape[1]
+    keep = (rows >= 0) & (upd > 0)
+    pos = idx[keep].long()
+    flat = (rows[keep].long()[:, None] * m + pos).reshape(-1)
+    src = upd[keep][:, None].expand(pos.shape).reshape(-1).contiguous()
+    # rows (or sid halves), idx, upd; touched lanes read and written once
+    n_bytes = b.t * (8 if fused else 4) + b.t * k * 4 + b.t * 4 \
+        + 8 * distinct(flat)
+    if fused:
+        n_bytes += TABLE_B * probed_slots(b, upd > 0)
+    record(results, name, kernel, plain,
+           lambda s: s.view(-1).scatter_reduce_(0, flat, src, reduce="amax"),
+           state0, n_bytes, int(keep.sum()) * k)
+
+
+def phase2_bloom(b, n: int, results: dict) -> None:
+    from repro_torch import core
+    from repro_torch.kernels import bitset_or, probe, ref
+
+    bloom = core.BloomFilter(n_elements=1024, fpr=0.01)
+    m, dev, rows = bloom.n_bits, b.dev, b.rows
+    idx = bloom._positions(b.items)
+    upd = b.mask.to(torch.int32)
+    require(int((upd == 0).sum()) > 0, "batch has no upd-0 lanes")
+    print(f"[phase2] Bloom: n={n} m={m} k={bloom.k} "
+          f"({n * m * 4 / GIB:.1f} GiB)", flush=True)
+    bits0 = (torch.rand((n, m), generator=b.gen, device=dev) > 0.9).to(
+        torch.int32)
+    record_bitset(
+        b, results, "bitset_max_update",
+        lambda s: bitset_or.bitset_max_update(s, rows, idx, upd),
+        lambda s: ref.bitset_max_update(s, rows, idx, upd),
+        bits0, rows, idx, upd, fused=False)
+    record_bitset(
+        b, results, "bitset_probe_max_update",
+        lambda s: bitset_or.bitset_probe_max_update(
+            s, b.klo, b.khi, b.trows, b.slo, b.shi, idx, upd,
+            n_probe=b.n_probe),
+        lambda s: ref.bitset_max_update(
+            s, probe.probe_rows(b.klo, b.khi, b.trows, b.slo, b.shi,
+                                n_probe=b.n_probe), idx, upd),
+        bits0, rows, idx, upd, fused=True)
+    del bits0
+    free()
+
+    # the data-source Bloom's fresh sketch: 2**24 lanes, every tuple
+    src_bloom = core.BloomFilter(n_elements=SRC_BLOOM_ELEMENTS, fpr=0.01)
+    sidx = src_bloom._positions(b.items)
+    record_bitset(
+        b, results, "bitset_max_update@fresh",
+        lambda s: bitset_or.bitset_max_update(s, b.to_row0, sidx, upd),
+        lambda s: ref.bitset_max_update(s, b.to_row0, sidx, upd),
+        torch.zeros((1, src_bloom.n_bits), dtype=torch.int32, device=dev),
+        b.to_row0, sidx, upd, fused=False)
+    free()
+
+    # 64-bit offsets: 2**32 lanes, tuples routed to the last rows (not
+    # timed; kernel and plain copies only)
+    big = 2 * n
+    big_rows = torch.where(rows >= 0, big - 1 - rows, rows)
+    big_rows[:64] = big - 1
+    big_idx = idx.clone()
+    big_idx[:64, 0] = m - 1
+    big_trows = torch.where(b.trows >= 0, big - 1 - b.trows, b.trows)
+    print(f"[phase2] Bloom offset check: n={big} m={m} "
+          f"({big * m / 2**32:.0f} x 2**32 lanes), rows "
+          f"{int(big_rows[big_rows >= 0].min())}..{int(big_rows.max())}",
+          flush=True)
+    k_bits = torch.zeros((big, m), dtype=torch.int32, device=dev)
+    p_bits = torch.zeros((big, m), dtype=torch.int32, device=dev)
+    for label, kern, plain in (
+            ("bitset_max_update",
+             lambda s: bitset_or.bitset_max_update(s, big_rows, big_idx, upd),
+             lambda s: ref.bitset_max_update(s, big_rows, big_idx, upd)),
+            ("bitset_probe_max_update",
+             lambda s: bitset_or.bitset_probe_max_update(
+                 s, b.klo, b.khi, big_trows, b.slo, b.shi, big_idx, upd,
+                 n_probe=b.n_probe),
+             lambda s: ref.bitset_max_update(
+                 s, probe.probe_rows(b.klo, b.khi, big_trows, b.slo, b.shi,
+                                     n_probe=b.n_probe), big_idx, upd))):
+        k_bits.zero_()
+        p_bits.zero_()
+        kern(k_bits)
+        plain(p_bits)
+        torch.cuda.synchronize()
+        equal, err, _ = compare(k_bits, p_bits)
+        set_lanes = sum(int(torch.count_nonzero(k_bits[i:i + 4096]))
+                        for i in range(big // 2, big, 4096))
+        require(equal and set_lanes > 0,
+                f"{label}: kernel disagrees with its plain version on the "
+                f"2**32-lane stack (max abs err {err})")
+        last = int(k_bits[-1, -1])
+        require(last == 1 or label != "bitset_max_update",
+                f"{label}: the stack's last lane was not set")
+        print(f"[phase2] {label}: exact match on the {big} x {m} stack "
+              f"({set_lanes} lanes set in its upper half, last lane "
+              f"{last})", flush=True)
+    del k_bits, p_bits
+    free()
+
+
+def phase2_fm(b, n: int, results: dict) -> None:
+    from repro_torch import core
+    from repro_torch.kernels import fm_bitmap, probe, ref
+
+    fm = core.FMSketch()
+    maps, bits, dev, rows = fm.nmaps, fm.bitmap_size, b.dev, b.rows
+    which, pos = fm._which_pos(b.items)
+    upd = b.mask.to(torch.int32)
+    flat_pos = torch.add(pos, which, alpha=bits)[:, None]
+    print(f"[phase2] FM: n={n} maps={maps} bits={bits}", flush=True)
+    fm0 = (torch.rand((n, maps, bits), generator=b.gen, device=dev)
+           > 0.9).to(torch.int32)
+    record_bitset(
+        b, results, "fm_bit_update",
+        lambda s: fm_bitmap.fm_bit_update(s, rows, which, pos, upd),
+        lambda s: ref.bitset_max_update(s.view(n, -1), rows, flat_pos, upd),
+        fm0, rows, flat_pos, upd, fused=False)
+    record_bitset(
+        b, results, "fm_probe_bit_update",
+        lambda s: fm_bitmap.fm_probe_bit_update(
+            s, b.klo, b.khi, b.trows, b.slo, b.shi, which, pos, upd,
+            n_probe=b.n_probe),
+        lambda s: ref.bitset_max_update(
+            s.view(n, -1), probe.probe_rows(b.klo, b.khi, b.trows, b.slo,
+                                            b.shi, n_probe=b.n_probe),
+            flat_pos, upd),
+        fm0, rows, flat_pos, upd, fused=True)
+    del fm0
+    free()
+    record_bitset(
+        b, results, "fm_bit_update@fresh",
+        lambda s: fm_bitmap.fm_bit_update(s, b.to_row0, which, pos, upd),
+        lambda s: ref.bitset_max_update(s.view(1, -1), b.to_row0, flat_pos,
+                                        upd),
+        torch.zeros((1, maps, bits), dtype=torch.int32, device=dev),
+        b.to_row0, flat_pos, upd, fused=False)
+
+
+def phase2(dev, seed: int, n: int, n_streams: int, t: int) -> dict:
+    torch.cuda.reset_peak_memory_stats()
+    b = phase2_batch(dev, seed, n_streams, t)
+    results: dict = {}
+    for part in (phase2_countmin, phase2_hll, phase2_bloom, phase2_fm):
+        part(b, n, results)
+        free()
+    peak_gib("phase2")
     return results
 
 
 # ---------------------------------------------------------------------------
 # phase 3: the main path through SDE.handle, held against a plain replay
 # ---------------------------------------------------------------------------
-ENTRY_POINTS = ("onehot_scatter_add", "onehot_probe_scatter",
-                "hll_max_update", "hll_probe_max_update")
+# JSON name -> (wrapper module, wrapper, source, TPU kernel it replaces);
+# a "@fresh" row reads the wrapper's one-row launches (data-source folds)
+ENTRY_POINTS = {
+    "onehot_scatter_add": ("onehot_matmul", "onehot_scatter_add",
+                           "countmin_scatter.cu", "onehot_matmul.py:61"),
+    "onehot_scatter_add@fresh": ("onehot_matmul", "onehot_scatter_add",
+                                 "countmin_scatter.cu", "onehot_matmul.py:61"),
+    "onehot_probe_scatter": ("onehot_matmul", "onehot_probe_scatter",
+                             "countmin_scatter.cu", "onehot_matmul.py:139"),
+    "hll_max_update": ("hll_max", "hll_max_update", "hll_max.cu",
+                       "hll_max.py:52"),
+    "hll_max_update@fresh": ("hll_max", "hll_max_update", "hll_max.cu",
+                             "hll_max.py:52"),
+    "hll_probe_max_update": ("hll_max", "hll_probe_max_update", "hll_max.cu",
+                             "hll_max.py:116"),
+    "bitset_max_update": ("bitset_or", "bitset_max_update", "bitset_or.cu",
+                          "bitset_or.py:66"),
+    "bitset_max_update@fresh": ("bitset_or", "bitset_max_update",
+                                "bitset_or.cu", "bitset_or.py:66"),
+    "bitset_probe_max_update": ("bitset_or", "bitset_probe_max_update",
+                                "bitset_or.cu", "bitset_or.py:120"),
+    "fm_bit_update": ("fm_bitmap", "fm_bit_update", "bitset_or.cu",
+                      "fm_bitmap.py:38"),
+    "fm_bit_update@fresh": ("fm_bitmap", "fm_bit_update", "bitset_or.cu",
+                            "fm_bitmap.py:38"),
+    "fm_probe_bit_update": ("fm_bitmap", "fm_probe_bit_update",
+                            "bitset_or.cu", "fm_bitmap.py:52"),
+}
 
 
 def wrappers() -> dict:
-    from repro_torch.kernels import hll_max, onehot_matmul
-    return {"onehot_scatter_add": onehot_matmul.onehot_scatter_add,
-            "onehot_probe_scatter": onehot_matmul.onehot_probe_scatter,
-            "hll_max_update": hll_max.hll_max_update,
-            "hll_probe_max_update": hll_max.hll_probe_max_update}
+    import importlib
+    return {name: getattr(importlib.import_module(
+        f"repro_torch.kernels.{mod}"), fn)
+        for name, (mod, fn, _, _) in ENTRY_POINTS.items()}
+
+
+def reset_launches() -> None:
+    for fn in wrappers().values():
+        fn.launches = 0
+        if hasattr(fn, "one_row_launches"):
+            fn.one_row_launches = 0
+
+
+def read_launches() -> dict:
+    return {name: (fn.one_row_launches if name.endswith("@fresh")
+                   else fn.launches) for name, fn in wrappers().items()}
+
+
+def profile_batches(sde, batches, first: int) -> None:
+    """Ingest ``batches`` under torch.profiler; print wall and device-busy
+    ms per batch, the idle share and the top 10 device kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i, (sids, vals) in enumerate(batches):
+            os.environ["SDE_FUSED_PROBE"] = "1" if i % 2 == 0 else "0"
+            r = sde.handle({"type": "ingest", "request_id": f"p{first + i}",
+                            "stream_ids": sids.tolist(),
+                            "values": vals.tolist()})
+            require(r.ok, f"profiled ingest failed: {r.error}")
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    nb = len(batches)
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in dev_events)
+    busy_us, end = 0.0, -1.0
+    for s, e in spans:                      # union of device intervals
+        if e > end:
+            busy_us += e - max(s, end)
+            end = e
+    by_name: dict = {}
+    for e in dev_events:
+        tot, cnt = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (tot + e.time_range.elapsed_us(), cnt + 1)
+    busy_ms = busy_us / 1e3
+    print(f"[phase3] profiled {nb} batches (torch.profiler, fused then "
+          f"unfused): {wall_ms / nb:.4f} ms wall per batch, device busy "
+          f"{busy_ms / nb:.4f} ms per batch, idle share "
+          f"{1 - busy_ms / wall_ms:.4f}, {len(dev_events) / nb:.1f} device "
+          f"activities per batch", flush=True)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    for name, (tot, cnt) in top:
+        print(f"[phase3]   {tot / 1e3 / nb:.4f} ms/batch in {cnt / nb:g} "
+              f"launches/batch: {name[:110]}", flush=True)
+    require(dev_events, "torch.profiler recorded no device activity")
 
 
 def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
-           n_queries: int) -> dict:
-    from repro_torch import core
+           n_queries: int, n_profiled: int = 2) -> dict:
     from repro_torch.core import batched
     from repro_torch.kernels import probe
     from repro_torch.service import SDE, routing
 
+    torch.cuda.reset_peak_memory_stats()
     rng = np.random.RandomState(seed + 1)
     pop = np.unique(rng.randint(0, 2**63 - 1, size=n_streams, dtype=np.int64))
     cm_params = {"eps": 0.002, "delta": 0.01}
     hll_params = {"rse": 0.03}
-    batches = [make_batch(rng, pop, t) for _ in range(n_batches)]
-    for fn in wrappers().values():
-        fn.launches = 0                      # counts of the main path only
+    bloom_params = {"n_elements": 1024, "fpr": 0.01}
+    src_bloom_params = {"n_elements": SRC_BLOOM_ELEMENTS, "fpr": 0.01}
+    batches = [make_batch(rng, pop, t) for _ in range(n_batches + n_profiled)]
+    reset_launches()                         # counts of the main path only
 
     sde = SDE(device=dev)
     ids = [int(s) for s in pop]
-    for req in (
-            {"type": "build", "request_id": "b-cm", "synopsis_id": "cm",
-             "kind": "countmin", "params": cm_params,
-             "per_stream_of_source": True, "stream_ids": ids},
-            {"type": "build", "request_id": "b-hll", "synopsis_id": "hll",
-             "kind": "hyperloglog", "params": hll_params,
-             "per_stream_of_source": True, "stream_ids": ids},
-            {"type": "build", "request_id": "b-src-cm",
-             "synopsis_id": "src-cm", "kind": "countmin",
-             "params": cm_params},
-            {"type": "build", "request_id": "b-src-hll",
-             "synopsis_id": "src-hll", "kind": "hyperloglog",
-             "params": hll_params},
-            {"type": "build", "request_id": "b-cq", "synopsis_id": "cq-hll",
-             "kind": "hyperloglog", "params": hll_params,
-             "continuous": True}):
-        r = sde.handle(req)
-        require(r.ok, f"build {req['synopsis_id']} failed: {r.error}")
+    per_stream = dict(per_stream_of_source=True, stream_ids=ids)
+    for sid, kind, params, extra in (
+            ("cm", "countmin", cm_params, per_stream),
+            ("hll", "hyperloglog", hll_params, per_stream),
+            ("bloom", "bloom", bloom_params, per_stream),
+            ("fm", "fm", {}, per_stream),
+            ("src-cm", "countmin", cm_params, {}),
+            ("src-hll", "hyperloglog", hll_params, {}),
+            ("src-bloom", "bloom", src_bloom_params, {}),
+            ("src-fm", "fm", {}, {}),
+            ("cq-hll", "hyperloglog", hll_params, {"continuous": True}),
+            ("cq-fm", "fm", {}, {"continuous": True})):
+        r = sde.handle({"type": "build", "request_id": f"b-{sid}",
+                        "synopsis_id": sid, "kind": kind, "params": params,
+                        **extra})
+        require(r.ok, f"build {sid} failed: {r.error}")
+    for kind, stack in sde.stacks.items():
+        print(f"[phase3] stack {type(kind).__name__} "
+              f"{tuple(stack.state.shape)} "
+              f"({stack.state.numel() * 4 / GIB:.2f} GiB)", flush=True)
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for b, (sids, vals) in enumerate(batches):
+    for b, (sids, vals) in enumerate(batches[:n_batches]):
         os.environ["SDE_FUSED_PROBE"] = "1" if b % 2 == 0 else "0"
         r = sde.handle({"type": "ingest", "request_id": f"i{b}",
                         "stream_ids": sids.tolist(),
@@ -337,71 +687,109 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
         require(r.ok, f"ingest {b} failed: {r.error}")
     torch.cuda.synchronize()
     ingest_s = time.perf_counter() - t0
+    profile_batches(sde, batches[n_batches:], n_batches)
     os.environ.pop("SDE_FUSED_PROBE", None)
 
     # exact answers: each per-stream CM row only ever sees its own item,
-    # so its point estimate is the stream's exact total weight
+    # so its point estimate is the stream's exact total weight; each
+    # per-stream Bloom holds its own id once that stream was ingested
     all_s = np.concatenate([s for s, _ in batches])
     all_v = np.concatenate([v for _, v in batches])
     uniq, inverse = np.unique(all_s, return_inverse=True)
     totals = np.bincount(inverse, weights=all_v)
     q_streams = pop[zipf_streams(rng, len(pop), n_queries)]
-    queries = [{"synopsis_id": f"cm/{int(s)}", "query": {"items": [int(s)]}}
-               for s in q_streams]
+    ingested = np.intersect1d(pop, all_s)
+    b_streams = rng.choice(ingested, size=n_queries, replace=False)
+    items = np.unique(routing.fold64(all_s[all_s >= 0]))
+    fresh_ids = rng.randint(0, 2**62, size=4 * n_queries, dtype=np.int64)
+    fresh_ids = fresh_ids[~np.isin(routing.fold64(fresh_ids), items)]
+    fresh_ids = fresh_ids[:n_queries]
+    queries = ([{"synopsis_id": f"cm/{int(s)}", "query": {"items": [int(s)]}}
+                for s in q_streams]
+               + [{"synopsis_id": f"bloom/{int(s)}",
+                   "query": {"items": [int(s)]}} for s in b_streams]
+               + [{"synopsis_id": "src-bloom",
+                   "query": {"items": items.tolist()}},
+                  {"synopsis_id": "src-bloom",
+                   "query": {"items": fresh_ids.tolist()}},
+                  {"synopsis_id": f"bloom/{int(b_streams[0])}",
+                   "query": {"items": fresh_ids.tolist()}}])
     t0 = time.perf_counter()
     r = sde.handle({"type": "query_many", "request_id": "qm",
                     "queries": queries})
-    hll_r = [sde.handle({"type": "adhoc", "request_id": f"h{k}",
-                         "synopsis_id": sid})
-             for k, sid in enumerate(("src-hll", f"hll/{ids[0]}",
-                                      "cq-hll"))]
+    adhoc = {sid: sde.handle({"type": "adhoc", "request_id": f"a-{sid}",
+                              "synopsis_id": sid})
+             for sid in ("src-hll", f"hll/{ids[0]}", "cq-hll", "src-fm",
+                         f"fm/{ids[0]}", "cq-fm")}
     torch.cuda.synchronize()
     query_s = time.perf_counter() - t0
+    n_answered = len(queries) + len(adhoc)
     require(r.ok, f"query_many failed: {r.error}")
-    got = np.asarray([float(q["value"][0]) for q in r.value])
+    vals = [q["value"] for q in r.value]
+    got = np.asarray([float(v[0]) for v in vals[:n_queries]])
     pos = np.minimum(np.searchsorted(uniq, q_streams), len(uniq) - 1)
     want = np.where(uniq[pos] == q_streams, totals[pos], 0.0)
     require(np.array_equal(got, want), "CM answers differ from exact sums")
-    for h in hll_r:
+    own = np.concatenate(vals[n_queries:2 * n_queries])
+    require(own.dtype == bool and own.all(),
+            "a per-stream Bloom misses its own ingested id")
+    src_all, src_fp, own_fp = vals[2 * n_queries:]
+    require(len(src_all) == len(items) and src_all.all(),
+            "the data-source Bloom misses an ingested id")
+    for sid, h in adhoc.items():
         require(h.ok and np.isfinite(float(h.value)),
-                f"HLL adhoc failed: {h.error}")
-    distinct = len(np.unique(routing.fold64(all_s[all_s >= 0])))
-    rel = float(hll_r[0].value) / distinct - 1.0
-    require(abs(rel) < 0.15, f"data-source HLL off by {rel:.3f}")
-    require(len(sde.continuous_out) == n_batches,
-            "one continuous response per batch expected")
-    launches = {name: fn.launches for name, fn in wrappers().items()}
+                f"adhoc {sid} failed: {h.error}")
+    n_distinct = len(items)
+    rel = {sid: float(adhoc[sid].value) / n_distinct - 1.0
+           for sid in ("src-hll", "cq-hll", "src-fm", "cq-fm")}
+    print(f"[phase3] exact: {n_queries} CM totals; {n_queries} per-stream "
+          f"Blooms hold their own id; src-bloom holds all {n_distinct} "
+          f"ingested ids; false positives on {len(fresh_ids)} never-ingested"
+          f" ids: src-bloom {int(src_fp.sum())}, bloom/<one stream> "
+          f"{int(own_fp.sum())}; relative errors vs {n_distinct} distinct: "
+          + ", ".join(f"{k} {v:+.4f}" for k, v in rel.items()), flush=True)
+    require(abs(rel["src-hll"]) < 0.15, f"data-source HLL off by "
+                                        f"{rel['src-hll']:.3f}")
+    require(abs(rel["src-fm"]) < 0.35, f"data-source FM off by "
+                                       f"{rel['src-fm']:.3f}")
+    require(len(sde.continuous_out) == 2 * (n_batches + n_profiled),
+            "one continuous response per continuous query and batch "
+            "expected")
+    launches = read_launches()
 
     # plain replay on the card: route_probe + batched.stacked_update
+    dt = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     for kind, stack in sde.stacks.items():
         replay = batched.stacked_init(kind, stack.capacity, dev)
         klo, khi, trows = stack.device_table()
         src = stack.source_rows_idx()
-        for sids, vals in batches:
+        for sids, vals_b in batches:
             sid64 = sids.astype(np.int64)
             lo, hi = routing.split64(sid64)
-            dt = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
             rows = probe.probe_rows(klo, khi, trows, dt(lo.view(np.int32)),
                                     dt(hi.view(np.int32)),
                                     n_probe=stack.n_probe)
             batched.stacked_update(
                 kind, replay, rows,
-                dt(routing.fold64(sid64).view(np.int32)), dt(vals),
+                dt(routing.fold64(sid64).view(np.int32)), dt(vals_b),
                 dt(sid64 >= 0), src)
-        require(torch.equal(stack.state, replay),
-                f"{type(kind).__name__} engine state differs from the "
-                "plain replay")
-        print(f"[phase3] {type(kind).__name__} stack {tuple(stack.state.shape)}"
-              f" equals the plain replay", flush=True)
+        equal, err, _ = compare(stack.state, replay)
+        require(equal, f"{type(kind).__name__} engine state differs from "
+                       f"the plain replay (max abs err {err})")
+        print(f"[phase3] {type(kind).__name__} stack "
+              f"{tuple(stack.state.shape)} equals the plain replay",
+              flush=True)
         del replay
+        free()
     n_tuples = n_batches * t
     print(f"[phase3] {n_batches} batches x {t} tuples in {ingest_s:.4f} s = "
           f"{n_tuples / ingest_s:.1f} tuples/s (host clock, synchronized); "
-          f"{n_queries} CM + 3 HLL queries in {query_s:.4f} s = "
-          f"{(n_queries + 3) / query_s:.1f} queries/s", flush=True)
+          f"{n_answered} queries in {query_s:.4f} s = "
+          f"{n_answered / query_s:.1f} queries/s", flush=True)
     print(f"[phase3] launches: {launches}", flush=True)
     sde.close()
-    torch.cuda.empty_cache()
+    free()
+    peak_gib("phase3")
     return launches
 
 
@@ -423,38 +811,38 @@ def main() -> None:
     print(f"[phase1] torch {torch.__version__} cuda {torch.version.cuda} "
           f"on {torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
-    build.build(["countmin_scatter", "hll_max"])
+    build.build(["countmin_scatter", "hll_max", "bitset_or"])
     print(f"[phase1] kernels built in {time.perf_counter() - t0:.2f} s",
           flush=True)
     for name, log in build.BUILD_LOG.items():
         for line in log.strip().splitlines():
             print(f"[phase1] {name}: {line}", flush=True)
+    peak_gib("phase1")
 
     n_streams, t = 65536, 65536
+    t0 = time.perf_counter()
     timings = phase2(dev, args.seed, 2 * n_streams, n_streams, t)
+    print(f"[phase2] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
     launches = phase3(dev, args.seed, n_streams, t, n_batches=16,
                       n_queries=1024)
+    print(f"[phase3] done in {time.perf_counter() - t0:.1f} s", flush=True)
     for name in ENTRY_POINTS:
         require(launches[name] > 0,
                 f"{name} was not launched on the main path")
 
-    sources = {"onehot_scatter_add": ("countmin_scatter.cu",
-                                      "onehot_matmul.py:61"),
-               "onehot_probe_scatter": ("countmin_scatter.cu",
-                                        "onehot_matmul.py:139"),
-               "hll_max_update": ("hll_max.cu", "hll_max.py:52"),
-               "hll_probe_max_update": ("hll_max.cu", "hll_max.py:116")}
     kernels = []
-    for name in ENTRY_POINTS:
-        src, ref = sources[name]
+    for name, (_, _, src, replaced) in ENTRY_POINTS.items():
         r = timings[name]
         kernels.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{src}",
-            replaces=f"src/repro/kernels/{ref}", launches=launches[name],
-            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"]))
+            replaces=f"src/repro/kernels/{replaced}",
+            launches=launches[name], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            device_ms=r["device_ms"], plain_device_ms=r["plain_device_ms"],
+            library_device_ms=r["library_device_ms"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,7 +33,9 @@ def tree_leaves(tree: Any) -> list:
     return list(tree.values()) if isinstance(tree, dict) else [tree]
 
 
-def stacked_init(kind: Synopsis, capacity: int, device=None) -> Any:
+def stacked_init(kind: Synopsis, capacity: int, device) -> Any:
+    """``capacity`` copies of the kind's empty state on ``device`` (no
+    default: nothing is allocated on a device the caller did not name)."""
     proto = kind.init(device)
     return tree_map(
         lambda x: x.expand((capacity,) + tuple(x.shape)).clone(), proto)

@@ -47,7 +47,7 @@ class CountMin:
     def _seeds(self) -> torch.Tensor:
         return hashing.as_u32(hashing.row_seeds(self.seed, self.depth))
 
-    def init(self, device=None) -> torch.Tensor:
+    def init(self, device) -> torch.Tensor:
         return torch.zeros((self.depth, self.width), dtype=torch.float32,
                            device=device)
 

@@ -44,7 +44,7 @@ class HyperLogLog:
     def m(self) -> int:
         return 1 << self.p
 
-    def init(self, device=None) -> torch.Tensor:
+    def init(self, device) -> torch.Tensor:
         return torch.zeros((self.m,), dtype=torch.int32, device=device)
 
     def _bucket_rank(self, items):

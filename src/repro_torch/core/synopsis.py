@@ -3,7 +3,7 @@
 A synopsis *kind* is a frozen dataclass holding static parameters (Table 1
 of the paper) and exposing the paper's methods over tensors:
 
-    init(device)                             -> state
+    init(device)                             -> state   (device required)
     add_batch(state, items, values, mask)    -> state   (in place)
     estimate(state, ...)                     -> estimation
     merge(a, b)                              -> state
@@ -23,7 +23,7 @@ from typing import Any, Callable, Dict, Protocol, runtime_checkable
 class Synopsis(Protocol):
     """Structural protocol every synopsis kind satisfies."""
 
-    def init(self, device=None) -> Any: ...
+    def init(self, device) -> Any: ...
 
     def add_batch(self, state: Any, items: Any, values: Any,
                   mask: Any) -> Any: ...

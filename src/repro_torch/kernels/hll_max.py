@@ -9,7 +9,8 @@ is a direct ``atomicMax`` scatter written by hand in ``csrc/hll_max.cu``
 Both entry points update ``regs`` in place and need no padding. On a CPU
 tensor each wrapper runs the plain version (``ref.py``, with the probe
 from ``probe.py``); on a CUDA tensor it launches the kernel or raises.
-``<wrapper>.launches`` counts kernel launches.
+``<wrapper>.launches`` counts kernel launches, and
+``hll_max_update.one_row_launches`` those on a one-row state.
 """
 from __future__ import annotations
 
@@ -59,10 +60,13 @@ def hll_max_update(regs: torch.Tensor, syn_idx: torch.Tensor,
         rank.data_ptr(), t, build.stream(regs.device))
     build.check_launch(err, "hll_max_update")
     hll_max_update.launches += 1
+    hll_max_update.one_row_launches += n == 1
     return regs
 
 
 hll_max_update.launches = 0
+# of those, launches on a one-row state: the data-source fresh sketch
+hll_max_update.one_row_launches = 0
 
 
 def hll_probe_max_update(regs: torch.Tensor, keys_lo: torch.Tensor,

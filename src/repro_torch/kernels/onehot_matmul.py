@@ -14,7 +14,8 @@ padding: the kernel masks its own ragged edge.
 
 On a CPU tensor each wrapper runs the plain version (``ref.py``, with the
 probe from ``probe.py``). On a CUDA tensor it launches the kernel or
-raises. ``<wrapper>.launches`` counts kernel launches.
+raises. ``<wrapper>.launches`` counts kernel launches, and
+``onehot_scatter_add.one_row_launches`` those on a one-row state.
 """
 from __future__ import annotations
 
@@ -69,10 +70,13 @@ def onehot_scatter_add(counts: torch.Tensor, syn_idx: torch.Tensor,
         values.data_ptr(), build.ptr(signs), t, build.stream(counts.device))
     build.check_launch(err, "cm_scatter")
     onehot_scatter_add.launches += 1
+    onehot_scatter_add.one_row_launches += n == 1
     return counts
 
 
 onehot_scatter_add.launches = 0
+# of those, launches on a one-row state: the data-source fresh sketch
+onehot_scatter_add.one_row_launches = 0
 
 
 def onehot_probe_scatter(counts: torch.Tensor, keys_lo: torch.Tensor,

@@ -15,13 +15,14 @@ Differences from the reference:
   * The data-source fold builds the batch's fresh single sketch with the
     SAME kernel (n = 1, every tuple routed to row 0) and then applies it to
     the distinct source rows with ``index_add_`` (CM) or
-    ``torch.maximum`` (HLL). The reference computes it with a plain
-    scatter, which on the card would sum floats in no fixed order.
-  * Bucket hashing and ``_hll_prep`` are plain torch ops on the state's
-    device, as the reference keeps them outside its Pallas kernels.
+    ``torch.maximum`` (HLL, Bloom, FM). The reference computes it with a
+    plain scatter, which on the card would sum floats in no fixed order.
+  * Bucket hashing, ``_hll_prep`` and FM's ``_which_pos`` are plain torch
+    ops on the state's device, as the reference keeps them outside its
+    Pallas kernels.
 
 Not yet ported: the sharded, collective, merged and subpopulation
-estimate paths, and the Bloom / FM / RHP / AMS kernels.
+estimate paths, and the RHP / AMS kernels.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from repro_torch.core import batched, hashing
-from . import hll_max, onehot_matmul, probe
+from . import bitset_or, fm_bitmap, hll_max, onehot_matmul, probe
 
 _FALSY = ("0", "false", "no", "off")
 
@@ -67,6 +68,20 @@ def _source_fold(out: torch.Tensor, idx: torch.Tensor, values: torch.Tensor,
     onehot_matmul.onehot_scatter_add(fresh, to_row0, idx, values, signs)
     out.index_add_(0, source_rows, fresh.expand(source_rows.shape[0], d, w))
     return out
+
+
+def _max_fold(state: torch.Tensor, source_rows: torch.Tensor,
+              kernel: Callable, *args: torch.Tensor) -> None:
+    """Max the batch's fresh single sketch into the data-source rows of a
+    max-merge stack, in place: ``kernel(fresh, to_row0, *args)`` runs the
+    kind's rows-given wrapper on a one-row zero state with every tuple
+    routed to row 0 (``args`` lead with the batch axis)."""
+    fresh = torch.zeros((1,) + tuple(state.shape[1:]), dtype=state.dtype,
+                        device=state.device)
+    to_row0 = torch.zeros((args[0].shape[0],), dtype=torch.int32,
+                          device=state.device)
+    kernel(fresh, to_row0, *args)
+    state[source_rows] = torch.maximum(state[source_rows], fresh)
 
 
 # ---------------------------------------------------------------------------
@@ -168,15 +183,48 @@ def _hll_kernel(kind, fuse):
             syn = route_probe(klo, khi, trows, slo, shi, n_probe=n_probe)
             hll_max.hll_max_update(state, syn, bucket, rank)
         if src_rows is not None:
-            fresh = torch.zeros((1, state.shape[1]), dtype=torch.int32,
-                                device=state.device)
-            to_row0 = torch.zeros(rank.shape, dtype=torch.int32,
-                                  device=state.device)
-            hll_max.hll_max_update(fresh, to_row0, bucket, rank)
-            state[src_rows] = torch.maximum(state[src_rows], fresh)
+            _max_fold(state, src_rows, hll_max.hll_max_update, bucket, rank)
+        return state
+    return fn
+
+
+def _bloom_kernel(kind, fuse):
+    def fn(state, klo, khi, trows, slo, shi, items, vals, msk, src_rows, *,
+           n_probe):
+        idx = hashing.bucket_hash(items, kind._seeds(), kind.log2_bits)
+        upd = msk.to(torch.int32)
+        if fuse:
+            bitset_or.bitset_probe_max_update(state, klo, khi, trows, slo,
+                                              shi, idx, upd, n_probe=n_probe)
+        else:
+            syn = route_probe(klo, khi, trows, slo, shi, n_probe=n_probe)
+            bitset_or.bitset_max_update(state, syn, idx, upd)
+        if src_rows is not None:
+            # every tuple of the batch, routed or not, as the reference's
+            _max_fold(state, src_rows, bitset_or.bitset_max_update, idx, upd)
+        return state
+    return fn
+
+
+def _fm_kernel(kind, fuse):
+    def fn(state, klo, khi, trows, slo, shi, items, vals, msk, src_rows, *,
+           n_probe):
+        which, pos = kind._which_pos(items)
+        upd = msk.to(torch.int32)
+        if fuse:
+            fm_bitmap.fm_probe_bit_update(state, klo, khi, trows, slo, shi,
+                                          which, pos, upd, n_probe=n_probe)
+        else:
+            syn = route_probe(klo, khi, trows, slo, shi, n_probe=n_probe)
+            fm_bitmap.fm_bit_update(state, syn, which, pos, upd)
+        if src_rows is not None:
+            _max_fold(state, src_rows, fm_bitmap.fm_bit_update, which, pos,
+                      upd)
         return state
     return fn
 
 
 register_update_kernel("countmin_scatter", _countmin_kernel)
 register_update_kernel("hll_max", _hll_kernel)
+register_update_kernel("bloom_bitset", _bloom_kernel)
+register_update_kernel("fm_bitmap", _fm_kernel)

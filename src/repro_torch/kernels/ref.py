@@ -1,8 +1,9 @@
-"""Plain PyTorch versions of the hand-written kernels (port of the two
-scatter oracles in ``repro/kernels/ref.py``).
+"""Plain PyTorch versions of the hand-written kernels (port of the
+scatter oracles in ``repro/kernels/ref.py``, and of the one-hot max cube
+of ``repro/kernels/bitset_or.py``, which has no oracle there).
 
 The wrappers run these on CPU tensors; ``chip_smoke.py`` holds each CUDA
-kernel against them on the card. Both update in place.
+kernel against them on the card. All update in place.
 
 Unlike the reference oracle, whose ``.at[-1]`` wraps a ``syn_idx = -1``
 tuple onto the LAST row, these drop rows outside ``[0, n)``, as the
@@ -43,3 +44,20 @@ def hll_max_update(regs: torch.Tensor, syn_idx: torch.Tensor,
     flat = syn_idx[keep].long() * m + bucket[keep].long()
     regs.view(-1).scatter_reduce_(0, flat, rank[keep], reduce="amax")
     return regs
+
+
+def bitset_max_update(bits: torch.Tensor, syn_idx: torch.Tensor,
+                      idx: torch.Tensor, upd: torch.Tensor) -> torch.Tensor:
+    """``bits[s, idx[t, h]] = max(bits[s, idx[t, h]], upd[t])`` for every
+    tuple t with ``syn_idx[t] = s`` in ``[0, n)``, every h < k whose
+    position lies in ``[0, m)``, and ``upd[t] > 0`` (the rows, positions
+    and values the reference's one-hot cube matches).
+    bits [n, m] i32; syn_idx [T] i32; idx [T, k] i32; upd [T] i32."""
+    n, m = bits.shape
+    keep = (syn_idx >= 0) & (syn_idx < n) & (upd > 0)
+    pos = idx[keep].long()
+    flat = syn_idx[keep].long()[:, None] * m + pos
+    vals = upd[keep][:, None].expand(pos.shape)
+    ok = (pos >= 0) & (pos < m)
+    bits.view(-1).scatter_reduce_(0, flat[ok], vals[ok], reduce="amax")
+    return bits

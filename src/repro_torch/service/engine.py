@@ -9,9 +9,10 @@ service maintaining thousands of synopses for thousands of streams.
   * red path: ``handle(request)`` adhoc queries and ``query_many`` --
     one stacked-estimate call per kind answers every query of that kind.
 
-This slice serves CountMin and HyperLogLog: build (per stream, per
-stream of a source, data source), ingest, adhoc, query_many, stop,
-status, flush and shutdown, with continuous queries emitted eagerly.
+The port serves CountMin, HyperLogLog, Bloom and FM so far: build (per
+stream, per stream of a source, data source), ingest, adhoc, query_many,
+stop, status, flush and shutdown, with continuous queries emitted
+eagerly.
 
 Differences from the reference:
 
@@ -538,7 +539,7 @@ class SDE:
 # blue-path update: the kind's registry kernel (probe fused unless
 # SDE_FUSED_PROBE is off), routed rows and data-source rows in one call,
 # state updated in place. There is no plain fallback for kinds without a
-# kernel: every kind of this slice declares one.
+# kernel: every kind ported so far declares one.
 # ---------------------------------------------------------------------------
 def _update(kind, n_probe, state, klo, khi, trows, sid_lo, sid_hi, items,
             vals, msk, src_rows=None):
@@ -553,12 +554,12 @@ def _update(kind, n_probe, state, klo, khi, trows, sid_lo, sid_hi, items,
 
 # ---------------------------------------------------------------------------
 # red-path query planning: normalize N query dicts for one kind into padded
-# batched device args + a per-query result slicer. CountMin takes per-query
-# ``items`` as ONE [N, L] arg (L = padded max arg length); HyperLogLog is
-# arg-free and returns its estimate per row.
+# batched device args + a per-query result slicer. CountMin and Bloom take
+# per-query ``items`` as ONE [N, L] arg (L = padded max arg length);
+# HyperLogLog and FM are arg-free and return their estimate per row.
 # ---------------------------------------------------------------------------
 
-_ITEM_KINDS = (core.CountMin,)
+_ITEM_KINDS = (core.CountMin, core.BloomFilter)
 
 _next_pow2 = routing.next_pow2
 

@@ -1,5 +1,7 @@
 """Carry a JAX engine's contents into the port (``repro_torch.convert``)
-after 2 batches, ingest 2 more into both, and hold the states equal."""
+after 2 batches, ingest 2 more into both, and hold the states equal:
+CountMin, HyperLogLog, Bloom and FM stacks, per-stream, data-source and
+continuous entries."""
 import numpy as np
 import pytest
 
@@ -46,6 +48,17 @@ def test_converted_engine_keeps_ingesting_like_the_reference(monkeypatch,
              "kind": "countmin", "params": {"eps": 0.05, "delta": 0.1}},
             {"type": "build", "request_id": "4", "synopsis_id": "cq",
              "kind": "hyperloglog", "params": {"rse": 0.1},
+             "continuous": True},
+            {"type": "build", "request_id": "5", "synopsis_id": "bloom",
+             "kind": "bloom", "params": {"n_elements": 64, "fpr": 0.05},
+             "per_stream_of_source": True, "stream_ids": ids[10:]},
+            {"type": "build", "request_id": "6", "synopsis_id": "src-bloom",
+             "kind": "bloom", "params": {"n_elements": 64, "fpr": 0.05}},
+            {"type": "build", "request_id": "7", "synopsis_id": "fm",
+             "kind": "fm", "params": {"nmaps": 8, "bitmap_size": 16},
+             "per_stream_of_source": True, "stream_ids": ids[:30]},
+            {"type": "build", "request_id": "8", "synopsis_id": "cq-fm",
+             "kind": "fm", "params": {"nmaps": 8, "bitmap_size": 16},
              "continuous": True}):
         assert je.handle(req).ok
     batches = []
@@ -65,7 +78,8 @@ def test_converted_engine_keeps_ingesting_like_the_reference(monkeypatch,
     for sid in je.entries:
         assert np.array_equal(np.asarray(je.state_of(sid)),
                               te.state_of(sid).numpy()), sid
-    assert [r.request_id for r in je.continuous_out][-2:] == \
+    # two continuous queries x the 2 batches ingested after the carry
+    assert [r.request_id for r in je.continuous_out][-4:] == \
         [r.request_id for r in te.continuous_out]
     r = te.handle({"type": "adhoc", "request_id": "q",
                    "synopsis_id": f"cm/{ids[4]}",
@@ -74,3 +88,7 @@ def test_converted_engine_keeps_ingesting_like_the_reference(monkeypatch,
                       "synopsis_id": f"cm/{ids[4]}",
                       "query": {"items": [ids[4]]}})
     assert r.ok and np.array_equal(r.value, want.value)
+    q = {"type": "adhoc", "request_id": "b", "synopsis_id": "src-bloom",
+         "query": {"items": ids + [1, 2]}}
+    r, want = te.handle(dict(q)), je.handle(dict(q))
+    assert r.ok and list(r.value) == list(want.value)

@@ -3,7 +3,9 @@ the card, at edge shapes the main path does not reach: tiny and ragged
 stacks (n = 1 spreads a block over bucket slices), depths 1 to 30 (deep
 sketches stage fewer tuples per chunk in more shared memory), batches
 below, at and above one 1024-tuple chunk, count-sketch signs, float
-weights. Needs a card; run there with
+weights; for the bit-set kernel empty batches, k = 1, positions at
+m - 1, a probe bound of 1 and a stack past 2**31 lanes. Needs a card;
+run there with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -13,7 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import hll_max, onehot_matmul, probe, ref
+from repro_torch.kernels import (bitset_or, fm_bitmap, hll_max, onehot_matmul,
+                                 probe, ref)
 from repro_torch.service import routing
 
 pytestmark = pytest.mark.cuda
@@ -118,3 +121,107 @@ def test_wrappers_count_launches_and_reject_cpu_operands(dev):
     with pytest.raises(TypeError):
         onehot_matmul.onehot_scatter_add(counts, rows, idx, vals.double())
     assert onehot_matmul.onehot_scatter_add.launches == before + 1
+
+
+@pytest.mark.parametrize("n,m,t,k", [(1, 16, 0, 11), (1, 16, 300, 2),
+                                     (5, 64, 1, 1),
+                                     (7, 128, 1000, 1), (3, 8, 500, 40),
+                                     (300, 16384, 70000, 11),
+                                     (65537, 32768, 4000, 3)])
+def test_bitset_kernels_match_plain(dev, n, m, t, k):
+    """n = 1 makes a table whose probe bound is 1; the last shape holds
+    2**31 + 2**15 lanes: its upper rows need 64-bit offsets."""
+    rng = np.random.RandomState(n + m + k)
+    pop, (klo, khi, trows, n_probe) = _table(rng, min(n, 4096), dev)
+    assert n > 1 or n_probe == 1
+    c = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    if t:
+        slo, shi = _batch(rng, pop, t, dev)
+    else:
+        slo = shi = torch.zeros(0, dtype=torch.int32, device=dev)
+    idx = rng.randint(0, m, (t, k)).astype(np.int32)
+    idx[::3, 0] = m - 1
+    idx, upd = c(idx), c(rng.randint(0, 3, t).astype(np.int32))
+    bits0 = torch.zeros((n, m), dtype=torch.int32, device=dev)
+    bits0[: min(n, 64)] = c((rng.rand(min(n, 64), m) > 0.9).astype(np.int32))
+    rows = c(rng.randint(-1, n + 1, t).astype(np.int32))
+    rows[::4] = n - 1
+    want = ref.bitset_max_update(bits0.clone(), rows, idx, upd)
+    got = bitset_or.bitset_max_update(bits0.clone(), rows, idx, upd)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    del got, want
+    # fused: the table's rows reach the first 4096 rows only
+    rows_f = probe.probe_rows(klo, khi, trows, slo, shi, n_probe=n_probe)
+    want = ref.bitset_max_update(bits0.clone(), rows_f, idx, upd)
+    got = bitset_or.bitset_probe_max_update(bits0.clone(), klo, khi, trows,
+                                            slo, shi, idx, upd,
+                                            n_probe=n_probe)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_bitset_probe_bound_of_one(dev):
+    """With n_probe = 1, ids displaced from their start slot resolve to
+    -1 in the kernel as in the plain probe."""
+    rng = np.random.RandomState(11)
+    pop, (klo, khi, trows, n_probe) = _table(rng, 3000, dev)
+    assert n_probe > 1
+    slo, shi = _batch(rng, pop, 20000, dev)
+    c = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    idx = c(rng.randint(0, 512, (20000, 4)).astype(np.int32))
+    upd = torch.ones(20000, dtype=torch.int32, device=dev)
+    bits0 = torch.zeros((3000, 512), dtype=torch.int32, device=dev)
+    rows = probe.probe_rows(klo, khi, trows, slo, shi, n_probe=1)
+    assert int((rows < 0).sum()) > 20000 // 5        # displaced ids drop
+    want = ref.bitset_max_update(bits0.clone(), rows, idx, upd)
+    got = bitset_or.bitset_probe_max_update(bits0.clone(), klo, khi, trows,
+                                            slo, shi, idx, upd, n_probe=1)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n,maps,bits,t", [(1, 1, 32, 300), (131, 64, 32,
+                                                             5000),
+                                           (9, 8, 16, 0)])
+def test_fm_kernels_match_plain(dev, n, maps, bits, t):
+    rng = np.random.RandomState(n + maps + t)
+    pop, (klo, khi, trows, n_probe) = _table(rng, n, dev)
+    c = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    if t:
+        slo, shi = _batch(rng, pop, t, dev)
+    else:
+        slo = shi = torch.zeros(0, dtype=torch.int32, device=dev)
+    which = c(rng.randint(0, maps, t).astype(np.int32))
+    pos = rng.randint(0, bits, t).astype(np.int32)
+    pos[::5] = bits - 1
+    pos, upd = c(pos), c((rng.rand(t) > 0.2).astype(np.int32))
+    state0 = c((rng.rand(n, maps, bits) > 0.9).astype(np.int32))
+    rows = probe.probe_rows(klo, khi, trows, slo, shi, n_probe=n_probe)
+    flat_pos = (which * bits + pos)[:, None].contiguous()
+    want = ref.bitset_max_update(state0.clone().view(n, -1), rows, flat_pos,
+                                 upd).view(n, maps, bits)
+    got = fm_bitmap.fm_bit_update(state0.clone(), rows, which, pos, upd)
+    got_f = fm_bitmap.fm_probe_bit_update(state0.clone(), klo, khi, trows,
+                                          slo, shi, which, pos, upd,
+                                          n_probe=n_probe)
+    assert torch.equal(got, want) and torch.equal(got_f, want)
+
+
+def test_bitset_and_fm_wrappers_count_their_own_launches(dev):
+    bits = torch.zeros((4, 64), dtype=torch.int32, device=dev)
+    rows = torch.zeros(3, dtype=torch.int32, device=dev)
+    idx = torch.zeros((3, 2), dtype=torch.int32, device=dev)
+    upd = torch.ones(3, dtype=torch.int32, device=dev)
+    fm = fm_bitmap.fm_bit_update
+    b0, f0, f1 = (bitset_or.bitset_max_update.launches, fm.launches,
+                  fm.one_row_launches)
+    bitset_or.bitset_max_update(bits, rows, idx, upd)
+    fm(bits.view(4, 8, 8), rows, rows, rows, upd)
+    fm(bits[:1].view(1, 8, 8), rows, rows, rows, upd)     # a fresh sketch
+    assert bitset_or.bitset_max_update.launches == b0 + 1
+    assert (fm.launches, fm.one_row_launches) == (f0 + 2, f1 + 1)
+    with pytest.raises(ValueError, match="is on cpu"):
+        bitset_or.bitset_max_update(bits, rows.cpu(), idx, upd)
+    with pytest.raises(TypeError):
+        bitset_or.bitset_max_update(bits, rows, idx, upd.long())
+    assert bitset_or.bitset_max_update.launches == b0 + 1

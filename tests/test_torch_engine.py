@@ -1,10 +1,11 @@
 """One JSON request stream through the JAX engine (``repro.service.SDE``)
 and the port's (``repro_torch.service.SDE(device="cpu")``): the same
-responses -- ids and ok flags equal, CountMin values byte-equal,
-HyperLogLog values within ``rtol=1e-6`` (float32 ``exp2``/``sum``/``log``
-may round differently in the last place) -- and the same state for every
-entry, with the fused probe on and off. Plus the port's guards: it
-imports no JAX, and its engine raises without a card."""
+responses -- ids and ok flags equal, CountMin values and Bloom answers
+byte-equal, HyperLogLog and FM values within ``rtol=1e-6`` (float32
+``exp2``/``sum``/``log`` may round differently in the last place) -- and
+the same state for every entry, with the fused probe on and off. Plus
+the port's guards: it imports no JAX, its engine raises without a card,
+and no kind allocates without a device."""
 import os
 import subprocess
 import sys
@@ -14,11 +15,13 @@ import pytest
 import torch
 
 from repro.service import SDE as JaxSDE
+from repro_torch import core as tcore
+from repro_torch.core import batched as tbatched
 from repro_torch.kernels import ops as tops
 from repro_torch.service import SDE as TorchSDE
 from repro_torch.service import engine as tengine
 
-HLL_RTOL = 1e-6
+HLL_RTOL = 1e-6      # HyperLogLog and FM estimates
 
 
 def _request_stream(seed=0, n_streams=32, t=257):
@@ -29,6 +32,8 @@ def _request_stream(seed=0, n_streams=32, t=257):
     ids = [int(s) for s in pop]
     cm = {"eps": 0.05, "delta": 0.05}
     hll = {"rse": 0.1}
+    bloom = {"n_elements": 64, "fpr": 0.05}
+    fm = {"nmaps": 8, "bitmap_size": 16}
     reqs = [
         {"type": "build", "request_id": "b-cm", "synopsis_id": "cm",
          "kind": "countmin", "params": cm, "per_stream_of_source": True,
@@ -45,6 +50,21 @@ def _request_stream(seed=0, n_streams=32, t=257):
          "continuous": True},
         {"type": "build", "request_id": "b-bad", "synopsis_id": "x",
          "kind": "no_such_kind"},
+        {"type": "build", "request_id": "b-bloom", "synopsis_id": "bloom",
+         "kind": "bloom", "params": bloom, "per_stream_of_source": True,
+         "stream_ids": ids},
+        {"type": "build", "request_id": "b-fm", "synopsis_id": "fm",
+         "kind": "fm", "params": fm, "per_stream_of_source": True,
+         "stream_ids": ids},
+        {"type": "build", "request_id": "b-src-bloom",
+         "synopsis_id": "src-bloom", "kind": "bloom", "params": bloom},
+        {"type": "build", "request_id": "b-src-fm", "synopsis_id": "src-fm",
+         "kind": "fm", "params": fm},
+        {"type": "build", "request_id": "b-cq-fm", "synopsis_id": "cq-fm",
+         "kind": "fm", "params": fm, "stream_id": extra,
+         "continuous": True},
+        {"type": "build", "request_id": "b-fm-bad", "synopsis_id": "fm3",
+         "kind": "fm", "params": {"nmaps": 3}},         # not a power of 2
     ]
     for b in range(3):
         sids = pop[rng.randint(0, len(pop), t)].copy()
@@ -69,8 +89,26 @@ def _request_stream(seed=0, n_streams=32, t=257):
             {"synopsis_id": "src-hll"},
             {"synopsis_id": "nope"},
             {"synopsis_id": "src-cm", "query": {"items": [-1]}}]},
+        {"type": "query_many", "request_id": "qm-bloom", "queries": [
+            {"synopsis_id": f"bloom/{ids[0]}",
+             "query": {"items": [ids[0], ids[1], 5]}},
+            {"synopsis_id": "src-bloom", "query": {"items": ids + [3, 4]}},
+            {"synopsis_id": "src-bloom", "query": {"items": "nope"}},
+            {"synopsis_id": f"bloom/{ids[3]}", "query": {"items": [ids[3]]}},
+            {"synopsis_id": "src-fm"}]},
+        {"type": "adhoc", "request_id": "q-fm",
+         "synopsis_id": f"fm/{ids[1]}"},
+        {"type": "adhoc", "request_id": "q-src-fm", "synopsis_id": "src-fm"},
+        {"type": "adhoc", "request_id": "q-bloom",
+         "synopsis_id": f"bloom/{ids[2]}", "query": {"items": [ids[2]]}},
         {"type": "status", "request_id": "st"},
         {"type": "stop", "request_id": "s-cm", "synopsis_id": "cm"},
+        {"type": "stop", "request_id": "s-bloom", "synopsis_id": "bloom"},
+        {"type": "build", "request_id": "b-bloom2", "synopsis_id": "bloom",
+         "kind": "bloom", "params": bloom, "per_stream_of_source": True,
+         "stream_ids": ids},
+        {"type": "adhoc", "request_id": "q-bloom2",
+         "synopsis_id": f"bloom/{ids[2]}", "query": {"items": [ids[2]]}},
         {"type": "build", "request_id": "b-cm2", "synopsis_id": "cm",
          "kind": "countmin", "params": cm, "per_stream_of_source": True,
          "stream_ids": ids},
@@ -102,8 +140,9 @@ def _same_value(a, b, rtol):
 
 
 def _rtol(synopsis_id):
-    """HLL answers to HLL_RTOL, CountMin answers byte for byte."""
-    return HLL_RTOL if "hll" in str(synopsis_id) else 0
+    """HLL and FM answers to HLL_RTOL, CountMin and Bloom byte for byte."""
+    sid = str(synopsis_id)
+    return HLL_RTOL if "hll" in sid or "fm" in sid else 0
 
 
 def _same_response(ra, rb):
@@ -119,13 +158,20 @@ def _same_response(ra, rb):
         assert ra.params == rb.params or ra.request_id == "st"
 
 
+# Bloom answers and CountMin values: the JSON a client reads is the same
+_SAME_JSON = ("q-cm", "q-src-cm", "q-bloom", "q-bloom2", "b-fm-bad")
+
+
 def _drive(monkeypatch, fused):
     monkeypatch.setenv("SDE_FUSED_PROBE", "1" if fused else "0")
     reqs, ids = _request_stream()
     je, te = JaxSDE(), TorchSDE(device="cpu")
     before = dict(tops.DISPATCH_COUNT)
     for r in reqs:
-        _same_response(je.handle(dict(r)), te.handle(dict(r)))
+        ra, rb = je.handle(dict(r)), te.handle(dict(r))
+        _same_response(ra, rb)
+        if r["request_id"] in _SAME_JSON:
+            assert ra.to_json() == rb.to_json(), r["request_id"]
     return je, te, reqs, ids, before
 
 
@@ -138,15 +184,16 @@ def test_request_stream_matches_jax_engine(monkeypatch, fused):
         want = np.asarray(je.state_of(sid))
         got = te.state_of(sid).numpy()
         assert want.dtype == got.dtype and np.array_equal(want, got), sid
-    # continuous responses: same ids, HLL values to rtol
+    # continuous responses: same ids, HLL and FM values to rtol
     assert [r.request_id for r in je.continuous_out] == \
-        [r.request_id for r in te.continuous_out] == \
-        ["cq/cq-hll/1", "cq/cq-hll/2", "cq/cq-hll/3"]
+        [r.request_id for r in te.continuous_out]
+    assert sorted(r.request_id for r in te.continuous_out) == sorted(
+        f"cq/{sid}/{b}" for sid in ("cq-hll", "cq-fm") for b in (1, 2, 3))
     for ra, rb in zip(je.continuous_out, te.continuous_out):
         _same_value(ra.value, rb.value, HLL_RTOL)
     # one update per kind stack per ingest batch
     n_ingest = sum(r["type"] == "ingest" for r in reqs)
-    for name in ("CountMin", "HyperLogLog"):
+    for name in ("CountMin", "HyperLogLog", "BloomFilter", "FMSketch"):
         key = f"update:{name}"
         assert tops.DISPATCH_COUNT[key] - before.get(key, 0) == n_ingest
     assert te.memory_bytes() == sum(
@@ -160,7 +207,7 @@ def test_rebuilt_synopsis_reads_zero_and_later_slices_answer_not_ok(
                    "synopsis_id": f"cm/{ids[2]}", "query": {"items": [ids[2]]}})
     assert r.ok and float(r.value[0]) == 0.0
     r = te.handle({"type": "build", "request_id": "b", "synopsis_id": "x",
-                   "kind": "bloom"})
+                   "kind": "ams"})
     assert not r.ok and "unknown synopsis kind" in r.error
     for req, slice_name in (
             ({"type": "build_multidim", "request_id": "md",
@@ -175,7 +222,7 @@ def test_rebuilt_synopsis_reads_zero_and_later_slices_answer_not_ok(
     r = te.handle('{"type": "nonsense", "request_id": "z"}')
     assert not r.ok
     r = te.handle({"type": "shutdown", "request_id": "sd"})
-    assert r.ok and r.value["synopses"] == 2 * len(ids) + 3
+    assert r.ok and r.value["synopses"] == 4 * len(ids) + 6
     assert te.stacks == {} and te.entries == {}
 
 
@@ -215,3 +262,26 @@ def test_plan_queries_pads_and_reports_bad_items():
     assert "bad 'items'" in errors[1]
     out = np.arange(12).reshape(3, 4)
     assert take(out, 0).tolist() == [0, 1, 2]
+
+
+@pytest.mark.parametrize("name", ["countmin", "hyperloglog", "bloom", "fm"])
+def test_init_and_stacked_init_need_a_device(name):
+    kind = tcore.make_kind(name)
+    with pytest.raises(TypeError):
+        kind.init()
+    with pytest.raises(TypeError):
+        tbatched.stacked_init(kind, 4)
+    assert tbatched.stacked_init(kind, 4, "cpu").device.type == "cpu"
+
+
+def test_bloom_answers_membership_without_false_negatives(monkeypatch):
+    _, te, reqs, ids, _ = _drive(monkeypatch, True)
+    r = te.handle({"type": "query_many", "request_id": "m", "queries": [
+        {"synopsis_id": "src-bloom", "query": {"items": ids}},
+        {"synopsis_id": f"bloom/{ids[5]}", "query": {"items": [ids[5]]}}]})
+    ingested = {s for q in reqs if q["type"] == "ingest"
+                for s in q["stream_ids"] if s >= 0}
+    src, own = (v["value"] for v in r.value)
+    assert src.dtype == bool and own.dtype == bool
+    assert all(bool(v) for i, v in zip(ids, src) if i in ingested)
+    assert own.tolist() == [False]           # stopped, rebuilt, not fed

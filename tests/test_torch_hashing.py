@@ -1,13 +1,17 @@
-"""The port's hashing (``repro_torch/core/hashing.py``) and id splitting
-(``repro_torch/service/routing.py``) against the JAX package's, byte for
-byte, on random ids and on the edges 0, 2**32-1 and 2**63-1."""
+"""The port's hashing (``repro_torch/core/hashing.py``), the Bloom and FM
+positions built on it, and id splitting (``repro_torch/service/
+routing.py``) against the JAX package's, byte for byte, on random ids and
+on the edges 0, 2**32-1 and 2**63-1 -- and on items whose hash is 0 or a
+power of two (``ctz32(0) = 32`` is clamped by FM)."""
 import numpy as np
 import pytest
 import jax.numpy as jnp
 import torch
 
+from repro import core as jcore
 from repro.core import hashing as jh
 from repro.service import routing as jrouting
+from repro_torch import core as tcore
 from repro_torch.core import hashing as th
 from repro_torch.service import routing as trouting
 
@@ -95,3 +99,70 @@ def test_split64_fold64_equal():
     for a, b in zip(jrouting.split64(s), trouting.split64(s)):
         assert np.array_equal(a, b)
     assert np.array_equal(jrouting.fold64(s), trouting.fold64(s))
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _items_hashing_to(seed, hashes):
+    """Items x with ``hash_u32(x, seed) == h`` for each h: fmix32 is a
+    bijection, so invert it and undo the seed's xor."""
+    inv1, inv2 = pow(0x85EBCA6B, -1, 2**32), pow(0xC2B2AE35, -1, 2**32)
+    salt = (seed * 0x9E3779B9 + 1) & _M32
+    out = []
+    for h in hashes:
+        h ^= h >> 16
+        h = (h * inv2) & _M32
+        h ^= (h >> 13) ^ (h >> 26)
+        h = (h * inv1) & _M32
+        h ^= h >> 16
+        out.append(h ^ salt)
+    return np.asarray(out, np.uint32)
+
+
+def test_items_hashing_to_inverts_the_hash():
+    want = [0, 1, 2**31, 12345, 2**32 - 1]
+    got = np.asarray(jh.hash_u32(jnp.asarray(_items_hashing_to(19, want)),
+                                 np.uint32(19)))
+    assert got.tolist() == want
+
+
+@pytest.mark.parametrize("params", [{}, {"nmaps": 8, "bitmap_size": 16},
+                                    {"nmaps": 1}, {"nmaps": 1024,
+                                                   "bitmap_size": 4}],
+                         ids=["default", "8x16", "one_map", "1024x4"])
+def test_fm_which_pos_byte_equal(params):
+    jk, tk = jcore.FMSketch(**params), tcore.FMSketch(**params)
+    edges = _items_hashing_to(jk.seed, [0] + [1 << j for j in range(32)]
+                              + [(1 << 31) | (1 << 5), _M32])
+    x = np.concatenate([_ids32(5), edges])
+    jw, jp = (np.asarray(a) for a in jk._which_pos(jnp.asarray(x)))
+    tw, tp = tk._which_pos(_t(x))
+    assert tw.dtype == tp.dtype == torch.int32
+    assert np.array_equal(jw, tw.numpy()) and np.array_equal(jp, tp.numpy())
+    n = len(edges)
+    assert tp[-n].item() == tk.bitmap_size - 1          # hash 0: clamped
+    assert tw[-n].item() == 0
+
+
+def test_fm_rejects_nmaps_not_a_power_of_two():
+    for kcls in (jcore.FMSketch, tcore.FMSketch):
+        with pytest.raises(ValueError, match="power of two"):
+            kcls(nmaps=3)
+
+
+@pytest.mark.parametrize("params", [{"n_elements": 64, "fpr": 0.05},
+                                    {"n_elements": 1024, "fpr": 0.01},
+                                    {"n_elements": 3, "fpr": 0.5}])
+def test_bloom_shape_and_positions_byte_equal(params):
+    jk, tk = jcore.BloomFilter(**params), tcore.BloomFilter(**params)
+    assert (jk.log2_bits, jk.n_bits, jk.k, jk.memory_bytes()) == \
+        (tk.log2_bits, tk.n_bits, tk.k, tk.memory_bytes())
+    seeds = [int(v) for v in jh.row_seeds(jk.seed, jk.k)]
+    edges = np.concatenate([_items_hashing_to(sd, [0, 1, _M32])
+                            for sd in seeds])
+    x = np.concatenate([_ids32(6), edges])
+    want = np.asarray(jh.bucket_hash(jnp.asarray(x), jk._seeds(),
+                                      jk.log2_bits))
+    got = tk._positions(_t(x))
+    assert got.dtype == torch.int32 and np.array_equal(want, got.numpy())

@@ -4,9 +4,10 @@ the JAX package's: the Pallas kernels in interpret mode
 and the pure-jnp oracles of ``repro/kernels/ref.py``, at the sizes of
 ``tests/test_kernel_registry.py``.
 
-Integer weights must agree byte for byte. Float weights agree to
-``rtol=1e-6, atol=1e-5``: the reference's one-hot matmul and the port's
-sequential scatter add the same terms in another order.
+Integer weights, and every Bloom and FM state, must agree byte for byte.
+Float CountMin weights agree to ``rtol=1e-6, atol=1e-5``: the reference's
+one-hot matmul and the port's sequential scatter add the same terms in
+another order.
 """
 import numpy as np
 import pytest
@@ -15,19 +16,26 @@ import torch
 
 from repro import core as jcore
 from repro.core import batched as jbatched
+from repro.kernels import bitset_or as jbitset_or
+from repro.kernels import fm_bitmap as jfm_bitmap
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.service import routing as jrouting
 from repro_torch import core as tcore
 from repro_torch.core import batched as tbatched
-from repro_torch.kernels import hll_max, onehot_matmul, ops as tops, ref
+from repro_torch.kernels import (bitset_or, fm_bitmap, hll_max, onehot_matmul,
+                                 ops as tops, ref)
 
 _KINDS = {
     "cm_unweighted": ({"eps": 0.1, "delta": 0.1, "weighted": False},
                       "countmin"),
     "cm_weighted": ({"eps": 0.05, "delta": 0.05}, "countmin"),
     "hll": ({"rse": 0.1}, "hyperloglog"),
+    "bloom": ({"n_elements": 64, "fpr": 0.05}, "bloom"),
+    "fm": ({"nmaps": 8, "bitmap_size": 16}, "fm"),
+    "fm_one_map": ({"nmaps": 1}, "fm"),      # which = h >> 32
 }
+_MAX_KINDS = ("hyperloglog", "bloom", "fm")  # exact whatever the weights
 
 
 def _inputs(seed, n=24, t=300, float_weights=False):
@@ -94,7 +102,7 @@ def test_update_fn_matches_pallas_and_stacked_update(name, float_weights,
     out = tops.resolve_update_kernel(tkind, fuse)(state, *ta,
                                                   n_probe=x["n_probe"])
     assert out.data_ptr() == state.data_ptr()          # updated in place
-    exact = not float_weights
+    exact = registry_name in _MAX_KINDS or not float_weights
     _check(out.numpy(), pallas, exact)
     _check(out.numpy(), xla, exact)
 
@@ -182,3 +190,77 @@ def test_operand_checks_raise_before_any_launch():
             torch.zeros(4, dtype=torch.int32, device="meta"),
             torch.zeros((4, 3), dtype=torch.int32, device="meta"),
             torch.zeros(4, device="meta"))
+
+
+def _bitset_inputs(seed, n, m, t, k):
+    """Rows with -1 and out-of-range lanes, positions on both edges of
+    [0, m), upd with 0 lanes and one value above 1."""
+    rng = np.random.RandomState(seed)
+    syn = rng.randint(-1, n + 1, t).astype(np.int32)
+    idx = rng.randint(0, m, (t, k)).astype(np.int32)
+    idx[::5, 0] = m - 1
+    idx[::7, -1] = 0
+    upd = (rng.rand(t) > 0.3).astype(np.int32)
+    upd[::11] = 2
+    bits0 = (rng.rand(n, m) > 0.8).astype(np.int32)
+    return syn, idx, upd, bits0
+
+
+def test_bitset_plain_matches_pallas_kernel():
+    """``ref.bitset_max_update`` against ``repro/kernels/bitset_or.py``'s
+    kernel (interpret mode) at tile-multiple shapes; both drop -1 rows and
+    rows past n, and treat upd 0 as a no-op."""
+    n, m, t, k = 16, 256, 384, 3
+    syn, idx, upd, bits0 = _bitset_inputs(4, n, m, t, k)
+    want = np.asarray(jbitset_or.bitset_max_update(
+        jnp.asarray(bits0), jnp.asarray(syn), jnp.asarray(idx),
+        jnp.asarray(upd), s_tile=8, m_tile=128, t_tile=128, interpret=True))
+    got = bitset_or.bitset_max_update(
+        torch.from_numpy(bits0.copy()), torch.from_numpy(syn),
+        torch.from_numpy(idx), torch.from_numpy(upd))
+    assert np.array_equal(got.numpy(), want)
+    oob = idx.copy()
+    oob[::3, 1] = m + 5                      # past the row: dropped
+    oob[::4, 2] = -2
+    got = ref.bitset_max_update(torch.from_numpy(bits0.copy()),
+                                torch.from_numpy(syn), torch.from_numpy(oob),
+                                torch.from_numpy(upd))
+    ok = (oob >= 0) & (oob < m)
+    want = bits0.copy()
+    for ti in range(t):
+        if 0 <= syn[ti] < n and upd[ti] > 0:
+            for h in np.flatnonzero(ok[ti]):
+                want[syn[ti], oob[ti, h]] = max(want[syn[ti], oob[ti, h]],
+                                                upd[ti])
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("maps,bits", [(8, 16), (1, 32)])
+def test_fm_wrappers_match_pallas_and_update_in_place(maps, bits):
+    """``fm_bitmap.fm_bit_update`` / ``fm_probe_bit_update`` against the
+    reference's (interpret mode): one lane per tuple on the flat plane,
+    written through a view of the state."""
+    x = _inputs(6, n=8)
+    rng = np.random.RandomState(7)
+    t = len(x["sids"])
+    which = rng.randint(0, maps, t).astype(np.int32)
+    pos = rng.randint(0, bits, t).astype(np.int32)
+    upd = x["msk"].astype(np.int32)
+    state0 = (rng.rand(x["n"], maps, bits) > 0.9).astype(np.int32)
+    ja, ta = _jax_args(x), _torch_args(x)
+    rows = np.array(jops.route_probe(*ja[:5], n_probe=x["n_probe"]))
+    pad = (-t) % 128
+    jw, jp, ju = (jnp.asarray(np.pad(a, (0, pad))) for a in (which, pos, upd))
+    want = np.asarray(jfm_bitmap.fm_bit_update(
+        jnp.asarray(state0), jnp.asarray(np.pad(rows, (0, pad),
+                                                constant_values=-1)),
+        jw, jp, ju, interpret=True))
+    tw, tp, tu = (torch.from_numpy(a) for a in (which, pos, upd))
+    state = torch.from_numpy(state0.copy())
+    out = fm_bitmap.fm_bit_update(state, torch.from_numpy(rows), tw, tp, tu)
+    assert out.data_ptr() == state.data_ptr()
+    assert np.array_equal(state.numpy(), want)
+    fused = fm_bitmap.fm_probe_bit_update(
+        torch.from_numpy(state0.copy()), *ta[:5], tw, tp, tu,
+        n_probe=x["n_probe"])
+    assert np.array_equal(fused.numpy(), want)
