@@ -7,34 +7,40 @@ hand-written kernel against its plain PyTorch version.
 Phases (any failure raises, so the script exits non-zero without its
 last line; each phase prints its peak device memory, held under 48 GiB):
 
-  1. Card and build: ``nvidia-smi`` name and power limit, then the three
+  1. Card and build: ``nvidia-smi`` name and power limit, then the four
      kernel sources built by ``nvcc`` in parallel.
-  2. Each of the eight kernel entry points against its plain version at
+  2. Each of the ten kernel entry points against its plain version at
      the main path's shapes, on a batch of 65,536 tuples with unrouted,
      -1 and masked (upd 0 / rank 0 / weight 0) lanes: CountMin
      eps=0.002, delta=0.01 (the paper's parameters,
      ``benchmarks/fig5_scalability.py``) -> rows [5, 2048] f32;
      HyperLogLog rse=0.03 -> 2048 registers; n = 131,072 rows (the
      capacity of phase 3's stacks); Bloom(1024, 0.01) -> 16,384 lanes,
-     k = 11, n = 131,072 (8 GiB); FM defaults -> [131,072, 64, 32]. Plus
-     the one-row fresh-sketch launch each data-source fold makes
-     (``<name>@fresh``), and an untimed exactness run of both bit-set
-     entry points on a 262,144 x 16,384 stack (2**32 lanes) with tuples
-     routed to its last rows. Integer results must match exactly, CM
-     float weights to a stated tolerance and byte for byte across two
-     kernel runs. Times are CUDA-event medians of one call (host enqueue
-     included), each with its ``torch.profiler`` device time per call
-     beside it. One entry's tensors are held at a time.
+     k = 11, n = 131,072 (8 GiB); FM defaults -> [131,072, 64, 32]; RHP
+     defaults -> [131,072, 64] f32. Plus the one-row fresh-sketch launch
+     each CM, HLL, Bloom and FM data-source fold makes
+     (``<name>@fresh``; RHP's fold is a torch reduction and launches
+     none), an untimed exactness run of both bit-set entry points on a
+     262,144 x 16,384 stack (2**32 lanes) with tuples routed to its last
+     rows, and an untimed RHP run at b = 200 with rows -1 and n and a
+     batch of no multiple of 32. Integer results must match exactly; the
+     two float-sum kernels (CM and RHP) under float weights to a stated
+     tolerance and byte for byte across two kernel runs. Times are
+     CUDA-event medians of one call (host enqueue included), each with
+     its ``torch.profiler`` device time per call beside it. One entry's
+     tensors are held at a time.
   3. The main path through ``SDE(device="cuda").handle``: per-stream CM,
-     HLL, Bloom and FM over 65,536 hashed 63-bit ids; a data-source CM,
-     HLL, Bloom(1,048,576, 0.01) (own stack: 64 x 2**24 lanes) and FM;
-     continuous HLL and FM; 16 ingest batches of 65,536 Zipf(1.1) tuples
-     (half with SDE_FUSED_PROBE=0), then 2 more under ``torch.profiler``
-     (device-busy share and top kernels); 1,024 CM and 1,024 Bloom
-     queries in query_many, Bloom false positives, HLL and FM adhoc
-     queries. Every stack must equal a replay of the same batches through
-     the plain versions on the card, and no ingested id may be missing
-     from its Bloom.
+     HLL, Bloom, FM and RHP over 65,536 hashed 63-bit ids; a data-source
+     CM, HLL, Bloom(1,048,576, 0.01) (own stack: 64 x 2**24 lanes), FM
+     and RHP; continuous HLL and FM; 16 ingest batches of 65,536
+     Zipf(1.1) tuples (half with SDE_FUSED_PROBE=0), then 2 more under
+     ``torch.profiler`` (device-busy share and top kernels); 1,024 CM,
+     1,024 Bloom and 1,025 RHP queries in query_many, Bloom false
+     positives, HLL and FM adhoc queries. Every stack must equal a replay
+     of the same batches through the plain versions on the card (RHP
+     byte for byte, with its answers equal to the replay's), no ingested
+     id may be missing from its Bloom, every entry point must launch, and
+     the RHP fold must make no one-row launch.
   4. One JSON line with each kernel's launches in phase 3 and its
      phase-2 numbers (``ms``, ``plain_ms``, ``library_ms`` by CUDA event;
      ``device_ms``, ``plain_device_ms``, ``library_device_ms`` by
@@ -86,22 +92,28 @@ def cuda_ms(fn, runs: int = TIMING_RUNS) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, runs: int = 5) -> float:
+def device_ms(fn, runs: int = 5, attempts: int = 3) -> float:
     """Mean device time of ``fn()`` per run from ``torch.profiler``: the
     summed durations of its kernels and copies, without the host's enqueue
-    time, which a CUDA-event time of a few-µs launch mostly is."""
+    time, which a CUDA-event time of a few-µs launch mostly is. A profile
+    that caught no device activity at all is taken again, up to
+    ``attempts`` times: torch.profiler now and then drops a whole window's
+    CUDA events on this card (seen once in some 300 windows)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    require(spans, "torch.profiler recorded no device activity")
-    return sum(spans) / runs / 1e3
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if spans:
+            return sum(spans) / runs / 1e3
+    raise RuntimeError(f"torch.profiler recorded no device activity in "
+                       f"{attempts} windows")
 
 
 def bound_ms(n_bytes: int, n_ops: int):
@@ -225,6 +237,27 @@ def record(results, name, fn_kernel, fn_plain, fn_lib, state0, n_bytes,
           f"({by}, {n_bytes} B)", flush=True)
 
 
+def float_runs(label, kern, plain, state0) -> None:
+    """Float weights: two kernel runs byte-identical, and allclose to the
+    plain version at FLOAT_RTOL / FLOAT_ATOL."""
+    a = state0.clone()
+    kern(a)
+    c = state0.clone()
+    kern(c)
+    torch.cuda.synchronize()
+    require(same_bytes(a, c), f"{label}: float-weight runs differ byte-wise")
+    del c
+    p = state0.clone()
+    plain(p)
+    _, ferr, close = compare(a, p)
+    require(close, f"{label}: float weights off by {ferr}")
+    print(f"[phase2] {label}: float weights byte-identical over 2 runs; max "
+          f"abs err vs plain {ferr:.3g} (rtol {FLOAT_RTOL}, atol "
+          f"{FLOAT_ATOL})", flush=True)
+    del a, p
+    free()
+
+
 def phase2_batch(dev, seed: int, n_streams: int, t: int):
     """The route table, one batch and its routed rows, shared by every
     entry."""
@@ -280,33 +313,17 @@ def phase2_countmin(b, n: int, results: dict) -> None:
     print(f"[phase2] CountMin: n={n} d={d} w={w}", flush=True)
 
     def float_checks(state0):
-        for label, kern, plain in (
-                ("onehot_scatter_add",
-                 lambda s: onehot_matmul.onehot_scatter_add(s, rows, idx,
-                                                            v_flt),
-                 lambda s: ref.onehot_scatter_add(s, rows, idx, v_flt)),
-                ("onehot_probe_scatter",
-                 lambda s: onehot_matmul.onehot_probe_scatter(
-                     s, b.klo, b.khi, b.trows, b.slo, b.shi, idx, v_flt,
-                     n_probe=b.n_probe),
-                 lambda s: ref.onehot_scatter_add(s, rows, idx, v_flt))):
-            a = state0.clone()
-            kern(a)
-            c = state0.clone()
-            kern(c)
-            torch.cuda.synchronize()
-            require(same_bytes(a, c),
-                    f"{label}: float-weight runs differ byte-wise")
-            del c
-            p = state0.clone()
-            plain(p)
-            _, ferr, close = compare(a, p)
-            require(close, f"{label}: float weights off by {ferr}")
-            print(f"[phase2] {label}: float weights byte-identical over 2 "
-                  f"runs; max abs err vs plain {ferr:.3g} (rtol "
-                  f"{FLOAT_RTOL}, atol {FLOAT_ATOL})", flush=True)
-            del a, p
-            free()
+        float_runs("onehot_scatter_add",
+                   lambda s: onehot_matmul.onehot_scatter_add(s, rows, idx,
+                                                              v_flt),
+                   lambda s: ref.onehot_scatter_add(s, rows, idx, v_flt),
+                   state0)
+        float_runs("onehot_probe_scatter",
+                   lambda s: onehot_matmul.onehot_probe_scatter(
+                       s, b.klo, b.khi, b.trows, b.slo, b.shi, idx, v_flt,
+                       n_probe=b.n_probe),
+                   lambda s: ref.onehot_scatter_add(s, rows, idx, v_flt),
+                   state0)
 
     cm0 = torch.randint(0, 8, (n, d, w), generator=b.gen, device=dev,
                         dtype=torch.int32).to(torch.float32)
@@ -532,11 +549,86 @@ def phase2_fm(b, n: int, results: dict) -> None:
         b.to_row0, flat_pos, upd, fused=False)
 
 
+def phase2_rhp(b, n: int, results: dict) -> None:
+    from repro_torch import core
+    from repro_torch.core import hashing
+    from repro_torch.kernels import ref, rhp_project
+
+    rhp = core.RHP()
+    nb, t, dev, rows = rhp.n_bits, b.t, b.dev, b.rows
+    sgn = hashing.sign_hash(b.items, rhp._seeds())              # [T, b]
+    v_int = b.vals * b.mask.float()
+    v_flt = torch.rand(t, generator=b.gen, device=dev) * 4 * b.mask.float()
+    keep = rows >= 0
+    kept_rows = rows[keep].long()
+    kept_v, kept_sgn = v_int[keep], sgn[keep]
+    # rows (or sid halves), v and the dense sgn read once; touched state
+    # rows read and written once; one multiply and one add per plane
+    batch_b = t * 4 + t * nb * 4
+    state_b = 8 * nb * distinct(kept_rows)
+    n_ops = 2 * int(keep.sum()) * nb
+    slots = probed_slots(b, torch.ones_like(b.mask))
+    print(f"[phase2] RHP: n={n} b={nb} ({n * nb * 4 / GIB:.3f} GiB), "
+          f"{int(keep.sum())} routed tuples onto {distinct(kept_rows)} rows",
+          flush=True)
+    lib = lambda s: s.index_add_(0, kept_rows, kept_v[:, None] * kept_sgn)
+    project = lambda v: (lambda s: rhp_project.rhp_project_update(s, rows, v,
+                                                                  sgn))
+    project_plain = lambda v: (lambda s: ref.rhp_project_update(s, rows, v,
+                                                                sgn))
+    fused = lambda v: (lambda s: rhp_project.rhp_probe_update(
+        s, b.klo, b.khi, b.trows, b.slo, b.shi, v, sgn, n_probe=b.n_probe))
+    fused_plain = lambda v: (lambda s: ref.rhp_probe_update(
+        s, b.klo, b.khi, b.trows, b.slo, b.shi, v, sgn, n_probe=b.n_probe))
+
+    def float_checks(state0):
+        float_runs("rhp_project_update", project(v_flt), project_plain(v_flt),
+                   state0)
+        float_runs("rhp_probe_update", fused(v_flt), fused_plain(v_flt),
+                   state0)
+
+    rhp0 = torch.randint(-8, 8, (n, nb), generator=b.gen, device=dev,
+                         dtype=torch.int32).to(torch.float32)
+    record(results, "rhp_project_update", project(v_int),
+           project_plain(v_int), lib, rhp0, t * 4 + batch_b + state_b, n_ops,
+           floats=float_checks)
+    record(results, "rhp_probe_update", fused(v_int), fused_plain(v_int), lib,
+           rhp0, t * 8 + TABLE_B * slots + batch_b + state_b, n_ops)
+    del rhp0
+    free()
+
+    # edge shapes: b = 200 (a ragged lane slice), rows -1 and n, and a
+    # batch that is no multiple of 32 (not timed)
+    en, eb, et = 4096, 200, t - 13
+    erows = torch.where(rows[:et] >= 0, rows[:et] % en, rows[:et])
+    erows[::97] = en
+    erows[1::89] = -1
+    esgn = hashing.sign_hash(b.items[:et], core.RHP(n_bits=eb)._seeds())
+    e0 = torch.randint(-8, 8, (en, eb), generator=b.gen, device=dev,
+                       dtype=torch.int32).to(torch.float32)
+    kern = lambda v: (lambda s: rhp_project.rhp_project_update(s, erows, v,
+                                                               esgn))
+    plain = lambda v: (lambda s: ref.rhp_project_update(s, erows, v, esgn))
+    k, p = e0.clone(), e0.clone()
+    kern(v_int[:et])(k)
+    plain(v_int[:et])(p)
+    torch.cuda.synchronize()
+    equal, err, _ = compare(k, p)
+    require(equal, f"rhp_project_update: b={eb} edge batch disagrees with "
+                   f"the plain version (max abs err {err})")
+    print(f"[phase2] rhp_project_update: exact match on the {en} x {eb} "
+          f"edge stack, T={et}", flush=True)
+    del k, p
+    float_runs(f"rhp_project_update (b={eb})", kern(v_flt[:et]),
+               plain(v_flt[:et]), e0)
+
+
 def phase2(dev, seed: int, n: int, n_streams: int, t: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     b = phase2_batch(dev, seed, n_streams, t)
     results: dict = {}
-    for part in (phase2_countmin, phase2_hll, phase2_bloom, phase2_fm):
+    for part in (phase2_countmin, phase2_hll, phase2_bloom, phase2_fm,
+                 phase2_rhp):
         part(b, n, results)
         free()
     peak_gib("phase2")
@@ -573,6 +665,10 @@ ENTRY_POINTS = {
                             "fm_bitmap.py:38"),
     "fm_probe_bit_update": ("fm_bitmap", "fm_probe_bit_update",
                             "bitset_or.cu", "fm_bitmap.py:52"),
+    "rhp_project_update": ("rhp_project", "rhp_project_update",
+                           "rhp_project.cu", "rhp_project.py:57"),
+    "rhp_probe_update": ("rhp_project", "rhp_probe_update", "rhp_project.cu",
+                         "rhp_project.py:111"),
 }
 
 
@@ -641,7 +737,7 @@ def profile_batches(sde, batches, first: int) -> None:
 def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
            n_queries: int, n_profiled: int = 2) -> dict:
     from repro_torch.core import batched
-    from repro_torch.kernels import probe
+    from repro_torch.kernels import probe, rhp_project
     from repro_torch.service import SDE, routing
 
     torch.cuda.reset_peak_memory_stats()
@@ -667,7 +763,9 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
             ("src-bloom", "bloom", src_bloom_params, {}),
             ("src-fm", "fm", {}, {}),
             ("cq-hll", "hyperloglog", hll_params, {"continuous": True}),
-            ("cq-fm", "fm", {}, {"continuous": True})):
+            ("cq-fm", "fm", {}, {"continuous": True}),
+            ("rhp", "rhp", {}, per_stream),
+            ("src-rhp", "rhp", {}, {})):
         r = sde.handle({"type": "build", "request_id": f"b-{sid}",
                         "synopsis_id": sid, "kind": kind, "params": params,
                         **extra})
@@ -713,7 +811,10 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
                   {"synopsis_id": "src-bloom",
                    "query": {"items": fresh_ids.tolist()}},
                   {"synopsis_id": f"bloom/{int(b_streams[0])}",
-                   "query": {"items": fresh_ids.tolist()}}])
+                   "query": {"items": fresh_ids.tolist()}}]
+               + [{"synopsis_id": f"rhp/{int(s)}"} for s in q_streams]
+               + [{"synopsis_id": "src-rhp"}])
+    n_rhp = n_queries + 1                    # the last entries of query_many
     t0 = time.perf_counter()
     r = sde.handle({"type": "query_many", "request_id": "qm",
                     "queries": queries})
@@ -733,7 +834,8 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
     own = np.concatenate(vals[n_queries:2 * n_queries])
     require(own.dtype == bool and own.all(),
             "a per-stream Bloom misses its own ingested id")
-    src_all, src_fp, own_fp = vals[2 * n_queries:]
+    src_all, src_fp, own_fp = vals[2 * n_queries:len(vals) - n_rhp]
+    rhp_answers = vals[len(vals) - n_rhp:]
     require(len(src_all) == len(items) and src_all.all(),
             "the data-source Bloom misses an ingested id")
     for sid, h in adhoc.items():
@@ -756,6 +858,9 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
             "one continuous response per continuous query and batch "
             "expected")
     launches = read_launches()
+    one_row = rhp_project.rhp_project_update.one_row_launches
+    require(one_row == 0, f"the RHP data-source fold launched {one_row} "
+                          "one-row kernels")
 
     # plain replay on the card: route_probe + batched.stacked_update
     dt = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -776,6 +881,21 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
         equal, err, _ = compare(stack.state, replay)
         require(equal, f"{type(kind).__name__} engine state differs from "
                        f"the plain replay (max abs err {err})")
+        if kind.update_kernel == "rhp_project":
+            require(same_bytes(stack.state, replay),
+                    "RHP engine state differs byte-wise from the replay")
+            q_rows = [sde.entries[q["synopsis_id"]].row
+                      for q in queries[len(queries) - n_rhp:]]
+            want = batched.stacked_estimate(
+                kind, replay, dt(np.asarray(q_rows, np.int32)))
+            for i, got in enumerate(rhp_answers):
+                for key in ("signature", "hamming_weight", "bucket"):
+                    require(np.array_equal(got[key],
+                                           want[key][i].cpu().numpy()),
+                            f"RHP answer {i} ({key}) differs from the "
+                            f"plain replay's")
+            print(f"[phase3] {n_rhp} RHP signatures, Hamming weights and "
+                  f"buckets equal the plain replay's", flush=True)
         print(f"[phase3] {type(kind).__name__} stack "
               f"{tuple(stack.state.shape)} equals the plain replay",
               flush=True)
@@ -786,7 +906,8 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
           f"{n_tuples / ingest_s:.1f} tuples/s (host clock, synchronized); "
           f"{n_answered} queries in {query_s:.4f} s = "
           f"{n_answered / query_s:.1f} queries/s", flush=True)
-    print(f"[phase3] launches: {launches}", flush=True)
+    print(f"[phase3] launches: {launches}; rhp_project_update one-row "
+          f"launches: {one_row}", flush=True)
     sde.close()
     free()
     peak_gib("phase3")
@@ -811,7 +932,7 @@ def main() -> None:
     print(f"[phase1] torch {torch.__version__} cuda {torch.version.cuda} "
           f"on {torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
-    build.build(["countmin_scatter", "hll_max", "bitset_or"])
+    build.build(["countmin_scatter", "hll_max", "bitset_or", "rhp_project"])
     print(f"[phase1] kernels built in {time.perf_counter() - t0:.2f} s",
           flush=True)
     for name, log in build.BUILD_LOG.items():

@@ -14,6 +14,8 @@ how) and hands them to :func:`engine_from_contents`::
                   "row": int, "stream_id": int or None,
                   "continuous": bool}, ...]}
 
+Every stack's state keeps the reference's dtype and layout (float32
+``[n, d, w]`` CountMin, ``[n, b]`` RHP; int32 HLL, Bloom and FM lanes).
 The route table is taken slot for slot, so the port probes exactly the
 reference's layout.
 """

@@ -1,8 +1,9 @@
 """Synopsis kinds (port of ``repro/core/__init__.py``).
 
-The port registers CountMin, HyperLogLog, Bloom and FM so far, under
-the reference's names; building any other kind answers ok=False through
-the registry's KeyError (``synopsis.make_kind``).
+The port registers CountMin, HyperLogLog, Bloom, FM and RHP so far,
+under the reference's names; building any other kind (AMS among them)
+answers ok=False through the registry's KeyError
+(``synopsis.make_kind``).
 """
 from . import hashing  # noqa: F401
 from .synopsis import (Synopsis, register_kind, make_kind, known_kinds,
@@ -11,6 +12,7 @@ from .countmin import CountMin
 from .hll import HyperLogLog
 from .bloom import BloomFilter
 from .fm import FMSketch
+from .rhp import RHP
 from . import batched  # noqa: F401
 
 for _name, _factory in {
@@ -18,9 +20,10 @@ for _name, _factory in {
     "hyperloglog": HyperLogLog,
     "bloom": BloomFilter,
     "fm": FMSketch,
+    "rhp": RHP,
 }.items():
     register_kind(_name, _factory)
 
 __all__ = ["Synopsis", "register_kind", "make_kind", "known_kinds",
            "kind_params", "CountMin", "HyperLogLog", "BloomFilter", "FMSketch",
-           "batched"]
+           "RHP", "batched"]

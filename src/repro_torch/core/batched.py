@@ -23,14 +23,16 @@ from .synopsis import Synopsis
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     """Apply ``fn`` to each leaf of a tensor or a dict of tensors (and the
-    matching leaves of ``rest``)."""
+    matching leaves of ``rest``). Dict keys come out sorted, as a JAX
+    pytree's do, so a dict answer serializes to the reference's JSON."""
     if isinstance(tree, dict):
-        return {k: fn(v, *(r[k] for r in rest)) for k, v in tree.items()}
+        return {k: fn(tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
     return fn(tree, *rest)
 
 
 def tree_leaves(tree: Any) -> list:
-    return list(tree.values()) if isinstance(tree, dict) else [tree]
+    return ([tree[k] for k in sorted(tree)] if isinstance(tree, dict)
+            else [tree])
 
 
 def stacked_init(kind: Synopsis, capacity: int, device) -> Any:

@@ -12,17 +12,23 @@ Differences from the reference:
   * No interpret-mode switch and no jit caches: PyTorch runs eagerly, and
     the wrappers pick the kernel or the plain version from the device of
     the tensors they are given.
-  * The data-source fold builds the batch's fresh single sketch with the
-    SAME kernel (n = 1, every tuple routed to row 0) and then applies it to
-    the distinct source rows with ``index_add_`` (CM) or
-    ``torch.maximum`` (HLL, Bloom, FM). The reference computes it with a
-    plain scatter, which on the card would sum floats in no fixed order.
-  * Bucket hashing, ``_hll_prep`` and FM's ``_which_pos`` are plain torch
-    ops on the state's device, as the reference keeps them outside its
-    Pallas kernels.
+  * The data-source fold of CountMin, HLL, Bloom and FM builds the
+    batch's fresh single sketch with the SAME kernel (n = 1, every tuple
+    routed to row 0) and then applies it to the distinct source rows with
+    ``index_add_`` (CM) or ``torch.maximum`` (HLL, Bloom, FM). The
+    reference computes it with a plain scatter, which on the card would
+    sum floats in no fixed order. RHP's fresh sketch is a dense sum over
+    the batch, which the reference computes outside its kernel too
+    (``jnp.sum(sgn * v, axis=0)``); the port takes the same fixed-shape
+    torch reduction, which is deterministic on the card, and adds it
+    into the source rows without atomics (:func:`_sum_fold`). It
+    launches no one-row kernel.
+  * Bucket hashing, sign hashing, ``_hll_prep`` and FM's ``_which_pos``
+    are plain torch ops on the state's device, as the reference keeps
+    them outside its Pallas kernels.
 
 Not yet ported: the sharded, collective, merged and subpopulation
-estimate paths, and the RHP / AMS kernels.
+estimate paths, and the AMS kernel.
 """
 from __future__ import annotations
 
@@ -33,7 +39,8 @@ from typing import Callable, Dict, Optional
 import torch
 
 from repro_torch.core import batched, hashing
-from . import bitset_or, fm_bitmap, hll_max, onehot_matmul, probe
+from . import (bitset_or, fm_bitmap, hll_max, onehot_matmul, probe,
+               rhp_project)
 
 _FALSY = ("0", "false", "no", "off")
 
@@ -82,6 +89,35 @@ def _max_fold(state: torch.Tensor, source_rows: torch.Tensor,
                           device=state.device)
     kernel(fresh, to_row0, *args)
     state[source_rows] = torch.maximum(state[source_rows], fresh)
+
+
+def _sum_fold(state: torch.Tensor, source_rows: torch.Tensor,
+              signs: torch.Tensor, v: torch.Tensor) -> None:
+    """Add the batch's fresh RHP sketch ``sum_t v[t] * signs[t, :]`` into
+    the distinct data-source rows of ``state [n, b]`` in place: one
+    fixed-shape reduction over T, then a gather, one add per element and
+    a put (no atomics, so the bytes are the same on every run)."""
+    fresh = torch.sum(signs * v[:, None], dim=0)
+    state[source_rows] = state[source_rows] + fresh
+
+
+def rhp_update(state: torch.Tensor, syn_idx: torch.Tensor,
+               items: torch.Tensor, values: torch.Tensor, mask: torch.Tensor,
+               *, seeds: torch.Tensor,
+               source_rows: Optional[torch.Tensor] = None,
+               source_tuple_mask: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
+    """Kernel-backed stacked RHP/SimHash update, in place. state [n, b]
+    f32; each tuple adds ``v * sign_row`` into its routed row (rows
+    outside [0, n) are dropped). Data-source rows add the batch's summed
+    projection (linear merge), over ``source_tuple_mask`` when given."""
+    sgn = hashing.sign_hash(items, seeds)                       # [T, b]
+    v = values * mask.to(torch.float32)
+    rhp_project.rhp_project_update(state, syn_idx, v, sgn)
+    if source_rows is not None:
+        tm = mask if source_tuple_mask is None else source_tuple_mask
+        _sum_fold(state, source_rows, sgn, values * tm.to(torch.float32))
+    return state
 
 
 # ---------------------------------------------------------------------------
@@ -224,7 +260,25 @@ def _fm_kernel(kind, fuse):
     return fn
 
 
+def _rhp_kernel(kind, fuse):
+    def fn(state, klo, khi, trows, slo, shi, items, vals, msk, src_rows, *,
+           n_probe):
+        sgn = hashing.sign_hash(items, kind._seeds())
+        v = vals * msk.to(torch.float32)
+        if fuse:
+            rhp_project.rhp_probe_update(state, klo, khi, trows, slo, shi, v,
+                                         sgn, n_probe=n_probe)
+        else:
+            syn = route_probe(klo, khi, trows, slo, shi, n_probe=n_probe)
+            rhp_project.rhp_project_update(state, syn, v, sgn)
+        if src_rows is not None:
+            _sum_fold(state, src_rows, sgn, v)
+        return state
+    return fn
+
+
 register_update_kernel("countmin_scatter", _countmin_kernel)
 register_update_kernel("hll_max", _hll_kernel)
 register_update_kernel("bloom_bitset", _bloom_kernel)
 register_update_kernel("fm_bitmap", _fm_kernel)
+register_update_kernel("rhp_project", _rhp_kernel)

@@ -5,15 +5,19 @@ of ``repro/kernels/bitset_or.py``, which has no oracle there).
 The wrappers run these on CPU tensors; ``chip_smoke.py`` holds each CUDA
 kernel against them on the card. All update in place.
 
-Unlike the reference oracle, whose ``.at[-1]`` wraps a ``syn_idx = -1``
-tuple onto the LAST row, these drop rows outside ``[0, n)``, as the
-kernels and the engine's own path (``core/batched.py``) do.
+Unlike the reference's CountMin oracle, whose ``.at[-1]`` wraps a
+``syn_idx = -1`` tuple onto the LAST row, these drop rows outside
+``[0, n)``, as the kernels and the engine's own path
+(``core/batched.py``) do. (The reference's RHP oracle zeroes a ``-1``
+tuple's value instead, which drops it too.)
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+from . import probe
 
 
 def onehot_scatter_add(counts: torch.Tensor, syn_idx: torch.Tensor,
@@ -61,3 +65,30 @@ def bitset_max_update(bits: torch.Tensor, syn_idx: torch.Tensor,
     ok = (pos >= 0) & (pos < m)
     bits.view(-1).scatter_reduce_(0, flat[ok], vals[ok], reduce="amax")
     return bits
+
+
+def rhp_project_update(state: torch.Tensor, syn_idx: torch.Tensor,
+                       values: torch.Tensor,
+                       signs: torch.Tensor) -> torch.Tensor:
+    """``state[s, :] += values[t] * signs[t, :]`` for every tuple t with
+    ``syn_idx[t] = s`` in ``[0, n)``; on the CPU ``index_add_`` adds them
+    in batch order, as the kernel does (on the card it adds in no fixed
+    order). state [n, b] f32; syn_idx [T] i32; values [T] f32 (mask
+    folded in); signs [T, b] f32."""
+    n = state.shape[0]
+    keep = (syn_idx >= 0) & (syn_idx < n)
+    state.index_add_(0, syn_idx[keep].long(),
+                     values[keep][:, None] * signs[keep])
+    return state
+
+
+def rhp_probe_update(state: torch.Tensor, keys_lo: torch.Tensor,
+                     keys_hi: torch.Tensor, table_rows: torch.Tensor,
+                     sid_lo: torch.Tensor, sid_hi: torch.Tensor,
+                     values: torch.Tensor, signs: torch.Tensor, *,
+                     n_probe: int) -> torch.Tensor:
+    """The routing probe (``probe.probe_rows``), then
+    :func:`rhp_project_update`."""
+    rows = probe.probe_rows(keys_lo, keys_hi, table_rows, sid_lo, sid_hi,
+                            n_probe=n_probe)
+    return rhp_project_update(state, rows, values, signs)

@@ -9,10 +9,10 @@ service maintaining thousands of synopses for thousands of streams.
   * red path: ``handle(request)`` adhoc queries and ``query_many`` --
     one stacked-estimate call per kind answers every query of that kind.
 
-The port serves CountMin, HyperLogLog, Bloom and FM so far: build (per
-stream, per stream of a source, data source), ingest, adhoc, query_many,
-stop, status, flush and shutdown, with continuous queries emitted
-eagerly.
+The port serves CountMin, HyperLogLog, Bloom, FM and RHP so far: build
+(per stream, per stream of a source, data source), ingest, adhoc,
+query_many, stop, status, flush and shutdown, with continuous queries
+emitted eagerly.
 
 Differences from the reference:
 
@@ -403,9 +403,21 @@ class SDE:
                       stream=e.stream_id, federated=e.federated,
                       memory_bytes=per_row[e.kind_key])
             for sid, e in self.entries.items()}
-        return api.Response(request_id=req.request_id, value=info,
-                            params=dict(site=self.site,
-                                        device=str(self.device)))
+        # the reference's probe counters, with its Python types; each reads
+        # 0 until the slice that feeds it lands (ROADMAP queue 1)
+        return api.Response(
+            request_id=req.request_id, value=info,
+            params=dict(
+                site=self.site,
+                reconcile_count=0,          # serving layers (reconciler)
+                migrated_rows=0,            # snapshots and migration
+                rebalance_imbalance=0.0,    # serving layers (balancer)
+                checkpoint_bytes=0,         # snapshots and migration
+                dirty_rows=0,               # snapshots and migration
+                wal_appends=0,              # serving layers (WAL)
+                subpop_cover_keys=0,        # multidim, subpop, outliers
+                outlier_emits=0,            # multidim, subpop, outliers
+                device=str(self.device)))
 
     # ------------------------------------------------------------------
     # blue path: data
@@ -556,7 +568,8 @@ def _update(kind, n_probe, state, klo, khi, trows, sid_lo, sid_hi, items,
 # red-path query planning: normalize N query dicts for one kind into padded
 # batched device args + a per-query result slicer. CountMin and Bloom take
 # per-query ``items`` as ONE [N, L] arg (L = padded max arg length);
-# HyperLogLog and FM are arg-free and return their estimate per row.
+# HyperLogLog, FM and RHP are arg-free and return their estimate per row
+# (RHP's a dict: signature, hamming_weight, bucket).
 # ---------------------------------------------------------------------------
 
 _ITEM_KINDS = (core.CountMin, core.BloomFilter)

@@ -29,6 +29,7 @@ def jax_contents(eng) -> dict:
                  for sid, e in eng.entries.items()])
 
 
+@pytest.mark.smoke
 @pytest.mark.parametrize("fused", [True, False], ids=["fused", "unfused"])
 def test_converted_engine_keeps_ingesting_like_the_reference(monkeypatch,
                                                              fused):

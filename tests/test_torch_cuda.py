@@ -4,22 +4,25 @@ stacks (n = 1 spreads a block over bucket slices), depths 1 to 30 (deep
 sketches stage fewer tuples per chunk in more shared memory), batches
 below, at and above one 1024-tuple chunk, count-sketch signs, float
 weights; for the bit-set kernel empty batches, k = 1, positions at
-m - 1, a probe bound of 1 and a stack past 2**31 lanes. Needs a card;
-run there with
+m - 1, a probe bound of 1 and a stack past 2**31 lanes; for the RHP
+projection ragged plane counts (b = 200 and b = 1), empty batches, rows
+out of range, one hot row walked across many 32-tuple steps, and float
+weights byte-identical from run to run. Tests marked ``cuda`` need a
+card; run them there with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-This file imports no JAX, so it also runs where JAX is not installed.
+The one test without the marker holds the plain versions those tests
+compare against to a serial loop, on the CPU. This file imports no JAX,
+so it also runs where JAX is not installed.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import (bitset_or, fm_bitmap, hll_max, onehot_matmul,
-                                 probe, ref)
+                                 probe, ref, rhp_project)
 from repro_torch.service import routing
-
-pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
@@ -47,6 +50,7 @@ def _batch(rng, pop, t, dev):
     return c(lo.view(np.int32)), c(hi.view(np.int32))
 
 
+@pytest.mark.cuda
 @pytest.mark.parametrize("n,d,w,t", [(1, 5, 2048, 3000), (3, 1, 16, 1),
                                      (204, 5, 64, 1024), (205, 7, 32, 1025),
                                      (1000, 3, 128, 5000),
@@ -90,6 +94,7 @@ def test_countmin_kernels_match_plain(dev, n, d, w, t, signed):
         ref.onehot_scatter_add(counts0.clone(), rows, idx, ints, signs))
 
 
+@pytest.mark.cuda
 @pytest.mark.parametrize("n,m,t", [(1, 16, 1), (7, 64, 1000),
                                    (300, 2048, 70000)])
 def test_hll_kernels_match_plain(dev, n, m, t):
@@ -108,6 +113,7 @@ def test_hll_kernels_match_plain(dev, n, m, t):
     assert torch.equal(got, want) and torch.equal(got_f, want)
 
 
+@pytest.mark.cuda
 def test_wrappers_count_launches_and_reject_cpu_operands(dev):
     counts = torch.zeros((4, 2, 8), device=dev)
     rows = torch.zeros(3, dtype=torch.int32, device=dev)
@@ -123,6 +129,7 @@ def test_wrappers_count_launches_and_reject_cpu_operands(dev):
     assert onehot_matmul.onehot_scatter_add.launches == before + 1
 
 
+@pytest.mark.cuda
 @pytest.mark.parametrize("n,m,t,k", [(1, 16, 0, 11), (1, 16, 300, 2),
                                      (5, 64, 1, 1),
                                      (7, 128, 1000, 1), (3, 8, 500, 40),
@@ -161,6 +168,7 @@ def test_bitset_kernels_match_plain(dev, n, m, t, k):
     assert torch.equal(got, want)
 
 
+@pytest.mark.cuda
 def test_bitset_probe_bound_of_one(dev):
     """With n_probe = 1, ids displaced from their start slot resolve to
     -1 in the kernel as in the plain probe."""
@@ -180,6 +188,7 @@ def test_bitset_probe_bound_of_one(dev):
     assert torch.equal(got, want)
 
 
+@pytest.mark.cuda
 @pytest.mark.parametrize("n,maps,bits,t", [(1, 1, 32, 300), (131, 64, 32,
                                                              5000),
                                            (9, 8, 16, 0)])
@@ -207,6 +216,7 @@ def test_fm_kernels_match_plain(dev, n, maps, bits, t):
     assert torch.equal(got, want) and torch.equal(got_f, want)
 
 
+@pytest.mark.cuda
 def test_bitset_and_fm_wrappers_count_their_own_launches(dev):
     bits = torch.zeros((4, 64), dtype=torch.int32, device=dev)
     rows = torch.zeros(3, dtype=torch.int32, device=dev)
@@ -225,3 +235,119 @@ def test_bitset_and_fm_wrappers_count_their_own_launches(dev):
     with pytest.raises(TypeError):
         bitset_or.bitset_max_update(bits, rows, idx, upd.long())
     assert bitset_or.bitset_max_update.launches == b0 + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,b,t", [(1, 64, 300), (5, 1, 77), (16, 200, 513),
+                                   (9, 33, 0), (300, 64, 70001),
+                                   (2, 64, 5000)])
+def test_rhp_kernels_match_plain(dev, n, b, t):
+    """Rows -1 and n dropped; b = 1, 33 and 200 leave a ragged lane
+    slice; t = 0 launches nothing; n = 2 with t = 5000 makes runs of
+    thousands of tuples, walked 32 at a time past their chunk. The kernel
+    adds each row's tuples in batch order, as the plain version does on
+    the CPU (``index_add_`` there walks the batch in order), so even float
+    weights give the CPU's bytes; the card's ``index_add_`` adds in no
+    fixed order."""
+    rng = np.random.RandomState(n + b + t)
+    pop, (klo, khi, trows, n_probe) = _table(rng, n, dev)
+    c = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    if t:
+        slo, shi = _batch(rng, pop, t, dev)
+    else:
+        slo = shi = torch.zeros(0, dtype=torch.int32, device=dev)
+    signs = c(np.where(rng.rand(t, b) > 0.5, 1.0, -1.0).astype(np.float32))
+    rows = c(rng.randint(-1, n + 1, t).astype(np.int32))
+    state0 = c(rng.randint(-3, 4, (n, b)).astype(np.float32))
+    before = rhp_project.rhp_project_update.launches
+    for vals in (c(rng.randint(0, 5, t).astype(np.float32)),
+                 c(rng.randn(t).astype(np.float32) * 3)):
+        want = ref.rhp_project_update(state0.clone(), rows, vals, signs)
+        a = rhp_project.rhp_project_update(state0.clone(), rows, vals, signs)
+        b2 = rhp_project.rhp_project_update(state0.clone(), rows, vals, signs)
+        want_f = ref.rhp_probe_update(state0.clone(), klo, khi, trows, slo,
+                                      shi, vals, signs, n_probe=n_probe)
+        got_f = rhp_project.rhp_probe_update(state0.clone(), klo, khi, trows,
+                                             slo, shi, vals, signs,
+                                             n_probe=n_probe)
+        torch.cuda.synchronize()
+        assert torch.equal(a.view(torch.int32), b2.view(torch.int32))
+        torch.testing.assert_close(a, want, rtol=1e-4, atol=1e-3)
+        torch.testing.assert_close(got_f, want_f, rtol=1e-4, atol=1e-3)
+        cpu = [x.cpu() for x in (state0, rows, vals, signs)]
+        serial = ref.rhp_project_update(cpu[0].clone(), *cpu[1:])
+        assert torch.equal(a.cpu().view(torch.int32),
+                           serial.view(torch.int32))
+        assert torch.equal(got_f.cpu().view(torch.int32),
+                           ref.rhp_project_update(
+                               cpu[0].clone(), probe.probe_rows(
+                                   klo, khi, trows, slo, shi,
+                                   n_probe=n_probe).cpu(),
+                               *cpu[2:]).view(torch.int32))
+    # integer weights: exact, both entry points
+    ints = c(rng.randint(-4, 5, t).astype(np.float32))
+    assert torch.equal(
+        rhp_project.rhp_project_update(state0.clone(), rows, ints, signs),
+        ref.rhp_project_update(state0.clone(), rows, ints, signs))
+    assert torch.equal(
+        rhp_project.rhp_probe_update(state0.clone(), klo, khi, trows, slo,
+                                     shi, ints, signs, n_probe=n_probe),
+        ref.rhp_probe_update(state0.clone(), klo, khi, trows, slo, shi, ints,
+                             signs, n_probe=n_probe))
+    launched = rhp_project.rhp_project_update.launches - before
+    assert launched == (5 if t else 0)
+
+
+@pytest.mark.cuda
+def test_rhp_wrappers_count_launches_and_reject_bad_operands(dev):
+    state = torch.zeros((4, 64), device=dev)
+    rows = torch.tensor([0, 3, -1], dtype=torch.int32, device=dev)
+    vals = torch.ones(3, device=dev)
+    signs = torch.ones((3, 64), device=dev)
+    fn = rhp_project.rhp_project_update
+    l0, r0 = fn.launches, fn.one_row_launches
+    fn(state, rows, vals, signs)
+    fn(state[:1], torch.zeros(3, dtype=torch.int32, device=dev), vals, signs)
+    assert (fn.launches, fn.one_row_launches) == (l0 + 2, r0 + 1)
+    with pytest.raises(ValueError, match="is on cpu"):
+        fn(state, rows.cpu(), vals, signs)
+    with pytest.raises(ValueError, match="shape"):
+        fn(state, rows, vals, signs[:, :32].contiguous())
+    with pytest.raises(TypeError):
+        fn(state, rows, vals.double(), signs)
+    assert fn.launches == l0 + 2
+
+
+@pytest.mark.smoke
+def test_plain_versions_match_a_serial_loop_at_edge_shapes():
+    """On the CPU: the plain versions the card tests compare against,
+    held to a loop over the batch at the edge shapes above (rows -1 and
+    n, ragged widths, an empty batch), so a kernel is never held to a
+    plain version that shares its mistake."""
+    rng = np.random.RandomState(3)
+    for n, b, t in ((5, 1, 77), (16, 200, 513), (9, 33, 0)):
+        rows = rng.randint(-1, n + 1, t).astype(np.int32)
+        vals = rng.randint(-4, 5, t).astype(np.float32)
+        signs = np.where(rng.rand(t, b) > 0.5, 1.0, -1.0).astype(np.float32)
+        state0 = rng.randint(-3, 4, (n, b)).astype(np.float32)
+        want = state0.copy()
+        for i in range(t):
+            if 0 <= rows[i] < n:
+                want[rows[i]] += vals[i] * signs[i]
+        got = rhp_project.rhp_project_update(
+            torch.from_numpy(state0.copy()), torch.from_numpy(rows),
+            torch.from_numpy(vals), torch.from_numpy(signs))
+        assert np.array_equal(got.numpy(), want)
+        for m, k in ((64, 3), (16, 1)):
+            idx = rng.randint(0, m, (t, k)).astype(np.int32)
+            upd = rng.randint(0, 3, t).astype(np.int32)
+            bits0 = (rng.rand(n, m) > 0.8).astype(np.int32)
+            want = bits0.copy()
+            for i in range(t):
+                if 0 <= rows[i] < n and upd[i] > 0:
+                    for p in idx[i]:
+                        want[rows[i], p] = max(want[rows[i], p], upd[i])
+            got = bitset_or.bitset_max_update(
+                torch.from_numpy(bits0.copy()), torch.from_numpy(rows),
+                torch.from_numpy(idx), torch.from_numpy(upd))
+            assert np.array_equal(got.numpy(), want)

@@ -72,6 +72,7 @@ def test_bucket_hash_byte_equal(log2_width):
     assert np.array_equal(want, got.numpy())
 
 
+@pytest.mark.smoke
 def test_sign_hash_and_uniform01_byte_equal():
     x = _ids32(3)
     seeds = jh.row_seeds(5, 4)

@@ -141,6 +141,7 @@ def test_cm_plain_drops_minus_one_rows_where_jax_oracle_wraps():
     assert not np.array_equal(wrapped[-1], want[-1])    # the hazard is real
 
 
+@pytest.mark.smoke
 def test_hll_plain_matches_jax_oracle():
     rng = np.random.RandomState(1)
     n, m, t = 5, 32, 300

@@ -2,6 +2,7 @@
 table contents after the same insert/remove sequence, and identical probe
 rows on hits, misses and lanes displaced beyond ``n_probe``."""
 import numpy as np
+import pytest
 import jax.numpy as jnp
 import torch
 
@@ -53,6 +54,7 @@ def _probe_both(table, sids, n_probe):
     return want, got.numpy()
 
 
+@pytest.mark.smoke
 def test_probe_rows_hits_and_misses():
     table, ids = _sequence(trouting.RouteTable)
     rng = np.random.RandomState(1)
