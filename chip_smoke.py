@@ -2,14 +2,14 @@
 """Drive the PyTorch port's main path on one CUDA card and hold every
 hand-written kernel against its plain PyTorch version.
 
-    python3 chip_smoke.py            # needs one CUDA card; ~1 minute
+    python3 chip_smoke.py            # needs one CUDA card; ~2 minutes
 
 Phases (any failure raises, so the script exits non-zero without its
 last line; each phase prints its peak device memory, held under 48 GiB):
 
-  1. Card and build: ``nvidia-smi`` name and power limit, then the four
+  1. Card and build: ``nvidia-smi`` name and power limit, then the five
      kernel sources built by ``nvcc`` in parallel.
-  2. Each of the ten kernel entry points against its plain version at
+  2. Each of the eleven kernel entry points against its plain version at
      the main path's shapes, on a batch of 65,536 tuples with unrouted,
      -1 and masked (upd 0 / rank 0 / weight 0) lanes: CountMin
      eps=0.002, delta=0.01 (the paper's parameters,
@@ -17,34 +17,47 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      HyperLogLog rse=0.03 -> 2048 registers; n = 131,072 rows (the
      capacity of phase 3's stacks); Bloom(1024, 0.01) -> 16,384 lanes,
      k = 11, n = 131,072 (8 GiB); FM defaults -> [131,072, 64, 32]; RHP
-     defaults -> [131,072, 64] f32. Plus the one-row fresh-sketch launch
-     each CM, HLL, Bloom and FM data-source fold makes
-     (``<name>@fresh``; RHP's fold is a torch reduction and launches
-     none), an untimed exactness run of both bit-set entry points on a
-     262,144 x 16,384 stack (2**32 lanes) with tuples routed to its last
-     rows, and an untimed RHP run at b = 200 with rows -1 and n and a
-     batch of no multiple of 32. Integer results must match exactly; the
-     two float-sum kernels (CM and RHP) under float weights to a stated
-     tolerance and byte for byte across two kernel runs. Times are
-     CUDA-event medians of one call (host enqueue included), each with
-     its ``torch.profiler`` device time per call beside it. One entry's
-     tensors are held at a time.
+     defaults -> [131,072, 64] f32; the sliding-DFT tick of the paper's
+     Figure-6 DFT (window 128, 8 coefficients,
+     ``benchmarks/fig6_dft_workflow.py``) in place on the [S, 8, 2]
+     coefficient leaf at S = 131,072 and 2**20, byte for byte. Plus the
+     one-row fresh-sketch launch each CM, HLL, Bloom and FM data-source
+     fold makes (``<name>@fresh``; RHP's fold is a torch reduction and
+     launches none), an untimed exactness run of both bit-set entry
+     points on a 262,144 x 16,384 stack (2**32 lanes) with tuples routed
+     to its last rows, and an untimed RHP run at b = 200 with rows -1 and
+     n and a batch of no multiple of 32. Integer results must match
+     exactly; the two float-sum kernels (CM and RHP) under float weights
+     to a stated tolerance and byte for byte across two kernel runs.
+     Times are CUDA-event medians of one call (host enqueue included),
+     each with its ``torch.profiler`` device time per call beside it. One
+     entry's tensors are held at a time.
   3. The main path through ``SDE(device="cuda").handle``: per-stream CM,
-     HLL, Bloom, FM and RHP over 65,536 hashed 63-bit ids; a data-source
-     CM, HLL, Bloom(1,048,576, 0.01) (own stack: 64 x 2**24 lanes), FM
-     and RHP; continuous HLL and FM; 16 ingest batches of 65,536
-     Zipf(1.1) tuples (half with SDE_FUSED_PROBE=0), then 2 more under
-     ``torch.profiler`` (device-busy share and top kernels); 1,024 CM,
-     1,024 Bloom and 1,025 RHP queries in query_many, Bloom false
-     positives, HLL and FM adhoc queries. Every stack must equal a replay
-     of the same batches through the plain versions on the card (RHP
-     byte for byte, with its answers equal to the replay's), no ingested
-     id may be missing from its Bloom, every entry point must launch, and
+     HLL, Bloom, FM, RHP and Figure-6 DFT over 65,536 hashed 63-bit ids;
+     a data-source CM, HLL, Bloom(1,048,576, 0.01) (own stack: 64 x 2**24
+     lanes), FM, RHP and DFT; continuous HLL, FM and DFT (window 64, on
+     the hottest stream); 16 ingest batches of 65,536 Zipf(1.1) tuples
+     (half with SDE_FUSED_PROBE=0), then 2 more under ``torch.profiler``
+     (device-busy share and top kernels); 1,024 CM, 1,024 Bloom, 1,025
+     RHP and 1,025 DFT queries in query_many, Bloom false positives, HLL,
+     FM and DFT adhoc queries. Every stack must equal a replay of the
+     same batches through the plain versions on the card (RHP and DFT
+     byte for byte, with their answers equal to the replay's; the DFT
+     replay finds each row's last routed value in numpy and ticks with
+     ``DFT.step``), the data-source DFT must stay at init, no ingested id
+     may be missing from its Bloom, every entry point must launch, and
      the RHP fold must make no one-row launch.
-  4. One JSON line with each kernel's launches in phase 3 and its
-     phase-2 numbers (``ms``, ``plain_ms``, ``library_ms`` by CUDA event;
-     ``device_ms``, ``plain_device_ms``, ``library_device_ms`` by
-     ``torch.profiler``), then the device line.
+  3b. Every ring wraps: a per-stream Figure-6 DFT over 131,072 hashed ids
+     and 192 ingests, each carrying every stream once plus 1/8 duplicates
+     (the last one wins), 1/16 unrouted and a few negative ids; the stack
+     must equal its plain replay byte for byte, and the tick kernel must
+     launch once per batch.
+  4. The gate of the CountMin one-row launch: its device time no higher
+     than the library call's. Then one JSON line with each kernel's
+     launches in phase 3 and its phase-2 numbers (``ms``, ``plain_ms``,
+     ``library_ms`` by CUDA event; ``device_ms``, ``plain_device_ms``,
+     ``library_device_ms`` by ``torch.profiler``; the sliding-DFT row
+     adds its S = 2**20 numbers), then the device line.
 """
 from __future__ import annotations
 
@@ -68,6 +81,9 @@ FLOAT_RTOL, FLOAT_ATOL = 1e-4, 1e-3   # float sums of up to ~10^4 terms
                                       # taken in another order
 PEAK_LIMIT_GIB = 48.0
 SRC_BLOOM_ELEMENTS = 1 << 20          # phase 3's data-source Bloom
+# the paper's Figure-6 DFT (benchmarks/fig6_dft_workflow.py)
+FIG6_DFT = {"window": 128, "n_coeffs": 8, "threshold": 0.9,
+            "grid_coeffs": 2}
 TABLE_B = 12                          # a probed slot: key lo, key hi, row
 GIB = 2.0 ** 30
 
@@ -138,6 +154,11 @@ def compare(a: torch.Tensor, b: torch.Tensor, chunk: int = 4096):
 
 
 def same_bytes(a: torch.Tensor, b: torch.Tensor, chunk: int = 4096) -> bool:
+    """Byte-equal 4-byte tensors of one shape, row chunk by row chunk."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dim() == 0:
+        a, b = a[None], b[None]
     return all(torch.equal(a[i:i + chunk].view(torch.int32),
                            b[i:i + chunk].view(torch.int32))
                for i in range(0, a.shape[0], chunk))
@@ -205,7 +226,8 @@ def distinct(flat: torch.Tensor) -> int:
 def record(results, name, fn_kernel, fn_plain, fn_lib, state0, n_bytes,
            n_ops, floats=None):
     """Hold ``fn_kernel`` against ``fn_plain`` on copies of ``state0``
-    (torch.equal), then time kernel, plain and library call."""
+    (torch.equal), then time kernel, plain and library call (``fn_lib``
+    None: no one PyTorch call computes the function)."""
     k = state0.clone()
     fn_kernel(k)
     p = state0.clone()
@@ -222,8 +244,10 @@ def record(results, name, fn_kernel, fn_plain, fn_lib, state0, n_bytes,
     p = state0.clone()
     pms = cuda_ms(lambda: fn_plain(p))
     pdev = device_ms(lambda: fn_plain(p))
-    lms = cuda_ms(lambda: fn_lib(p))
-    ldev = device_ms(lambda: fn_lib(p))
+    lms = ldev = None
+    if fn_lib is not None:
+        lms = cuda_ms(lambda: fn_lib(p))
+        ldev = device_ms(lambda: fn_lib(p))
     del k, p
     free()
     bms, by = bound_ms(n_bytes, n_ops)
@@ -231,10 +255,12 @@ def record(results, name, fn_kernel, fn_plain, fn_lib, state0, n_bytes,
                          library_ms=lms, bound_ms=bms, bound_by=by,
                          device_ms=kdev, plain_device_ms=pdev,
                          library_device_ms=ldev)
+    lib = ("no library call" if lms is None else
+           f"library {lms:.4f} ms (device {ldev:.4f} ms)")
     print(f"[phase2] {name}: exact match, kernel {kms:.4f} ms (device "
           f"{kdev:.4f} ms), plain {pms:.4f} ms (device {pdev:.4f} ms), "
-          f"library {lms:.4f} ms (device {ldev:.4f} ms), bound {bms:.4f} ms "
-          f"({by}, {n_bytes} B)", flush=True)
+          f"{lib}, bound {bms:.5f} ms ({by}, {n_bytes} B, {n_ops} ops)",
+          flush=True)
 
 
 def float_runs(label, kern, plain, state0) -> None:
@@ -623,12 +649,75 @@ def phase2_rhp(b, n: int, results: dict) -> None:
                plain(v_flt[:et]), e0)
 
 
+def sectors(rows: torch.Tensor, width: int) -> int:
+    """Distinct 32-byte sectors that rows ``rows`` of ``width`` bytes each
+    touch in an array that starts on a sector boundary."""
+    if rows.numel() == 0:
+        return 0
+    first = rows * width // 32
+    last = ((rows + 1) * width - 1) // 32
+    ids = [torch.where(first + k <= last, first + k, first)
+           for k in range(int((last - first).max()) + 1)]
+    return int(torch.unique(torch.cat(ids)).numel())
+
+
+def phase2_dft(b, n: int, results: dict) -> None:
+    """The sliding-DFT tick as the engine calls it: in place on the
+    interleaved [S, F, 2] coefficient leaf of a Figure-6 DFT stack
+    (window 128, 8 coefficients; ``benchmarks/fig6_dft_workflow.py``),
+    rows masked where the batch routes a tuple, at S = n and S = 2**20."""
+    from repro_torch import core
+    from repro_torch.kernels import ref, sliding_dft
+
+    dft = core.DFT(**FIG6_DFT)
+    f, dev = dft.n_coeffs, b.dev
+    tw_re, tw_im = dft._twiddle(dev)
+
+    for s_rows in (n, 1 << 20):
+        hit = torch.zeros(s_rows, dtype=torch.float32, device=dev)
+        hit[b.rows[(b.rows >= 0) & b.mask].long() % s_rows] = 1.0
+        delta = torch.randn(s_rows, generator=b.gen, device=dev) * 4
+
+        def kern(c, hit=hit, delta=delta):
+            sliding_dft.sliding_dft_step(c[..., 0], c[..., 1], delta, hit,
+                                         tw_re, tw_im)
+
+        def plain(c, hit=hit, delta=delta):
+            ref.sliding_dft_step(c[..., 0], c[..., 1], delta, hit, tw_re,
+                                 tw_im)
+
+        coeff0 = torch.randn((s_rows, f, 2), generator=b.gen, device=dev) * 40
+        k, p = coeff0.clone(), coeff0.clone()
+        kern(k)
+        plain(p)
+        require(same_bytes(k, p), f"sliding_dft_step: kernel differs "
+                                  f"byte-wise from its plain version at "
+                                  f"S={s_rows}")
+        rows_in = torch.nonzero(hit > 0)[:, 0]
+        n_hit = rows_in.numel()
+        print(f"[phase2] DFT: S={s_rows} F={f}, interleaved [S, F, 2] leaf "
+              f"in place, {n_hit} rows masked in; byte-equal to the plain "
+              f"version", flush=True)
+        del k, p
+        # what the in-place tick must move: every row's mask read; each
+        # masked-in row's (re, im) row read and written and its delta read,
+        # in the 32-byte sectors they touch; the twiddles read. 7 float
+        # operations per ticked element
+        n_bytes = (s_rows * 4 + 2 * 32 * sectors(rows_in, f * 8)
+                   + 32 * sectors(rows_in, 4) + f * 8)
+        name = "sliding_dft_step" + ("" if s_rows == n else f"@{s_rows}")
+        record(results, name, kern, plain, None, coeff0, n_bytes,
+               7 * f * n_hit)
+        del coeff0
+        free()
+
+
 def phase2(dev, seed: int, n: int, n_streams: int, t: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     b = phase2_batch(dev, seed, n_streams, t)
     results: dict = {}
     for part in (phase2_countmin, phase2_hll, phase2_bloom, phase2_fm,
-                 phase2_rhp):
+                 phase2_rhp, phase2_dft):
         part(b, n, results)
         free()
     peak_gib("phase2")
@@ -669,6 +758,8 @@ ENTRY_POINTS = {
                            "rhp_project.cu", "rhp_project.py:57"),
     "rhp_probe_update": ("rhp_project", "rhp_probe_update", "rhp_project.cu",
                          "rhp_project.py:111"),
+    "sliding_dft_step": ("sliding_dft", "sliding_dft_step", "sliding_dft.cu",
+                         "sliding_dft.py:35"),
 }
 
 
@@ -689,6 +780,48 @@ def reset_launches() -> None:
 def read_launches() -> dict:
     return {name: (fn.one_row_launches if name.endswith("@fresh")
                    else fn.launches) for name, fn in wrappers().items()}
+
+
+def last_writer(rows: np.ndarray, sids: np.ndarray, vals: np.ndarray,
+                capacity: int):
+    """For each row of a time-series stack: whether the batch routes a
+    tuple to it, and the value of its LAST routed tuple (in numpy, apart
+    from the engine's scatter-max)."""
+    ok = (rows >= 0) & (sids >= 0)
+    last = np.full(capacity, -1, np.int64)
+    np.maximum.at(last, rows[ok], np.nonzero(ok)[0])
+    hit = last >= 0
+    return hit, np.where(hit, vals[np.maximum(last, 0)], 0).astype(np.float32)
+
+
+def probe_host(stack, sids: np.ndarray, dev) -> np.ndarray:
+    """The plain probe's rows for a batch of stream ids, on the host."""
+    from repro_torch.kernels import probe
+    from repro_torch.service import routing
+    klo, khi, trows = stack.device_table()
+    lo, hi = routing.split64(sids.astype(np.int64))
+    dt = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return probe.probe_rows(klo, khi, trows, dt(lo.view(np.int32)),
+                            dt(hi.view(np.int32)),
+                            n_probe=stack.n_probe).cpu().numpy()
+
+
+def replay_timeseries(stack, batches, dev):
+    """A plain replay of a time-series stack: the plain probe, the last
+    routed value per row, and the kind's plain tick (``DFT.step``)."""
+    from repro_torch.core import batched
+    dt = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    replay = batched.stacked_init(stack.kind, stack.capacity, dev)
+    for sids, vals in batches:
+        hit, per_row = last_writer(probe_host(stack, sids, dev), sids, vals,
+                                   stack.capacity)
+        stack.kind.step(replay, dt(per_row), dt(hit))
+    return replay
+
+
+def same_leaves(got: dict, want: dict) -> bool:
+    return sorted(got) == sorted(want) and all(
+        same_bytes(got[k], want[k]) for k in got)
 
 
 def profile_batches(sde, batches, first: int) -> None:
@@ -734,6 +867,41 @@ def profile_batches(sde, batches, first: int) -> None:
     require(dev_events, "torch.profiler recorded no device activity")
 
 
+def check_dft_stack(sde, stack, batches, answers, dev) -> None:
+    """A DFT stack equals its plain replay byte for byte in all six
+    leaves, its data-source rows stayed at init, and its answers among
+    ``answers`` ((synopsis id, answer) pairs) equal the replay's."""
+    from repro_torch.core import batched
+    name = f"DFT(window={stack.kind.window})"
+    replay = replay_timeseries(stack, batches, dev)
+    require(same_leaves(stack.state, replay),
+            f"{name} engine state differs byte-wise from the plain replay")
+    init = stack.kind.init(dev)
+    for row in stack.source_rows:
+        require(same_leaves(batched.stacked_row(stack.state, row), init),
+                f"{name}: a data-source row left init")
+    ticked = int((stack.state["count"] > 0).sum())
+    mine = [(sde.entries[sid].row, a) for sid, a in answers
+            if sde.entries[sid].kind_key == stack.kind]
+    if mine:
+        want = batched.stacked_estimate(
+            stack.kind, replay,
+            torch.tensor([row for row, _ in mine], dtype=torch.int32,
+                         device=dev))
+        for i, (_, got) in enumerate(mine):
+            for key in ("bucket", "coeffs", "coords"):
+                w = want[key][i].cpu().numpy()
+                require(got[key].dtype == w.dtype
+                        and got[key].tobytes() == w.tobytes(),
+                        f"{name} answer {i} ({key}) differs from the plain "
+                        f"replay's")
+    print(f"[phase3] {name} stack {stack.capacity} x {stack.row_bytes()} B "
+          f"equals the plain replay byte for byte in all six leaves "
+          f"({ticked} streams ticked); {len(stack.source_rows)} data-source "
+          f"rows stayed at init; {len(mine)} answers equal the replay's",
+          flush=True)
+
+
 def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
            n_queries: int, n_profiled: int = 2) -> dict:
     from repro_torch.core import batched
@@ -744,6 +912,7 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
     rng = np.random.RandomState(seed + 1)
     pop = np.unique(rng.randint(0, 2**63 - 1, size=n_streams, dtype=np.int64))
     cm_params = {"eps": 0.002, "delta": 0.01}
+    dft_params = FIG6_DFT
     hll_params = {"rse": 0.03}
     bloom_params = {"n_elements": 1024, "fpr": 0.01}
     src_bloom_params = {"n_elements": SRC_BLOOM_ELEMENTS, "fpr": 0.01}
@@ -765,15 +934,21 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
             ("cq-hll", "hyperloglog", hll_params, {"continuous": True}),
             ("cq-fm", "fm", {}, {"continuous": True}),
             ("rhp", "rhp", {}, per_stream),
-            ("src-rhp", "rhp", {}, {})):
+            ("src-rhp", "rhp", {}, {}),
+            ("dft", "dft", dft_params, per_stream),
+            ("src-dft", "dft", dft_params, {}),
+            ("cq-dft", "dft", {"window": 64, "n_coeffs": 8},
+             {"stream_id": ids[0], "continuous": True})):
         r = sde.handle({"type": "build", "request_id": f"b-{sid}",
                         "synopsis_id": sid, "kind": kind, "params": params,
                         **extra})
         require(r.ok, f"build {sid} failed: {r.error}")
     for kind, stack in sde.stacks.items():
+        leaves = batched.tree_leaves(stack.state)
         print(f"[phase3] stack {type(kind).__name__} "
-              f"{tuple(stack.state.shape)} "
-              f"({stack.state.numel() * 4 / GIB:.2f} GiB)", flush=True)
+              f"{[tuple(x.shape) for x in leaves]} "
+              f"({sum(x.numel() * 4 for x in leaves) / GIB:.3f} GiB)",
+              flush=True)
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -813,15 +988,17 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
                   {"synopsis_id": f"bloom/{int(b_streams[0])}",
                    "query": {"items": fresh_ids.tolist()}}]
                + [{"synopsis_id": f"rhp/{int(s)}"} for s in q_streams]
-               + [{"synopsis_id": "src-rhp"}])
-    n_rhp = n_queries + 1                    # the last entries of query_many
+               + [{"synopsis_id": "src-rhp"}]
+               + [{"synopsis_id": f"dft/{int(s)}"} for s in q_streams]
+               + [{"synopsis_id": "src-dft"}])
+    n_rhp = n_dft = n_queries + 1            # the last entries of query_many
     t0 = time.perf_counter()
     r = sde.handle({"type": "query_many", "request_id": "qm",
                     "queries": queries})
     adhoc = {sid: sde.handle({"type": "adhoc", "request_id": f"a-{sid}",
                               "synopsis_id": sid})
              for sid in ("src-hll", f"hll/{ids[0]}", "cq-hll", "src-fm",
-                         f"fm/{ids[0]}", "cq-fm")}
+                         f"fm/{ids[0]}", "cq-fm", "cq-dft")}
     torch.cuda.synchronize()
     query_s = time.perf_counter() - t0
     n_answered = len(queries) + len(adhoc)
@@ -834,13 +1011,17 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
     own = np.concatenate(vals[n_queries:2 * n_queries])
     require(own.dtype == bool and own.all(),
             "a per-stream Bloom misses its own ingested id")
-    src_all, src_fp, own_fp = vals[2 * n_queries:len(vals) - n_rhp]
-    rhp_answers = vals[len(vals) - n_rhp:]
+    src_all, src_fp, own_fp = vals[2 * n_queries:len(vals) - n_rhp - n_dft]
+    rhp_answers = vals[len(vals) - n_rhp - n_dft:len(vals) - n_dft]
+    dft_answers = vals[len(vals) - n_dft:]
     require(len(src_all) == len(items) and src_all.all(),
             "the data-source Bloom misses an ingested id")
     for sid, h in adhoc.items():
-        require(h.ok and np.isfinite(float(h.value)),
+        require(h.ok and (sid == "cq-dft" or np.isfinite(float(h.value))),
                 f"adhoc {sid} failed: {h.error}")
+    require(int(adhoc["cq-dft"].value["coeffs"].shape[0]) == 8
+            and np.isfinite(adhoc["cq-dft"].value["coeffs"]).all(),
+            "the continuous DFT's adhoc answer is not 8 finite coefficients")
     n_distinct = len(items)
     rel = {sid: float(adhoc[sid].value) / n_distinct - 1.0
            for sid in ("src-hll", "cq-hll", "src-fm", "cq-fm")}
@@ -854,7 +1035,7 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
                                         f"{rel['src-hll']:.3f}")
     require(abs(rel["src-fm"]) < 0.35, f"data-source FM off by "
                                        f"{rel['src-fm']:.3f}")
-    require(len(sde.continuous_out) == 2 * (n_batches + n_profiled),
+    require(len(sde.continuous_out) == 3 * (n_batches + n_profiled),
             "one continuous response per continuous query and batch "
             "expected")
     launches = read_launches()
@@ -862,9 +1043,20 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
     require(one_row == 0, f"the RHP data-source fold launched {one_row} "
                           "one-row kernels")
 
-    # plain replay on the card: route_probe + batched.stacked_update
+    # plain replay on the card: route_probe + batched.stacked_update (the
+    # time-series stacks: the last routed value per row + DFT.step)
     dt = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    # the DFT answers: query_many's, and the continuous DFT's adhoc answer
+    # and its emission after the last batch, all read after every batch
+    last_cq = [c for c in sde.continuous_out if c.synopsis_id == "cq-dft"]
+    dft_checks = ([(q["synopsis_id"], a)
+                   for q, a in zip(queries[-n_dft:], dft_answers)]
+                  + [("cq-dft", adhoc["cq-dft"].value),
+                     ("cq-dft", last_cq[-1].value)])
     for kind, stack in sde.stacks.items():
+        if stack.is_timeseries:
+            check_dft_stack(sde, stack, batches, dft_checks, dev)
+            continue
         replay = batched.stacked_init(kind, stack.capacity, dev)
         klo, khi, trows = stack.device_table()
         src = stack.source_rows_idx()
@@ -914,6 +1106,66 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
     return launches
 
 
+def phase3b(dev, seed: int, n_streams: int, n_batches: int) -> None:
+    """Every ring wraps: a per-stream Figure-6 DFT over ``n_streams``
+    hashed ids, ``n_batches`` > window ingests that each carry every
+    stream once plus duplicates (the last one wins), unrouted and
+    negative ids, held against the plain replay byte for byte."""
+    from repro_torch.service import SDE
+
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.RandomState(seed + 2)
+    pop = np.unique(rng.randint(0, 2**63 - 1, size=n_streams + 64,
+                                dtype=np.int64))[:n_streams]
+    sde = SDE(device=dev)
+    r = sde.handle({"type": "build", "request_id": "b", "synopsis_id": "ts",
+                    "kind": "dft", "params": FIG6_DFT,
+                    "per_stream_of_source": True,
+                    "stream_ids": [int(s) for s in pop]})
+    require(r.ok, f"build failed: {r.error}")
+    stack = next(iter(sde.stacks.values()))
+    kind = stack.kind
+    dt = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    from repro_torch.core import batched
+    replay = batched.stacked_init(kind, stack.capacity, dev)
+    reset_launches()
+    ingest_s, n_tuples = 0.0, 0
+    for _ in range(n_batches):
+        sids = np.concatenate([
+            pop, pop[rng.randint(0, len(pop), len(pop) // 8)],
+            rng.randint(0, 2**62, size=len(pop) // 16, dtype=np.int64)
+            | (1 << 62), np.full(16, -1, np.int64)])
+        rng.shuffle(sids)
+        vals = (rng.randn(len(sids)) * 10).astype(np.float32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sde.ingest(sids, vals)
+        torch.cuda.synchronize()
+        ingest_s += time.perf_counter() - t0
+        n_tuples += len(sids)
+        hit, per_row = last_writer(probe_host(stack, sids, dev), sids, vals,
+                                   stack.capacity)
+        kind.step(replay, dt(per_row), dt(hit))
+    launches = read_launches()["sliding_dft_step"]
+    require(launches == n_batches, f"sliding_dft_step launched {launches} "
+                                   f"times in {n_batches} batches")
+    require(same_leaves(stack.state, replay),
+            "the wrapped DFT stack differs byte-wise from the plain replay")
+    min_count = int(stack.state["count"].min())
+    require(min_count > kind.window, f"a ring did not wrap (min count "
+                                     f"{min_count})")
+    print(f"[phase3b] {len(pop)} streams x {n_batches} ticks: {n_tuples} "
+          f"tuples in {ingest_s:.4f} s ({ingest_s / n_batches * 1e3:.4f} ms "
+          f"per batch, host clock, synchronized); sliding_dft_step launches "
+          f"{launches}; stack {stack.capacity} x {stack.row_bytes()} B "
+          f"equals the plain replay byte for byte in all six leaves; every "
+          f"ring wrapped (min count {min_count})", flush=True)
+    sde.close()
+    del replay
+    free()
+    peak_gib("phase3b")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -932,7 +1184,8 @@ def main() -> None:
     print(f"[phase1] torch {torch.__version__} cuda {torch.version.cuda} "
           f"on {torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
-    build.build(["countmin_scatter", "hll_max", "bitset_or", "rhp_project"])
+    build.build(["countmin_scatter", "hll_max", "bitset_or", "rhp_project",
+                 "sliding_dft"])
     print(f"[phase1] kernels built in {time.perf_counter() - t0:.2f} s",
           flush=True)
     for name, log in build.BUILD_LOG.items():
@@ -951,6 +1204,14 @@ def main() -> None:
     for name in ENTRY_POINTS:
         require(launches[name] > 0,
                 f"{name} was not launched on the main path")
+    t0 = time.perf_counter()
+    phase3b(dev, args.seed, n_streams=2 * n_streams, n_batches=192)
+    print(f"[phase3b] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    fresh = timings["onehot_scatter_add@fresh"]
+    require(fresh["device_ms"] <= fresh["library_device_ms"],
+            f"the CountMin one-row launch takes {fresh['device_ms']:.4f} ms "
+            f"of device time, above the library call's "
+            f"{fresh['library_device_ms']:.4f} ms")
 
     kernels = []
     for name, (_, _, src, replaced) in ENTRY_POINTS.items():
@@ -964,6 +1225,12 @@ def main() -> None:
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             device_ms=r["device_ms"], plain_device_ms=r["plain_device_ms"],
             library_device_ms=r["library_device_ms"]))
+        large = timings.get(f"{name}@{1 << 20}")
+        if large is not None:       # the same kernel at S = 2**20 rows
+            kernels[-1][f"at_{1 << 20}"] = {
+                k: large[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by", "device_ms",
+                                      "plain_device_ms")}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

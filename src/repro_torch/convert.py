@@ -7,7 +7,7 @@ how) and hands them to :func:`engine_from_contents`::
 
     {"site": str, "tuples_ingested": int, "batches_ingested": int,
      "stacks": [{"kind": registry name, "params": {...},
-                 "state": ndarray [capacity, ...],
+                 "state": ndarray [capacity, ...], or a dict of them,
                  "table_keys": int64 ndarray, "table_rows": int32 ndarray,
                  "table_max_probe": int, "source_rows": [int, ...]}, ...],
      "entries": [{"synopsis_id": str, "stack": index into "stacks",
@@ -15,7 +15,8 @@ how) and hands them to :func:`engine_from_contents`::
                   "continuous": bool}, ...]}
 
 Every stack's state keeps the reference's dtype and layout (float32
-``[n, d, w]`` CountMin, ``[n, b]`` RHP; int32 HLL, Bloom and FM lanes).
+``[n, d, w]`` CountMin, ``[n, b]`` RHP; int32 HLL, Bloom and FM lanes;
+DFT's six leaves, with int32 ``pos`` and ``count``).
 The route table is taken slot for slot, so the port probes exactly the
 reference's layout.
 """
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch import core
+from repro_torch.core import batched
 from repro_torch.service import engine, routing
 
 
@@ -39,9 +41,12 @@ def engine_from_contents(contents: Dict[str, Any],
     kinds = []
     for st in contents["stacks"]:
         kind = core.make_kind(st["kind"], **st["params"])
-        state = np.asarray(st["state"])
-        stack = engine._KindStack(kind, int(state.shape[0]), sde.device)
-        stack.state = torch.from_numpy(state.copy()).to(sde.device)
+        state = batched.tree_map(
+            lambda x: torch.from_numpy(np.array(x)).to(sde.device),
+            st["state"])
+        capacity = batched.tree_leaves(state)[0].shape[0]
+        stack = engine._KindStack(kind, capacity, sde.device)
+        stack.state = state
         keys = np.asarray(st["table_keys"], np.int64)
         table = routing.RouteTable(keys.shape[0])
         if table.size != keys.shape[0]:

@@ -1,6 +1,6 @@
 """Synopsis kinds (port of ``repro/core/__init__.py``).
 
-The port registers CountMin, HyperLogLog, Bloom, FM and RHP so far,
+The port registers CountMin, HyperLogLog, Bloom, FM, RHP and DFT so far,
 under the reference's names; building any other kind (AMS among them)
 answers ok=False through the registry's KeyError
 (``synopsis.make_kind``).
@@ -13,6 +13,7 @@ from .hll import HyperLogLog
 from .bloom import BloomFilter
 from .fm import FMSketch
 from .rhp import RHP
+from .dft import DFT
 from . import batched  # noqa: F401
 
 for _name, _factory in {
@@ -21,9 +22,10 @@ for _name, _factory in {
     "bloom": BloomFilter,
     "fm": FMSketch,
     "rhp": RHP,
+    "dft": DFT,
 }.items():
     register_kind(_name, _factory)
 
 __all__ = ["Synopsis", "register_kind", "make_kind", "known_kinds",
            "kind_params", "CountMin", "HyperLogLog", "BloomFilter", "FMSketch",
-           "RHP", "batched"]
+           "RHP", "DFT", "batched"]

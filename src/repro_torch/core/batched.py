@@ -8,7 +8,11 @@ a tensor, or a dict of tensors for kinds with several leaves;
 
 Differences from the reference:
 
-  * ``stacked_update`` and ``set_row`` update the stack in place.
+  * ``stacked_update``, ``stacked_step`` and ``set_row`` update the stack
+    in place.
+  * ``stacked_step`` calls the kind's ``tick`` over the whole stack (the
+    reference vmaps the one-row ``step``), with the sliding-DFT kernel as
+    its coefficient update.
   * Only the scatter branch of ``stacked_update`` is ported; the vmap
     fallback for scan-path kinds waits for those kinds.
 """
@@ -84,6 +88,17 @@ def stacked_update(kind: Synopsis, stacked: Any, syn_idx: torch.Tensor,
             return x
         out = tree_map(fold, out, fresh)
     return out
+
+
+def stacked_step(kind: Synopsis, stacked: Any, values: torch.Tensor,
+                 mask: torch.Tensor) -> Any:
+    """Time-series path (DFT): one tick of every row of the stack, in
+    place; row s takes ``values[s]`` where ``mask[s]`` and the other rows
+    keep their state. The kind's ``tick`` updates the window leaves in
+    torch and hands the coefficient planes to the hand-written sliding-DFT
+    kernel (``kernels/ops.dft_step``; its plain version on the CPU)."""
+    from repro_torch.kernels import ops     # kernels import core
+    return kind.tick(stacked, values, mask, ops.dft_step)
 
 
 def stacked_estimate(kind: Synopsis, stacked: Any, rows, *args: Any) -> Any:

@@ -13,11 +13,9 @@
 // Determinism. No float atomicAdd: every state element is summed by ONE
 // thread, in batch order, so the state bytes are the same on every run,
 // and integer-valued weights give exactly the sequential scatter's sums.
-//   * A block owns a tile of `tile` consecutive state rows. Thread
-//     (r, j, s) owns row s0 + r, depth row j, and the buckets b with
-//     b % slices == s. The host picks slices = max(1, 1024 / (d * n)), so
-//     a small stack (the data-source fresh sketch has n = 1) still spreads
-//     over the whole block; on the main path slices = 1.
+//   * Row tiles (scatter_kernel, d * n >= 1024, the main path): a block
+//     owns a tile of 1024 / d consecutive state rows, and thread (r, j)
+//     owns row s0 + r and depth row j.
 //   * The block streams the batch's routed rows in chunks of 1024. For
 //     each chunk it compacts the tuples that fall in its tile, in batch
 //     order (warp ballot + prefix count over the 32 warps), into shared
@@ -26,6 +24,18 @@
 //     memory only (a warp finds its lanes' entries 32 at a time with one
 //     ballot per row it owns). This in-block loop takes the place of the
 //     TPU's sequential T grid axis.
+//   * Bucket ranges (bucket_kernel, d * n < 1024; the data-source fresh
+//     sketch has n = 1): a row tile would be one block, every thread of
+//     which walked every tuple of the batch. Instead block (x, y) owns
+//     state row y / d, depth row y % d and the 256 buckets from x * 256,
+//     one per thread of its first 8 warps, so 8 * 5 blocks share a
+//     [1, 5, 2048] sketch. Each block streams the batch like a row tile
+//     (the next chunk's loads in flight while it walks this one), keeping
+//     only the tuples of its own (row, bucket range). Per 32-entry step,
+//     each entry sets its bit in its owner's mask (a shared-memory
+//     atomicOr), and each owner adds its entries lowest bit first, taking
+//     their weights by warp shuffle. The owner keeps its element in a
+//     register from the first to the last tuple.
 //   * The fused entry first runs the probe (probe.cuh) as a small launch
 //     that writes routed rows into wrapper-allocated scratch; both entry
 //     points then share one scatter kernel, so it needs no rows-given /
@@ -55,6 +65,8 @@ constexpr int kWarps = kThreads / 32;
 static_assert(kWarps == 32, "the warp-count scan uses one warp");
 constexpr int kProbeThreads = 256;
 constexpr int kMaxSmemBytes = 227 * 1024;   // a block's shared-memory cap
+constexpr int kRange = 256;      // the buckets a bucket_kernel block owns
+static_assert(kRange % 32 == 0 && kRange <= kThreads, "whole owner warps");
 
 __global__ void probe_kernel(const uint32_t* __restrict__ keys_lo,
                              const uint32_t* __restrict__ keys_hi,
@@ -69,9 +81,32 @@ __global__ void probe_kernel(const uint32_t* __restrict__ keys_lo,
   }
 }
 
+// Block-wide stream compaction in batch order (warp ballot + prefix count
+// over the 32 warps): returns how many threads of the block keep, and in
+// *slot each keeping thread's rank among them. Callers sync before the
+// next call reuses s_warp.
+__device__ __forceinline__ int compact(bool keep, int* s_warp, int* slot) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+  if (lane == 0) s_warp[warp] = __popc(ballot);
+  __syncthreads();
+  if (warp == 0) {
+    int c = s_warp[lane];
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, c, o);
+      if (lane >= o) c += y;
+    }
+    s_warp[lane] = c;
+  }
+  __syncthreads();
+  *slot = (warp ? s_warp[warp - 1] : 0) + __popc(ballot & ((1u << lane) - 1u));
+  return s_warp[kWarps - 1];
+}
+
 __global__ void __launch_bounds__(kThreads)
-scatter_kernel(float* __restrict__ counts, int n, int d, int w, int slices,
-               int chunk, const int32_t* __restrict__ rows,
+scatter_kernel(float* __restrict__ counts, int n, int d, int w, int chunk,
+               const int32_t* __restrict__ rows,
                const int32_t* __restrict__ idx,
                const float* __restrict__ values,
                const float* __restrict__ signs, int T) {
@@ -84,18 +119,16 @@ scatter_kernel(float* __restrict__ counts, int n, int d, int w, int slices,
   int* s_idx = s_r + chunk;
   float* s_val = reinterpret_cast<float*>(s_idx + chunk * d);
 
-  const int per_row = d * slices;
-  const int tile = kThreads / per_row;
+  const int tile = kThreads / d;
   const long long s0 = (long long)blockIdx.x * tile;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int my_r = tid / per_row;
-  const int my_j = (tid % per_row) / slices;
-  const int my_s = tid % slices;
+  const int my_r = tid / d;
+  const int my_j = tid % d;
   const bool owner = my_r < tile && s0 + my_r < n;
-  const int warp_r_lo = (warp * 32) / per_row;       // rows of this warp
-  const int warp_r_hi = (warp * 32 + 31) / per_row;
+  const int warp_r_lo = (warp * 32) / d;             // rows of this warp
+  const int warp_r_hi = (warp * 32 + 31) / d;
   float* my_row = counts + ((s0 + my_r) * d + my_j) * (long long)w;
   // The owner keeps the element it last updated in a register: the same
   // adds in the same order as read-modify-writes through memory, without
@@ -111,22 +144,9 @@ scatter_kernel(float* __restrict__ counts, int n, int d, int w, int slices,
       const long long row = rows[t];
       if (row >= s0 && row < s0 + tile && row < n) lr = (int)(row - s0);
     }
-    const unsigned ballot = __ballot_sync(0xffffffffu, lr >= 0);
-    if (lane == 0) s_warp[warp] = __popc(ballot);
-    __syncthreads();
-    if (warp == 0) {
-      int c = s_warp[lane];
-      for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, c, o);
-        if (lane >= o) c += y;
-      }
-      s_warp[lane] = c;
-    }
-    __syncthreads();
-    const int total = s_warp[kWarps - 1];
+    int off;
+    const int total = compact(lr >= 0, s_warp, &off);
     if (lr >= 0) {
-      const int off = (warp ? s_warp[warp - 1] : 0) +
-                      __popc(ballot & ((1u << lane) - 1u));
       s_r[off] = lr;
       const float v = values[t];
       for (int j = 0; j < d; ++j) {
@@ -153,7 +173,7 @@ scatter_kernel(float* __restrict__ counts, int n, int d, int w, int slices,
         mine &= mine - 1u;
         const int b = s_idx[k * d + my_j];
         const float v = s_val[k * d + my_j];
-        if (b < 0 || b >= w || b % slices != my_s) continue;
+        if (b < 0 || b >= w) continue;
         if (v == 0.0f) continue;         // adding +-0 never changes a sum
         if (b != cur_b) {
           if (cur_b >= 0) my_row[cur_b] = acc;
@@ -168,10 +188,112 @@ scatter_kernel(float* __restrict__ counts, int n, int d, int w, int slices,
   if (owner && cur_b >= 0) my_row[cur_b] = acc;
 }
 
+// One tuple as a bucket_kernel thread reads it for depth row j.
+struct Tuple {
+  int row;
+  int bucket;
+  float value;
+};
+
+__device__ __forceinline__ Tuple load_tuple(const int32_t* rows,
+                                            const int32_t* idx,
+                                            const float* values,
+                                            const float* signs, int t, int T,
+                                            int d, int j) {
+  Tuple x{-1, -1, 0.0f};
+  if (t < T) {     // independent loads, so their latencies overlap
+    const long long tj = (long long)t * d + j;
+    x.row = __ldg(rows + t);
+    x.bucket = __ldg(idx + tj);
+    x.value = __ldg(values + t);
+    if (signs != nullptr) x.value *= __ldg(signs + tj);
+  }
+  return x;
+}
+
+__global__ void __launch_bounds__(kThreads)
+bucket_kernel(float* __restrict__ counts, int d, int w,
+              const int32_t* __restrict__ rows,
+              const int32_t* __restrict__ idx,
+              const float* __restrict__ values,
+              const float* __restrict__ signs, int T) {
+  // per chunk: the kept tuples' buckets (relative to b_lo) and signed
+  // weights in batch order; per owned bucket, this step's entry mask
+  __shared__ int s_warp[kWarps];
+  __shared__ int s_b[kThreads];
+  __shared__ float s_v[kThreads];
+  __shared__ unsigned s_mine[kRange];
+
+  const int s = blockIdx.y / d;
+  const int j = blockIdx.y % d;
+  const int b_lo = blockIdx.x * kRange;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const bool owner = tid < kRange && b_lo + tid < w;
+  float* elem = counts + ((long long)s * d + j) * w + b_lo + tid;
+  float acc = owner ? *elem : 0.0f;
+  bool touched = false;
+
+  Tuple cur = load_tuple(rows, idx, values, signs, tid, T, d, j);
+  for (int base = 0; base < T; base += kThreads) {
+    // the next chunk's loads fly while this chunk is compacted and walked
+    const Tuple nxt =
+        load_tuple(rows, idx, values, signs, base + kThreads + tid, T, d, j);
+    const int bb = cur.bucket - b_lo;
+    // adding +-0 never changes a sum, so zero weights are dropped here
+    const bool keep = cur.row == s && bb >= 0 && bb < kRange &&
+                      b_lo + bb < w && cur.value != 0.0f;
+    int off;
+    const int total = compact(keep, s_warp, &off);
+    if (keep) {
+      s_b[off] = bb;
+      s_v[off] = cur.value;
+    }
+    __syncthreads();
+    // 32 entries per step, walked by the warps that own buckets: each
+    // entry of this warp's 32 buckets sets its lane's bit in its owner's
+    // mask; each owner then takes its entries lowest lane first (batch
+    // order), reading their weights from the lanes that hold them
+    if (warp < kRange / 32) {
+      for (int k0 = 0; k0 < total; k0 += 32) {
+        const int e = k0 + lane < total ? s_b[k0 + lane] : -1;
+        const float v = k0 + lane < total ? s_v[k0 + lane] : 0.0f;
+        s_mine[tid] = 0u;
+        __syncwarp();
+        if (e >= 0 && (e >> 5) == warp) atomicOr(&s_mine[e], 1u << lane);
+        __syncwarp();
+        unsigned mine = s_mine[tid];
+        touched |= mine != 0u;
+        const int steps = (int)__reduce_max_sync(0xffffffffu, __popc(mine));
+        for (int i = 0; i < steps; ++i) {
+          const int src = mine != 0u ? __ffs(mine) - 1 : lane;
+          const float x = __shfl_sync(0xffffffffu, v, src);
+          if (mine != 0u) {
+            acc += x;
+            mine &= mine - 1u;
+          }
+        }
+        __syncwarp();   // the next step clears s_mine
+      }
+    }
+    __syncthreads();    // the next chunk reuses the shared buffers
+    cur = nxt;
+  }
+  if (owner && touched) *elem = acc;
+}
+
 int launch_scatter(float* counts, int n, int d, int w, const int32_t* rows,
                    const int32_t* idx, const float* values,
                    const float* signs, int T, cudaStream_t stream) {
   if (d < 1 || d > kThreads || w < 1) return (int)cudaErrorInvalidValue;
+  if ((long long)d * n < kThreads) {
+    const dim3 grid((unsigned)((w + kRange - 1) / kRange),
+                    (unsigned)(d * n));
+    bucket_kernel<<<grid, kThreads, 0, stream>>>(counts, d, w, rows, idx,
+                                                 values, signs, T);
+    return (int)cudaGetLastError();
+  }
   // tuples staged per chunk: all of a block's threads, unless d is so
   // deep that their buckets and weights overflow shared memory
   int chunk = (kMaxSmemBytes / 4 - kWarps) / (1 + 2 * d);
@@ -184,12 +306,10 @@ int launch_scatter(float* counts, int n, int d, int w, const int32_t* rows,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const long long dn = (long long)d * n;
-  const int slices = dn >= kThreads ? 1 : (int)(kThreads / dn);
-  const int tile = kThreads / (d * slices);
+  const int tile = kThreads / d;
   const int blocks = (int)((n + tile - 1) / tile);
   scatter_kernel<<<blocks, kThreads, smem, stream>>>(
-      counts, n, d, w, slices, chunk, rows, idx, values, signs, T);
+      counts, n, d, w, chunk, rows, idx, values, signs, T);
   return (int)cudaGetLastError();
 }
 

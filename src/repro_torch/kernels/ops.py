@@ -23,12 +23,14 @@ Differences from the reference:
     torch reduction, which is deterministic on the card, and adds it
     into the source rows without atomics (:func:`_sum_fold`). It
     launches no one-row kernel.
+  * ``dft_step`` ticks its planes in place, as the scatters update their
+    state in place; the reference's returns new planes.
   * Bucket hashing, sign hashing, ``_hll_prep`` and FM's ``_which_pos``
     are plain torch ops on the state's device, as the reference keeps
     them outside its Pallas kernels.
 
 Not yet ported: the sharded, collective, merged and subpopulation
-estimate paths, and the AMS kernel.
+estimate paths, the AMS kernel, ``corr_matrix`` and ``flash_attention``.
 """
 from __future__ import annotations
 
@@ -40,7 +42,7 @@ import torch
 
 from repro_torch.core import batched, hashing
 from . import (bitset_or, fm_bitmap, hll_max, onehot_matmul, probe,
-               rhp_project)
+               rhp_project, sliding_dft)
 
 _FALSY = ("0", "false", "no", "off")
 
@@ -118,6 +120,17 @@ def rhp_update(state: torch.Tensor, syn_idx: torch.Tensor,
         tm = mask if source_tuple_mask is None else source_tuple_mask
         _sum_fold(state, source_rows, sgn, values * tm.to(torch.float32))
     return state
+
+
+def dft_step(re: torch.Tensor, im: torch.Tensor, delta: torch.Tensor,
+             mask: torch.Tensor, tw_re: torch.Tensor, tw_im: torch.Tensor):
+    """Kernel-backed batched sliding-DFT tick, in place. re/im [S, F] f32
+    (any strides the two share), delta/mask [S], tw_re/tw_im [F]; returns
+    (out_re, out_im), which are (re, im). No padding: the kernel masks
+    its own edge."""
+    return sliding_dft.sliding_dft_step(
+        re, im, delta.to(torch.float32), mask.to(torch.float32), tw_re,
+        tw_im)
 
 
 # ---------------------------------------------------------------------------

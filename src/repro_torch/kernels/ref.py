@@ -1,9 +1,11 @@
 """Plain PyTorch versions of the hand-written kernels (port of the
-scatter oracles in ``repro/kernels/ref.py``, and of the one-hot max cube
-of ``repro/kernels/bitset_or.py``, which has no oracle there).
+scatter and sliding-DFT oracles in ``repro/kernels/ref.py``, and of the
+one-hot max cube of ``repro/kernels/bitset_or.py``, which has no oracle
+there).
 
 The wrappers run these on CPU tensors; ``chip_smoke.py`` holds each CUDA
-kernel against them on the card. All update in place.
+kernel against them on the card. All update in place (the reference's
+sliding-DFT oracle returns new planes).
 
 Unlike the reference's CountMin oracle, whose ``.at[-1]`` wraps a
 ``syn_idx = -1`` tuple onto the LAST row, these drop rows outside
@@ -92,3 +94,19 @@ def rhp_probe_update(state: torch.Tensor, keys_lo: torch.Tensor,
     rows = probe.probe_rows(keys_lo, keys_hi, table_rows, sid_lo, sid_hi,
                             n_probe=n_probe)
     return rhp_project_update(state, rows, values, signs)
+
+
+def sliding_dft_step(re: torch.Tensor, im: torch.Tensor, delta: torch.Tensor,
+                     mask: torch.Tensor, tw_re: torch.Tensor,
+                     tw_im: torch.Tensor):
+    """One masked StatStream tick ``X <- (X + delta) * tw`` on the (re, im)
+    planes, in place, as the reference's oracle computes it: each product,
+    sum and difference rounded on its own. re/im [S, F] f32 (views allowed);
+    delta/mask [S] f32; tw_re/tw_im [F] f32. Returns (re, im)."""
+    re2 = re + delta[:, None]
+    new_re = re2 * tw_re[None, :] - im * tw_im[None, :]
+    new_im = re2 * tw_im[None, :] + im * tw_re[None, :]
+    m = (mask > 0)[:, None]
+    re.copy_(torch.where(m, new_re, re))
+    im.copy_(torch.where(m, new_im, im))
+    return re, im

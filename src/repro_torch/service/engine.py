@@ -9,10 +9,11 @@ service maintaining thousands of synopses for thousands of streams.
   * red path: ``handle(request)`` adhoc queries and ``query_many`` --
     one stacked-estimate call per kind answers every query of that kind.
 
-The port serves CountMin, HyperLogLog, Bloom, FM and RHP so far: build
-(per stream, per stream of a source, data source), ingest, adhoc,
+The port serves CountMin, HyperLogLog, Bloom, FM, RHP and DFT so far:
+build (per stream, per stream of a source, data source), ingest, adhoc,
 query_many, stop, status, flush and shutdown, with continuous queries
-emitted eagerly.
+emitted eagerly. DFT is a time-series kind: each ingest batch ticks every
+stream once with its last routed value (``_step_all``).
 
 Differences from the reference:
 
@@ -86,6 +87,7 @@ class _KindStack:
         self.table = routing.RouteTable()  # stream id -> row (host side)
         self.source_rows: List[int] = []   # rows fed by ALL tuples
         self.used: List[bool] = [False] * capacity
+        self.is_timeseries = hasattr(kind, "step")
         self._source_idx = None            # device cache, source_rows_idx()
         self._free: Optional[List[int]] = None   # alloc free list (lazy)
         self._dev_table = None             # device mirror of self.table
@@ -456,7 +458,10 @@ class SDE:
         vals = _to_device(vals_np, self.device)
         msk = _to_device(mask, self.device)
         for stack in self.stacks.values():
-            self._ingest_stack(stack, sid_lo, sid_hi, items, vals, msk)
+            if stack.is_timeseries:
+                self._ingest_timeseries(stack, sid_lo, sid_hi, vals, msk)
+            else:
+                self._ingest_stack(stack, sid_lo, sid_hi, items, vals, msk)
         pending = self._dispatch_continuous(batch_id)
         if pending is not None:
             self._retire_batch(pending)
@@ -480,6 +485,16 @@ class SDE:
         stack.state = _update(stack.kind, stack.n_probe, stack.state, klo,
                               khi, trows, sid_lo, sid_hi, items, vals, msk,
                               stack.source_rows_idx())
+
+    def _ingest_timeseries(self, stack: _KindStack, sid_lo, sid_hi, vals,
+                           msk):
+        """Time-series kinds (DFT): one tick per stream per batch -- the
+        batch is a StatStream 'basic window'; the last routed value per
+        stream wins. Data-source rows are not ticked, as in the
+        reference."""
+        klo, khi, trows = stack.device_table()
+        stack.state = _step_all(stack.kind, stack.n_probe, stack.state, klo,
+                                khi, trows, sid_lo, sid_hi, vals, msk)
 
     def _dispatch_continuous(self, batch_id: int
                              ) -> Optional[pipeline.PendingBatch]:
@@ -551,7 +566,8 @@ class SDE:
 # blue-path update: the kind's registry kernel (probe fused unless
 # SDE_FUSED_PROBE is off), routed rows and data-source rows in one call,
 # state updated in place. There is no plain fallback for kinds without a
-# kernel: every kind ported so far declares one.
+# kernel: every scatter kind ported so far declares one, and time-series
+# kinds take the step path (``_step_all``) instead.
 # ---------------------------------------------------------------------------
 def _update(kind, n_probe, state, klo, khi, trows, sid_lo, sid_hi, items,
             vals, msk, src_rows=None):
@@ -564,12 +580,36 @@ def _update(kind, n_probe, state, klo, khi, trows, sid_lo, sid_hi, items,
                   src_rows, n_probe=n_probe)
 
 
+def _step_all(kind, n_probe, state, klo, khi, trows, sid_lo, sid_hi, vals,
+              msk):
+    """Probe the batch's rows, keep each row's LAST routed tuple, and tick
+    every row of the stack once (``batched.stacked_step``), in place. The
+    last tuple is found exactly: an integer scatter-max of the tuple
+    order, unrouted tuples sent to an overflow slot past the stack."""
+    capacity = batched.tree_leaves(state)[0].shape[0]
+    syn_idx = kops.route_probe(klo, khi, trows, sid_lo, sid_hi,
+                               n_probe=n_probe)
+    routed = msk & (syn_idx >= 0)
+    rows = torch.where(routed, syn_idx, capacity).long()
+    order = torch.arange(sid_lo.shape[0], dtype=torch.int32,
+                         device=sid_lo.device)
+    winner = torch.full((capacity + 1,), -1, dtype=torch.int32,
+                        device=sid_lo.device)
+    winner.scatter_reduce_(0, rows, torch.where(routed, order, -1),
+                           reduce="amax")
+    winner = winner[:-1]
+    hit = winner >= 0
+    per_row = torch.where(hit, vals[winner.clamp(min=0).long()], 0.0)
+    return batched.stacked_step(kind, state, per_row, hit)
+
+
 # ---------------------------------------------------------------------------
 # red-path query planning: normalize N query dicts for one kind into padded
 # batched device args + a per-query result slicer. CountMin and Bloom take
 # per-query ``items`` as ONE [N, L] arg (L = padded max arg length);
-# HyperLogLog, FM and RHP are arg-free and return their estimate per row
-# (RHP's a dict: signature, hamming_weight, bucket).
+# HyperLogLog, FM, RHP and DFT are arg-free and return their estimate per
+# row (RHP's a dict: signature, hamming_weight, bucket; DFT's a dict:
+# bucket, coeffs, coords).
 # ---------------------------------------------------------------------------
 
 _ITEM_KINDS = (core.CountMin, core.BloomFilter)

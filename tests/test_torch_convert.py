@@ -17,7 +17,9 @@ def jax_contents(eng) -> dict:
         site=eng.site, tuples_ingested=eng.tuples_ingested,
         batches_ingested=eng.batches_ingested,
         stacks=[dict(kind=name_of_kind(k), params=kind_params(k),
-                     state=np.asarray(s.state),
+                     state=({k: np.asarray(v) for k, v in s.state.items()}
+                            if isinstance(s.state, dict)
+                            else np.asarray(s.state)),
                      table_keys=s.table.keys.copy(),
                      table_rows=s.table.rows.copy(),
                      table_max_probe=s.table.max_probe,

@@ -7,8 +7,12 @@ weights; for the bit-set kernel empty batches, k = 1, positions at
 m - 1, a probe bound of 1 and a stack past 2**31 lanes; for the RHP
 projection ragged plane counts (b = 200 and b = 1), empty batches, rows
 out of range, one hot row walked across many 32-tuple steps, and float
-weights byte-identical from run to run. Tests marked ``cuda`` need a
-card; run them there with
+weights byte-identical from run to run; for CountMin's small-stack
+bucket-range launch (d * n < 1024, the data-source fresh sketch) n = 1
+to 3 at depths 1, 5 and 12, byte-equal to the CPU's serial scatter even
+for float weights; for the sliding-DFT tick odd S, F = 1, all or no
+rows masked, and the interleaved in-place planes the engine passes, byte
+for byte. Tests marked ``cuda`` need a card; run them there with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -21,7 +25,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import (bitset_or, fm_bitmap, hll_max, onehot_matmul,
-                                 probe, ref, rhp_project)
+                                 probe, ref, rhp_project, sliding_dft)
 from repro_torch.service import routing
 
 
@@ -92,6 +96,110 @@ def test_countmin_kernels_match_plain(dev, n, d, w, t, signed):
         onehot_matmul.onehot_scatter_add(counts0.clone(), rows, idx, ints,
                                          signs),
         ref.onehot_scatter_add(counts0.clone(), rows, idx, ints, signs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 5, 12])
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_countmin_small_stack_launch_sums_in_batch_order(dev, n, d):
+    """d * n < 1024 takes the bucket-range launch: integer weights equal
+    the plain version, and float weights (count-sketch signs too) give the
+    same bytes on two runs and a serial loop's bytes in batch order, since
+    every element is summed by one thread in that order. (The CPU's
+    ``index_put_`` is no such loop at every shape: at n = 3, d = 12 it
+    adds in another order.) T spans several 1024-tuple chunks, with rows
+    -1 and n, and a hot bucket per row."""
+    rng = np.random.RandomState(10 * n + d)
+    w, t = 2048, 5000
+    c = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    rows = rng.randint(-1, n + 1, t).astype(np.int32)
+    idx = rng.randint(0, w, (t, d)).astype(np.int32)
+    idx[::3] = 77                                     # a hot bucket
+    counts0 = rng.randint(0, 4, (n, d, w)).astype(np.float32)
+    signs = np.where(rng.rand(t, d) > 0.5, 1.0, -1.0).astype(np.float32)
+    before = onehot_matmul.onehot_scatter_add.one_row_launches
+    ints = rng.randint(0, 5, t).astype(np.float32)
+    got = onehot_matmul.onehot_scatter_add(c(counts0), c(rows), c(idx),
+                                           c(ints))
+    assert torch.equal(got, ref.onehot_scatter_add(c(counts0), c(rows),
+                                                   c(idx), c(ints)))
+    for sg in (None, signs):
+        vals = (rng.rand(t) * 3).astype(np.float32)
+        args = (c(rows), c(idx), c(vals), None if sg is None else c(sg))
+        a = onehot_matmul.onehot_scatter_add(c(counts0), *args)
+        b = onehot_matmul.onehot_scatter_add(c(counts0), *args)
+        torch.cuda.synchronize()
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        serial = counts0.copy()
+        for i in np.nonzero((rows >= 0) & (rows < n))[0]:
+            for j in range(d):
+                v = vals[i] if sg is None else np.float32(vals[i] * sg[i, j])
+                if v != 0:
+                    serial[rows[i], j, idx[i, j]] += v
+        assert a.cpu().numpy().tobytes() == serial.tobytes()
+    assert onehot_matmul.onehot_scatter_add.one_row_launches - before == \
+        (5 if n == 1 else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask_kind", ["random", "all", "none"])
+@pytest.mark.parametrize("s,f", [(1, 1), (37, 1), (1001, 8), (4097, 16),
+                                 (131073, 8)])
+def test_sliding_dft_kernel_matches_plain_byte_for_byte(dev, s, f,
+                                                        mask_kind):
+    """In place on contiguous planes, and on the interleaved [S, F, 2]
+    coefficient leaf's views, as the engine calls it: the kernel rounds
+    every product on its own, so it equals the plain version's bytes."""
+    rng = np.random.RandomState(s + f)
+    c = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    coeff = c((rng.randn(s, f, 2) * 40).astype(np.float32))
+    coeff0 = coeff.clone()
+    delta = c((rng.randn(s) * 9).astype(np.float32))
+    mask = c({"random": rng.rand(s) > 0.4, "all": np.ones(s, bool),
+              "none": np.zeros(s, bool)}[mask_kind].astype(np.float32))
+    ang = 2 * np.pi * np.arange(1, f + 1) / 128.0
+    twr, twi = c(np.cos(ang).astype(np.float32)), c(np.sin(ang).astype(
+        np.float32))
+    # contiguous copies (at S = F = 1 ``.contiguous()`` would return the
+    # leaf's own view)
+    re, im = (coeff[..., i].clone(memory_format=torch.contiguous_format)
+              for i in (0, 1))
+    want = ref.sliding_dft_step(re.clone(), im.clone(), delta, mask, twr,
+                                twi)
+    before = sliding_dft.sliding_dft_step.launches
+    got = sliding_dft.sliding_dft_step(re, im, delta, mask, twr, twi)
+    planes = (coeff[..., 0], coeff[..., 1])
+    inplace = sliding_dft.sliding_dft_step(*planes, delta, mask, twr, twi)
+    torch.cuda.synchronize()
+    assert sliding_dft.sliding_dft_step.launches - before == 2
+    assert got[0] is re and inplace[0].data_ptr() == coeff.data_ptr()
+    for g, i, w in zip(got, inplace, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+        assert torch.equal(i.contiguous().view(torch.int32),
+                           w.view(torch.int32))
+    if mask_kind == "none":
+        assert torch.equal(coeff, coeff0)
+
+
+@pytest.mark.cuda
+def test_sliding_dft_wrapper_counts_launches_and_rejects_bad_operands(dev):
+    re = torch.zeros((5, 3), device=dev)
+    s1 = torch.zeros(5, device=dev)
+    tw = torch.ones(3, device=dev)
+    fn = sliding_dft.sliding_dft_step
+    before = fn.launches
+    fn(re, re.clone(), s1, s1, tw, tw)
+    fn(re[:0], re[:0], s1[:0], s1[:0], tw, tw)          # S = 0: no launch
+    assert fn.launches == before + 1
+    with pytest.raises(ValueError, match="is on cpu"):
+        fn(re, re, s1.cpu(), s1, tw, tw)
+    with pytest.raises(TypeError):
+        fn(re, re, s1.double(), s1, tw, tw)
+    with pytest.raises(ValueError, match="share strides"):
+        fn(re, re.t().contiguous().t(), s1, s1, tw, tw)
+    with pytest.raises(ValueError, match="shape"):
+        fn(re, re, s1, s1, tw[:2], tw)
+    assert fn.launches == before + 1
 
 
 @pytest.mark.cuda
@@ -351,3 +459,24 @@ def test_plain_versions_match_a_serial_loop_at_edge_shapes():
                 torch.from_numpy(bits0.copy()), torch.from_numpy(rows),
                 torch.from_numpy(idx), torch.from_numpy(upd))
             assert np.array_equal(got.numpy(), want)
+    # the sliding-DFT tick, one element at a time in float32
+    for s, f in ((1, 1), (37, 3)):
+        re = (rng.randn(s, f) * 4).astype(np.float32)
+        im = (rng.randn(s, f) * 4).astype(np.float32)
+        delta = rng.randn(s).astype(np.float32)
+        mask = (rng.rand(s) > 0.5).astype(np.float32)
+        twr, twi = rng.randn(2, f).astype(np.float32)
+        want_re, want_im = re.copy(), im.copy()
+        for i in range(s):
+            for j in range(f):
+                if mask[i] > 0:
+                    r = np.float32(re[i, j] + delta[i])
+                    want_re[i, j] = np.float32(r * twr[j]) - np.float32(
+                        im[i, j] * twi[j])
+                    want_im[i, j] = np.float32(r * twi[j]) + np.float32(
+                        im[i, j] * twr[j])
+        got = sliding_dft.sliding_dft_step(
+            *(torch.from_numpy(a.copy())
+              for a in (re, im, delta, mask, twr, twi)))
+        assert np.array_equal(got[0].numpy(), want_re)
+        assert np.array_equal(got[1].numpy(), want_im)
