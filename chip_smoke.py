@@ -7,9 +7,9 @@ hand-written kernel against its plain PyTorch version.
 Phases (any failure raises, so the script exits non-zero without its
 last line; each phase prints its peak device memory, held under 48 GiB):
 
-  1. Card and build: ``nvidia-smi`` name and power limit, then the five
+  1. Card and build: ``nvidia-smi`` name and power limit, then the six
      kernel sources built by ``nvcc`` in parallel.
-  2. Each of the eleven kernel entry points against its plain version at
+  2. Each of the twelve kernel entry points against its plain version at
      the main path's shapes, on a batch of 65,536 tuples with unrouted,
      -1 and masked (upd 0 / rank 0 / weight 0) lanes: CountMin
      eps=0.002, delta=0.01 (the paper's parameters,
@@ -20,7 +20,11 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      defaults -> [131,072, 64] f32; the sliding-DFT tick of the paper's
      Figure-6 DFT (window 128, 8 coefficients,
      ``benchmarks/fig6_dft_workflow.py``) in place on the [S, 8, 2]
-     coefficient leaf at S = 131,072 and 2**20, byte for byte. Plus the
+     coefficient leaf at S = 131,072 and 2**20, byte for byte; the
+     pairwise correlation at N = 5,000 and K = 16 (the paper's 12.5M
+     pairs at Figure 6's 8 coefficients), to 1e-5 and byte for byte
+     across two runs, with the float32 matmul settings read (never set)
+     and required to be full float32. Plus the
      one-row fresh-sketch launch each CM, HLL, Bloom and FM data-source
      fold makes (``<name>@fresh``; RHP's fold is a torch reduction and
      launches none), an untimed exactness run of both bit-set entry
@@ -49,12 +53,22 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      the RHP fold must make no one-row launch.
   3b. Every ring wraps: a per-stream Figure-6 DFT over 131,072 hashed ids
      and 192 ingests, each carrying every stream once plus 1/8 duplicates
-     (the last one wins), 1/16 unrouted and a few negative ids; the stack
-     must equal its plain replay byte for byte, and the tick kernel must
-     launch once per batch.
+     (the last one wins), 1/16 unrouted and a few negative ids, every
+     stream following one of 8 latent random walks plus its own noise;
+     the stack must equal its plain replay byte for byte, and the tick
+     kernel must launch once per batch. Then the StatStream correlation
+     step: the coefficients and coords of the first 5,000 per-stream
+     synopses, asked for in one ``query_many`` (equal to the replay's),
+     go through ``ops.corr_matrix``, which must launch the correlation
+     kernel once and agree with the plain Gram
+     (``core/dft.py::pairwise_corr``) to 1e-5. The bucket-adjacency mask
+     must equal a numpy recomputation, prune some pairs and keep every
+     pair above the threshold, and distinct streams must correlate above
+     it.
   4. The gate of the CountMin one-row launch: its device time no higher
      than the library call's. Then one JSON line with each kernel's
-     launches in phase 3 and its phase-2 numbers (``ms``, ``plain_ms``,
+     launches in phase 3 (the correlation kernel's in phase 3b) and its
+     phase-2 numbers (``ms``, ``plain_ms``,
      ``library_ms`` by CUDA event; ``device_ms``, ``plain_device_ms``,
      ``library_device_ms`` by ``torch.profiler``; the sliding-DFT row
      adds its S = 2**20 numbers), then the device line.
@@ -85,6 +99,11 @@ SRC_BLOOM_ELEMENTS = 1 << 20          # phase 3's data-source Bloom
 FIG6_DFT = {"window": 128, "n_coeffs": 8, "threshold": 0.9,
             "grid_coeffs": 2}
 TABLE_B = 12                          # a probed slot: key lo, key hi, row
+# the correlation step: the paper's 12.5M pairs at Figure 6's 8 coefficients
+CORR_N, CORR_K = 5000, 16
+CORR_ATOL = 1e-5        # float32 Grams of K <= 16 terms summed in another
+                        # order than the plain version's matrix product
+CORR_GROUPS = 8         # phase 3b's streams follow one of 8 latent walks
 GIB = 2.0 ** 30
 
 
@@ -224,18 +243,20 @@ def distinct(flat: torch.Tensor) -> int:
 # phase 2: every kernel entry point against its plain version
 # ---------------------------------------------------------------------------
 def record(results, name, fn_kernel, fn_plain, fn_lib, state0, n_bytes,
-           n_ops, floats=None):
+           n_ops, floats=None, atol=None):
     """Hold ``fn_kernel`` against ``fn_plain`` on copies of ``state0``
-    (torch.equal), then time kernel, plain and library call (``fn_lib``
-    None: no one PyTorch call computes the function)."""
+    (torch.equal, or a max abs error of at most ``atol`` when given), then
+    time kernel, plain and library call (``fn_lib`` None: no one PyTorch
+    call computes the function)."""
     k = state0.clone()
     fn_kernel(k)
     p = state0.clone()
     fn_plain(p)
     torch.cuda.synchronize()
     equal, err, _ = compare(k, p)
-    require(equal, f"{name}: kernel disagrees with its plain version "
-                   f"(max abs err {err})")
+    require(equal if atol is None else err <= atol,
+            f"{name}: kernel disagrees with its plain version (max abs err "
+            f"{err}{'' if atol is None else f', atol {atol}'})")
     del p
     if floats is not None:
         floats(state0)
@@ -257,7 +278,9 @@ def record(results, name, fn_kernel, fn_plain, fn_lib, state0, n_bytes,
                          library_device_ms=ldev)
     lib = ("no library call" if lms is None else
            f"library {lms:.4f} ms (device {ldev:.4f} ms)")
-    print(f"[phase2] {name}: exact match, kernel {kms:.4f} ms (device "
+    match = ("exact match" if atol is None else
+             f"max abs err {err:.3g} <= {atol}")
+    print(f"[phase2] {name}: {match}, kernel {kms:.4f} ms (device "
           f"{kdev:.4f} ms), plain {pms:.4f} ms (device {pdev:.4f} ms), "
           f"{lib}, bound {bms:.5f} ms ({by}, {n_bytes} B, {n_ops} ops)",
           flush=True)
@@ -712,12 +735,48 @@ def phase2_dft(b, n: int, results: dict) -> None:
         free()
 
 
+def phase2_corr(b, n: int, results: dict) -> None:
+    """The pairwise correlation at N = 5,000 and K = 16 (x ~ 0.1 N(0, 1),
+    as the reference's kernel test draws it): within CORR_ATOL of the
+    plain version, byte-identical across two runs. The float32 matmul
+    settings are read and must be full float32, so that neither the plain
+    version nor the library call runs in TF32."""
+    from repro_torch.kernels import pairwise_corr, ref
+
+    del n
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    precision = torch.get_float32_matmul_precision()
+    require(tf32 is False, f"torch.backends.cuda.matmul.allow_tf32 is "
+                           f"{tf32}: the plain version would run in TF32")
+    require(precision == "highest", f"float32 matmul precision is "
+                                    f"{precision!r}, not 'highest'")
+    nn, k, dev = CORR_N, CORR_K, b.dev
+    x = torch.randn((nn, k), generator=b.gen, device=dev) * 0.1
+    print(f"[phase2] pairwise correlation: N={nn} K={k} -> [N, N] f32 "
+          f"({nn * nn * 4 / 1e6:.0f} MB); allow_tf32={tf32}, "
+          f"float32_matmul_precision={precision!r}", flush=True)
+    kern = lambda s: pairwise_corr.pairwise_corr(x, s)
+    plain = lambda s: ref.pairwise_corr(x, s)
+
+    def lib(s):
+        sq = torch.sum(x * x, dim=-1)
+        torch.sub(1.0, sq[:, None] + sq[None, :] - 2.0 * torch.mm(x, x.T),
+                  out=s)
+
+    # the output written once, the input read once; 2 K operations a pair
+    record(results, "pairwise_corr", kern, plain, lib,
+           torch.zeros((nn, nn), device=dev), nn * nn * 4 + nn * k * 4,
+           2 * nn * nn * k,
+           floats=lambda s0: float_runs("pairwise_corr", kern, plain, s0),
+           atol=CORR_ATOL)
+
+
 def phase2(dev, seed: int, n: int, n_streams: int, t: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     b = phase2_batch(dev, seed, n_streams, t)
     results: dict = {}
     for part in (phase2_countmin, phase2_hll, phase2_bloom, phase2_fm,
-                 phase2_rhp, phase2_dft):
+                 phase2_rhp, phase2_dft, phase2_corr):
         part(b, n, results)
         free()
     peak_gib("phase2")
@@ -760,6 +819,8 @@ ENTRY_POINTS = {
                          "rhp_project.py:111"),
     "sliding_dft_step": ("sliding_dft", "sliding_dft_step", "sliding_dft.cu",
                          "sliding_dft.py:35"),
+    "pairwise_corr": ("pairwise_corr", "pairwise_corr", "pairwise_corr.cu",
+                      "pairwise_corr.py:31"),
 }
 
 
@@ -1106,11 +1167,88 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
     return launches
 
 
-def phase3b(dev, seed: int, n_streams: int, n_batches: int) -> None:
+def correlation_step(sde, stack, replay, ids: np.ndarray, dev) -> int:
+    """The StatStream correlation step over the engine's own answers:
+    coefficients and coords of the per-stream synopses of ``ids`` in one
+    ``query_many`` (equal to the replay's answers byte for byte), the
+    correlation matrix by ``ops.corr_matrix`` (one kernel launch, within
+    CORR_ATOL of the plain Gram ``core/dft.py::pairwise_corr``) and the
+    bucket-adjacency candidate mask. Returns the kernel's launches."""
+    from repro_torch.core import batched, dft
+    from repro_torch.kernels import ops
+
+    n = len(ids)
+    reset_launches()                      # counts of this step only
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = sde.handle({"type": "query_many", "request_id": "corr",
+                    "queries": [{"synopsis_id": f"ts/{int(s)}"}
+                                for s in ids]})
+    require(r.ok and all(a["ok"] for a in r.value),
+            f"the correlation step's query_many failed: {r.error}")
+    stacked = {key: torch.from_numpy(np.stack(
+        [a["value"][key] for a in r.value])).to(dev)
+        for key in ("coeffs", "coords")}
+    corr = ops.corr_matrix(stacked["coeffs"])
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = read_launches()["pairwise_corr"]
+    require(launches == 1, f"ops.corr_matrix launched the correlation "
+                           f"kernel {launches} times, not once")
+    rows = torch.tensor([sde.entries[f"ts/{int(s)}"].row for s in ids],
+                        dtype=torch.int32, device=dev)
+    want = batched.stacked_estimate(stack.kind, replay, rows)
+    for key in ("coeffs", "coords"):
+        require(same_bytes(stacked[key], want[key]),
+                f"the correlation step's {key} differ from the replay's")
+    require(tuple(corr.shape) == (n, n) and corr.dtype == torch.float32
+            and bool(torch.isfinite(corr).all()),
+            "the correlation matrix is not finite f32 [N, N]")
+    plain = dft.pairwise_corr(stacked["coeffs"])
+    _, err, _ = compare(corr, plain)
+    del plain
+    require(err <= CORR_ATOL, f"ops.corr_matrix is off the plain Gram by "
+                              f"{err} (atol {CORR_ATOL})")
+    mask = dft.adjacent_bucket_mask(stacked["coords"])
+    c = stacked["coords"].cpu().numpy().astype(np.int8)     # cells 0 .. 3
+    cheb = np.abs(c[:, None, :] - c[None, :, :]).max(axis=-1)
+    require(np.array_equal(mask.cpu().numpy(), cheb <= 1),
+            "adjacent_bucket_mask differs from the numpy Chebyshev "
+            "distance <= 1 over the same coords")
+    del cheb
+    n_cand = int(mask.sum())
+    above = corr > FIG6_DFT["threshold"]
+    high = int(above.sum())
+    # |c_i - c_j|^2 < 1 - T puts every pair above T in adjacent cells
+    pruned = int((above & ~mask).sum())
+    require(pruned == 0, f"{pruned} pairs above the threshold were pruned "
+                         f"by the bucket-adjacency mask")
+    require(n_cand < n * n and high > n,
+            f"the correlation step saw no structure: {n_cand} of {n * n} "
+            f"candidate pairs, {high} above the threshold (diagonal {n})")
+    print(f"[phase3b] correlation step: {n} streams' coefficients "
+          f"{tuple(stacked['coeffs'].shape)} in one query_many, equal to "
+          f"the replay's; ops.corr_matrix -> {tuple(corr.shape)} in "
+          f"{step_s:.4f} s with the query (host clock, synchronized), "
+          f"pairwise_corr launches {launches}, max abs err vs the plain "
+          f"Gram {err:.3g} (atol {CORR_ATOL}); candidate pairs by bucket "
+          f"adjacency {n_cand} of {n * n} (share {n_cand / (n * n):.6f}), "
+          f"equal to numpy's; {high} pairs above the threshold "
+          f"{FIG6_DFT['threshold']}, none of them pruned", flush=True)
+    del corr, mask, above, stacked
+    free()
+    return launches
+
+
+def phase3b(dev, seed: int, n_streams: int, n_batches: int) -> int:
     """Every ring wraps: a per-stream Figure-6 DFT over ``n_streams``
     hashed ids, ``n_batches`` > window ingests that each carry every
     stream once plus duplicates (the last one wins), unrouted and
-    negative ids, held against the plain replay byte for byte."""
+    negative ids, held against the plain replay byte for byte. Each
+    stream follows one of CORR_GROUPS latent random walks plus its own
+    noise, so that streams correlate in groups. Then the correlation step
+    over the first CORR_N streams; returns its correlation-kernel
+    launches."""
     from repro_torch.service import SDE
 
     torch.cuda.reset_peak_memory_stats()
@@ -1130,13 +1268,20 @@ def phase3b(dev, seed: int, n_streams: int, n_batches: int) -> None:
     replay = batched.stacked_init(kind, stack.capacity, dev)
     reset_launches()
     ingest_s, n_tuples = 0.0, 0
+    group = np.arange(len(pop)) % CORR_GROUPS
+    walk = np.zeros(CORR_GROUPS)
     for _ in range(n_batches):
+        walk += rng.randn(CORR_GROUPS) * 10
+        routed = np.concatenate([np.arange(len(pop)),
+                                 rng.randint(0, len(pop), len(pop) // 8)])
         sids = np.concatenate([
-            pop, pop[rng.randint(0, len(pop), len(pop) // 8)],
+            pop[routed],
             rng.randint(0, 2**62, size=len(pop) // 16, dtype=np.int64)
             | (1 << 62), np.full(16, -1, np.int64)])
-        rng.shuffle(sids)
-        vals = (rng.randn(len(sids)) * 10).astype(np.float32)
+        vals = rng.randn(len(sids)) * 10
+        vals[:len(routed)] = walk[group[routed]] + rng.randn(len(routed))
+        perm = rng.permutation(len(sids))
+        sids, vals = sids[perm], vals[perm].astype(np.float32)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         sde.ingest(sids, vals)
@@ -1160,10 +1305,12 @@ def phase3b(dev, seed: int, n_streams: int, n_batches: int) -> None:
           f"{launches}; stack {stack.capacity} x {stack.row_bytes()} B "
           f"equals the plain replay byte for byte in all six leaves; every "
           f"ring wrapped (min count {min_count})", flush=True)
+    corr_launches = correlation_step(sde, stack, replay, pop[:CORR_N], dev)
     sde.close()
     del replay
     free()
     peak_gib("phase3b")
+    return corr_launches
 
 
 def main() -> None:
@@ -1185,7 +1332,7 @@ def main() -> None:
           f"on {torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
     build.build(["countmin_scatter", "hll_max", "bitset_or", "rhp_project",
-                 "sliding_dft"])
+                 "sliding_dft", "pairwise_corr"])
     print(f"[phase1] kernels built in {time.perf_counter() - t0:.2f} s",
           flush=True)
     for name, log in build.BUILD_LOG.items():
@@ -1201,12 +1348,15 @@ def main() -> None:
     launches = phase3(dev, args.seed, n_streams, t, n_batches=16,
                       n_queries=1024)
     print(f"[phase3] done in {time.perf_counter() - t0:.1f} s", flush=True)
-    for name in ENTRY_POINTS:
-        require(launches[name] > 0,
-                f"{name} was not launched on the main path")
     t0 = time.perf_counter()
-    phase3b(dev, args.seed, n_streams=2 * n_streams, n_batches=192)
+    launches["pairwise_corr"] = phase3b(dev, args.seed,
+                                        n_streams=2 * n_streams,
+                                        n_batches=192)
     print(f"[phase3b] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    for name in ENTRY_POINTS:
+        require(launches[name] > 0, f"{name} was not launched on the main "
+                                    f"path (phase 3, or 3b's correlation "
+                                    f"step)")
     fresh = timings["onehot_scatter_add@fresh"]
     require(fresh["device_ms"] <= fresh["library_device_ms"],
             f"the CountMin one-row launch takes {fresh['device_ms']:.4f} ms "

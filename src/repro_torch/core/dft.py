@@ -28,9 +28,9 @@ Differences from the reference:
     which may round otherwise than the reference's division. The square
     root is taken in float64 and rounded once to float32, since torch's
     float32 root on the CPU is not correctly rounded.
-  * The module's correlation helpers (``corr_from_coeffs``,
-    ``pairwise_corr``, ``adjacent_bucket_mask``) wait for the slice of
-    the pairwise-correlation kernel.
+  * :func:`adjacent_bucket_mask` compares one coordinate axis at a time
+    instead of building the ``[N, N, 2g]`` difference cube: the same
+    mask, in an ``[N, N]`` temporary.
 """
 from __future__ import annotations
 
@@ -198,3 +198,36 @@ class DFT:
 
     def memory_bytes(self) -> int:
         return (self.window + 4 + 2 * self.n_coeffs) * 4
+
+
+# ---------------------------------------------------------------------------
+# Batch helpers over many streams (the StatStream correlation step)
+# ---------------------------------------------------------------------------
+
+def corr_from_coeffs(cx: torch.Tensor, cy: torch.Tensor) -> torch.Tensor:
+    """corr ~= 1 - d_trunc^2 / 2 with d^2 = 2 sum_F |cx - cy|^2."""
+    d2 = 2.0 * torch.sum((cx - cy) ** 2, dim=(-2, -1))
+    return 1.0 - 0.5 * d2
+
+
+def pairwise_corr(coeffs: torch.Tensor) -> torch.Tensor:
+    """All-pairs correlation estimates from stacked coeffs [N, F, 2].
+
+    corr_ij = 1 - (|c_i|^2 + |c_j|^2 - 2 <c_i, c_j>)  (factor 2 folded in)
+    The <c_i, c_j> Gram matrix is one plain matrix product, as in the
+    reference; ``kernels/ops.corr_matrix`` is the hand-written kernel.
+    """
+    from repro_torch.kernels import ref     # kernels import core
+    return ref.pairwise_corr(coeffs.reshape(coeffs.shape[0], -1))
+
+
+def adjacent_bucket_mask(coords: torch.Tensor) -> torch.Tensor:
+    """[N, N] bool mask: True where streams fall in the same or adjacent
+    grid cells (the only candidate pairs; everything else is pruned).
+    ``coords`` [N, 2g] int32."""
+    n = coords.shape[0]
+    mask = torch.ones((n, n), dtype=torch.bool, device=coords.device)
+    for axis in range(coords.shape[-1]):
+        c = coords[:, axis]
+        mask &= torch.abs(c[:, None] - c[None, :]) <= 1
+    return mask

@@ -1,5 +1,6 @@
-"""Entry points the engine calls around the kernels, and the update-kernel
-registry (port of a subset of ``repro/kernels/ops.py``).
+"""Entry points around the kernels -- the engine's and the correlation
+step's (``corr_matrix``) -- and the update-kernel registry (port of a
+subset of ``repro/kernels/ops.py``).
 
 Kernel dispatch is a REGISTRY, as in the reference: a kind declares
 ``update_kernel = "<name>"`` and :func:`resolve_update_kernel` returns the
@@ -28,9 +29,12 @@ Differences from the reference:
   * Bucket hashing, sign hashing, ``_hll_prep`` and FM's ``_which_pos``
     are plain torch ops on the state's device, as the reference keeps
     them outside its Pallas kernels.
+  * ``corr_matrix`` pads nothing and has no ``tile`` keyword: the
+    reference pads N to its 256 tile and K to the MXU's 128 lanes; the
+    CUDA kernel masks its own ragged edge.
 
 Not yet ported: the sharded, collective, merged and subpopulation
-estimate paths, the AMS kernel, ``corr_matrix`` and ``flash_attention``.
+estimate paths, the AMS kernel and ``flash_attention``.
 """
 from __future__ import annotations
 
@@ -41,8 +45,8 @@ from typing import Callable, Dict, Optional
 import torch
 
 from repro_torch.core import batched, hashing
-from . import (bitset_or, fm_bitmap, hll_max, onehot_matmul, probe,
-               rhp_project, sliding_dft)
+from . import (bitset_or, fm_bitmap, hll_max, onehot_matmul, pairwise_corr,
+               probe, rhp_project, sliding_dft)
 
 _FALSY = ("0", "false", "no", "off")
 
@@ -131,6 +135,13 @@ def dft_step(re: torch.Tensor, im: torch.Tensor, delta: torch.Tensor,
     return sliding_dft.sliding_dft_step(
         re, im, delta.to(torch.float32), mask.to(torch.float32), tw_re,
         tw_im)
+
+
+def corr_matrix(coeffs: torch.Tensor) -> torch.Tensor:
+    """Pairwise correlation estimates from [N, F, 2] or [N, K] coeffs:
+    [N, N] f32 from the hand-written kernel (no padding)."""
+    x = coeffs.reshape(coeffs.shape[0], -1).to(torch.float32).contiguous()
+    return pairwise_corr.pairwise_corr(x)
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,12 @@
 """Plain PyTorch versions of the hand-written kernels (port of the
-scatter and sliding-DFT oracles in ``repro/kernels/ref.py``, and of the
-one-hot max cube of ``repro/kernels/bitset_or.py``, which has no oracle
-there).
+scatter, sliding-DFT and pairwise-correlation oracles in
+``repro/kernels/ref.py``, and of the one-hot max cube of
+``repro/kernels/bitset_or.py``, which has no oracle there).
 
 The wrappers run these on CPU tensors; ``chip_smoke.py`` holds each CUDA
-kernel against them on the card. All update in place (the reference's
-sliding-DFT oracle returns new planes).
+kernel against them on the card. The updates work in place (the
+reference's sliding-DFT oracle returns new planes); the pairwise
+correlation returns a new ``[N, N]`` matrix, or fills ``out``.
 
 Unlike the reference's CountMin oracle, whose ``.at[-1]`` wraps a
 ``syn_idx = -1`` tuple onto the LAST row, these drop rows outside
@@ -110,3 +111,13 @@ def sliding_dft_step(re: torch.Tensor, im: torch.Tensor, delta: torch.Tensor,
     re.copy_(torch.where(m, new_re, re))
     im.copy_(torch.where(m, new_im, im))
     return re, im
+
+
+def pairwise_corr(x: torch.Tensor,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """All-pairs ``1 - (sq_i + sq_j - 2 <x_i, x_j>)`` of x [N, K] f32, as
+    the reference's oracle computes it (``sq = sum(x * x, -1)``, then one
+    matrix product): [N, N] f32, written into ``out`` when given."""
+    sq = torch.sum(x * x, dim=-1)
+    gram = x @ x.T
+    return torch.sub(1.0, sq[:, None] + sq[None, :] - 2.0 * gram, out=out)

@@ -12,7 +12,10 @@ bucket-range launch (d * n < 1024, the data-source fresh sketch) n = 1
 to 3 at depths 1, 5 and 12, byte-equal to the CPU's serial scatter even
 for float weights; for the sliding-DFT tick odd S, F = 1, all or no
 rows masked, and the interleaved in-place planes the engine passes, byte
-for byte. Tests marked ``cuda`` need a card; run them there with
+for byte; for the pairwise correlation N = 1 to 5,000 with ragged tiles
+and K from 1 to 40, the same bytes in two runs, and an N past 46,341
+where N * N passes 2**31. Tests marked ``cuda`` need a card; run them
+there with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -25,7 +28,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import (bitset_or, fm_bitmap, hll_max, onehot_matmul,
-                                 probe, ref, rhp_project, sliding_dft)
+                                 ops, pairwise_corr, probe, ref, rhp_project,
+                                 sliding_dft)
 from repro_torch.service import routing
 
 
@@ -424,6 +428,75 @@ def test_rhp_wrappers_count_launches_and_reject_bad_operands(dev):
     with pytest.raises(TypeError):
         fn(state, rows, vals.double(), signs)
     assert fn.launches == l0 + 2
+
+
+# the float32 Gram of x ~ 0.1 N(0, 1) over K <= 40 terms, summed in
+# another order than the plain version's matrix product: a few ulp of
+# values below 1
+CORR_ATOL = 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(1, 1), (37, 3), (64, 16), (300, 16),
+                                 (512, 40), (5000, 16)])
+def test_pairwise_corr_kernel_matches_plain(dev, n, k):
+    """Against the plain version to CORR_ATOL; the same bytes in two runs;
+    the diagonal 1 and the matrix symmetric, bit for bit (sq is summed
+    with the products' own order)."""
+    rng = np.random.RandomState(n + k)
+    x = torch.from_numpy((rng.randn(n, k) * 0.1).astype(np.float32)).to(dev)
+    want = ref.pairwise_corr(x)
+    got = pairwise_corr.pairwise_corr(x)
+    again = pairwise_corr.pairwise_corr(x)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= CORR_ATOL
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    assert torch.equal(got.diagonal(), torch.ones(n, device=dev))
+    assert torch.equal(got.view(torch.int32), got.T.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_pairwise_corr_wrapper_counts_launches_and_rejects_bad_operands(dev):
+    x = torch.randn((70, 5), device=dev)
+    fn = pairwise_corr.pairwise_corr
+    before = fn.launches
+    out = torch.full((70, 70), float("nan"), device=dev)
+    assert fn(x, out) is out and not bool(out.isnan().any())
+    assert fn(x[:0]).shape == (0, 0)                    # N = 0: no launch
+    got = ops.corr_matrix(x.reshape(70, 5, 1).double())    # cast, flatten
+    assert fn.launches == before + 2
+    assert torch.equal(got, out)
+    with pytest.raises(ValueError, match="is on cpu"):
+        fn(x, out.cpu())
+    with pytest.raises(TypeError):
+        fn(x.double())
+    with pytest.raises(ValueError, match=r"\[N, K\]"):
+        fn(x.reshape(70, 5, 1))
+    with pytest.raises(ValueError, match=r"\[N, K\]"):
+        fn(x[:, 0])
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(x.T.contiguous().T)
+    with pytest.raises(ValueError, match="shape"):
+        fn(x, out[:69])
+    assert fn.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_pairwise_corr_64_bit_offsets(dev):
+    """N = 46,400, K = 2: N * N = 2.15e9 elements (8.6 GB), past 2**31.
+    The last 64 rows against the plain formula computed for those rows
+    alone, and the first row too."""
+    n, k, tail = 46400, 2, 64
+    rng = np.random.RandomState(7)
+    x = torch.from_numpy((rng.randn(n, k) * 0.1).astype(np.float32)).to(dev)
+    out = pairwise_corr.pairwise_corr(x)
+    sq = torch.sum(x * x, dim=-1)
+    for rows in (slice(n - tail, n), slice(0, 1)):
+        want = 1.0 - (sq[rows, None] + sq[None, :] - 2.0 * (x[rows] @ x.T))
+        assert float((out[rows] - want).abs().max()) <= CORR_ATOL
+    assert float(out[-1, -1]) == 1.0 and float(out[-1, 0]) == float(out[0, -1])
+    del out
+    torch.cuda.empty_cache()
 
 
 @pytest.mark.smoke
