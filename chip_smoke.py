@@ -7,9 +7,9 @@ hand-written kernel against its plain PyTorch version.
 Phases (any failure raises, so the script exits non-zero without its
 last line; each phase prints its peak device memory, held under 48 GiB):
 
-  1. Card and build: ``nvidia-smi`` name and power limit, then the six
+  1. Card and build: ``nvidia-smi`` name and power limit, then the seven
      kernel sources built by ``nvcc`` in parallel.
-  2. Each of the twelve kernel entry points against its plain version at
+  2. Each of the thirteen kernel entry points against its plain version at
      the main path's shapes, on a batch of 65,536 tuples with unrouted,
      -1 and masked (upd 0 / rank 0 / weight 0) lanes: CountMin
      eps=0.002, delta=0.01 (the paper's parameters,
@@ -24,7 +24,14 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      pairwise correlation at N = 5,000 and K = 16 (the paper's 12.5M
      pairs at Figure 6's 8 coefficients), to 1e-5 and byte for byte
      across two runs, with the float32 matmul settings read (never set)
-     and required to be full float32. Plus the
+     and required to be full float32; the attention forward at
+     Qwen2-72B's width (64 heads of 128, ``configs/qwen2_72b.py``), batch
+     1 at train_4k's S = 4096, causal bfloat16, within 2e-2 of the plain
+     version relative to its largest output, byte for byte across two
+     runs, timed beside ``scaled_dot_product_attention``; then untimed the
+     same shape in float32 (1e-5), Qwen2-0.5B's 14 x 64 and Gemma-7B's
+     16 x 256 heads, a ragged causal S = 4000, a non-causal S = 4096 and a
+     causal Sq = 200, Sk = 100. Plus the
      one-row fresh-sketch launch each CM, HLL, Bloom and FM data-source
      fold makes (``<name>@fresh``; RHP's fold is a torch reduction and
      launches none), an untimed exactness run of both bit-set entry
@@ -65,9 +72,14 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      must equal a numpy recomputation, prune some pairs and keep every
      pair above the threshold, and distinct streams must correlate above
      it.
-  4. The gate of the CountMin one-row launch: its device time no higher
+  4. The attention entry point: ``ops.flash_attention`` once at the
+     Qwen2-72B shape, causal bfloat16, with the counts reset just before;
+     it must launch the attention kernel exactly once and agree with the
+     plain version to 2e-2 of its largest output.
+  5. The gate of the CountMin one-row launch: its device time no higher
      than the library call's. Then one JSON line with each kernel's
-     launches in phase 3 (the correlation kernel's in phase 3b) and its
+     launches in phase 3 (the correlation kernel's in phase 3b, the
+     attention kernel's in phase 4) and its
      phase-2 numbers (``ms``, ``plain_ms``,
      ``library_ms`` by CUDA event; ``device_ms``, ``plain_device_ms``,
      ``library_device_ms`` by ``torch.profiler``; the sliding-DFT row
@@ -90,6 +102,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM fp32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 TIMING_RUNS = 25
 FLOAT_RTOL, FLOAT_ATOL = 1e-4, 1e-3   # float sums of up to ~10^4 terms
                                       # taken in another order
@@ -104,6 +117,11 @@ CORR_N, CORR_K = 5000, 16
 CORR_ATOL = 1e-5        # float32 Grams of K <= 16 terms summed in another
                         # order than the plain version's matrix product
 CORR_GROUPS = 8         # phase 3b's streams follow one of 8 latent walks
+# the attention forward: Qwen2-72B (configs/qwen2_72b.py: 64 heads, d_model
+# 8192 -> head_dim 128), batch 1 at train_4k's S = 4096 (configs/base.py)
+ATTN_HEADS, ATTN_D, ATTN_S = 64, 128, 4096
+# largest abs error over the largest output (tests/test_kernels.py's limits)
+ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 GIB = 2.0 ** 30
 
 
@@ -127,17 +145,21 @@ def cuda_ms(fn, runs: int = TIMING_RUNS) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, runs: int = 5, attempts: int = 3) -> float:
+def device_ms(fn, runs: int = 5, attempts: int = 6) -> float:
     """Mean device time of ``fn()`` per run from ``torch.profiler``: the
     summed durations of its kernels and copies, without the host's enqueue
     time, which a CUDA-event time of a few-µs launch mostly is. A profile
     that caught no device activity at all is taken again, up to
-    ``attempts`` times: torch.profiler now and then drops a whole window's
-    CUDA events on this card (seen once in some 300 windows)."""
+    ``attempts`` times, after a pause that doubles from 0.1 s:
+    torch.profiler now and then drops a whole window's CUDA events on this
+    card (seen once in some 300 windows), and once three windows in a row
+    that followed one another at once."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(attempts):
+    for attempt in range(attempts):
+        if attempt:
+            time.sleep(0.1 * 2 ** (attempt - 1))
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(runs):
@@ -151,9 +173,12 @@ def device_ms(fn, runs: int = 5, attempts: int = 3) -> float:
                        f"{attempts} windows")
 
 
-def bound_ms(n_bytes: int, n_ops: int):
+def bound_ms(n_bytes: int, n_ops: int, ops_per_s: float = F32_OPS_PER_S):
+    """The least time for the work: bytes over the HBM rate or operations
+    over ``ops_per_s`` (float32 CUDA cores unless the row says bf16
+    tensor cores), whichever is larger, and which one it is."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -164,6 +189,8 @@ def compare(a: torch.Tensor, b: torch.Tensor, chunk: int = 4096):
     for i in range(0, a.shape[0], chunk):
         x, y = a[i:i + chunk], b[i:i + chunk]
         equal = equal and torch.equal(x, y)
+        if x.dtype == torch.bfloat16:       # differences taken in float32
+            x, y = x.float(), y.float()
         if x.numel():
             err = max(err, float((x - y).abs().max()))
         if x.is_floating_point():
@@ -243,11 +270,12 @@ def distinct(flat: torch.Tensor) -> int:
 # phase 2: every kernel entry point against its plain version
 # ---------------------------------------------------------------------------
 def record(results, name, fn_kernel, fn_plain, fn_lib, state0, n_bytes,
-           n_ops, floats=None, atol=None):
+           n_ops, floats=None, atol=None, ops_per_s=F32_OPS_PER_S):
     """Hold ``fn_kernel`` against ``fn_plain`` on copies of ``state0``
     (torch.equal, or a max abs error of at most ``atol`` when given), then
     time kernel, plain and library call (``fn_lib`` None: no one PyTorch
-    call computes the function)."""
+    call computes the function). The bound takes ``n_ops`` at
+    ``ops_per_s``."""
     k = state0.clone()
     fn_kernel(k)
     p = state0.clone()
@@ -271,19 +299,19 @@ def record(results, name, fn_kernel, fn_plain, fn_lib, state0, n_bytes,
         ldev = device_ms(lambda: fn_lib(p))
     del k, p
     free()
-    bms, by = bound_ms(n_bytes, n_ops)
+    bms, by = bound_ms(n_bytes, n_ops, ops_per_s)
     results[name] = dict(max_abs_err=err, ms=kms, plain_ms=pms,
                          library_ms=lms, bound_ms=bms, bound_by=by,
-                         device_ms=kdev, plain_device_ms=pdev,
-                         library_device_ms=ldev)
+                         ops_per_s=ops_per_s, device_ms=kdev,
+                         plain_device_ms=pdev, library_device_ms=ldev)
     lib = ("no library call" if lms is None else
            f"library {lms:.4f} ms (device {ldev:.4f} ms)")
     match = ("exact match" if atol is None else
              f"max abs err {err:.3g} <= {atol}")
     print(f"[phase2] {name}: {match}, kernel {kms:.4f} ms (device "
           f"{kdev:.4f} ms), plain {pms:.4f} ms (device {pdev:.4f} ms), "
-          f"{lib}, bound {bms:.5f} ms ({by}, {n_bytes} B, {n_ops} ops)",
-          flush=True)
+          f"{lib}, bound {bms:.5f} ms ({by}, {n_bytes} B, {n_ops} ops at "
+          f"{ops_per_s:.3g} op/s)", flush=True)
 
 
 def float_runs(label, kern, plain, state0) -> None:
@@ -771,12 +799,115 @@ def phase2_corr(b, n: int, results: dict) -> None:
            atol=CORR_ATOL)
 
 
+def attn_inputs(gen, bh: int, sq: int, sk: int, d: int, dtype):
+    """q and k at 0.3 N(0, 1), v at N(0, 1) (the reference's kernel test's
+    scales), drawn in float32 and cast to ``dtype``."""
+    dev = gen.device
+    q = torch.randn((bh, sq, d), generator=gen, device=dev) * 0.3
+    k = torch.randn((bh, sk, d), generator=gen, device=dev) * 0.3
+    v = torch.randn((bh, sk, d), generator=gen, device=dev)
+    return tuple(x.to(dtype) for x in (q, k, v))
+
+
+def attn_work(bh: int, sq: int, sk: int, d: int, causal: bool,
+              itemsize: int):
+    """(bytes, operations) of one attention forward: q, k, v read once and
+    out written once; 4 D operations (q.k and p.v, a multiply and an add
+    each) for every (query, key) pair the mask keeps."""
+    if not causal:
+        pairs = sq * sk
+    elif sq <= sk:
+        pairs = sq * (sq + 1) // 2
+    else:
+        pairs = sk * (sk + 1) // 2 + (sq - sk) * sk
+    return bh * (2 * sq + 2 * sk) * d * itemsize, 4 * bh * d * pairs
+
+
+def attn_rel_err(got: torch.Tensor, want: torch.Tensor):
+    """(largest abs error, largest abs output of ``want``), in float32."""
+    scale = float(want.float().abs().max())
+    return float((got.float() - want.float()).abs().max()), scale
+
+
+def phase2_flash(b, n: int, results: dict) -> None:
+    """The attention forward at Qwen2-72B's width, batch 1 at S = 4096,
+    causal bfloat16: within 2e-2 of the plain version relative to its
+    largest output, byte-identical across two runs, timed beside
+    ``scaled_dot_product_attention``. Then, untimed, the same shape in
+    float32 (1e-5), Qwen2-0.5B's and Gemma-7B's heads, a ragged causal S,
+    a non-causal S and a causal Sq > Sk, each against the plain version
+    (which follows the reference's oracle) and byte-identical across two
+    runs."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa, ref
+
+    del n
+    bf16 = torch.bfloat16
+    h, d, s = ATTN_HEADS, ATTN_D, ATTN_S
+    q, k, v = attn_inputs(b.gen, h, s, s, d, bf16)
+    scale = float(ref.flash_attention(q, k, v, True).float().abs().max())
+    free()
+    n_bytes, n_ops = attn_work(h, s, s, d, True, 2)
+    print(f"[phase2] attention: Qwen2-72B heads, q/k/v [{h}, {s}, {d}] "
+          f"bf16, causal; plain output's largest |value| {scale:.6g}",
+          flush=True)
+    kern = lambda o: fa.flash_attention(q, k, v, True, o)
+
+    def two_runs(state0):
+        a, c = state0.clone(), state0.clone()
+        kern(a)
+        kern(c)
+        torch.cuda.synchronize()
+        require(same_bytes(a, c), "flash_attention: two runs differ "
+                                  "byte-wise")
+        print("[phase2] flash_attention: byte-identical over 2 runs",
+              flush=True)
+
+    # the library call on [1, H, S, D] views: PyTorch's fused attention
+    # backends take 4-D inputs only (3-D ones run its unfused math path)
+    record(results, "flash_attention", kern,
+           lambda o: ref.flash_attention(q, k, v, True, o),
+           lambda o: F.scaled_dot_product_attention(q[None], k[None],
+                                                    v[None], is_causal=True),
+           torch.zeros((h, s, d), dtype=bf16, device=b.dev), n_bytes, n_ops,
+           floats=two_runs, atol=ATTN_TOL[bf16] * scale,
+           ops_per_s=BF16_OPS_PER_S)
+    del q, k, v
+    free()
+
+    # untimed exactness: (label, BH, Sq, Sk, D, dtype, causal)
+    for label, bh, sq, sk, dd, dtype, causal in (
+            ("Qwen2-72B f32", h, s, s, d, torch.float32, True),
+            ("Qwen2-0.5B", 14, s, s, 64, bf16, True),
+            ("Gemma-7B", 16, s, s, 256, bf16, True),
+            ("ragged causal", h, 4000, 4000, d, bf16, True),
+            ("non-causal", h, s, s, d, bf16, False),
+            ("causal Sq > Sk", 2, 200, 100, 64, bf16, True)):
+        q, k, v = attn_inputs(b.gen, bh, sq, sk, dd, dtype)
+        got = fa.flash_attention(q, k, v, causal)
+        again = fa.flash_attention(q, k, v, causal)
+        want = ref.flash_attention(q, k, v, causal)
+        torch.cuda.synchronize()
+        err, scale = attn_rel_err(got, want)
+        tol = ATTN_TOL[dtype]
+        require(err <= tol * scale, f"flash_attention ({label}): max abs err "
+                                    f"{err} over {scale}, above {tol}")
+        require(same_bytes(got, again), f"flash_attention ({label}): two "
+                                        f"runs differ byte-wise")
+        print(f"[phase2] flash_attention ({label}): [{bh}, {sq}, {sk}, {dd}] "
+              f"{str(dtype)[6:]} causal={causal}: max abs err {err:.3g} = "
+              f"{err / scale:.3g} of the largest output (limit {tol}), "
+              f"byte-identical over 2 runs", flush=True)
+        del q, k, v, got, again, want
+        free()
+
+
 def phase2(dev, seed: int, n: int, n_streams: int, t: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     b = phase2_batch(dev, seed, n_streams, t)
     results: dict = {}
     for part in (phase2_countmin, phase2_hll, phase2_bloom, phase2_fm,
-                 phase2_rhp, phase2_dft, phase2_corr):
+                 phase2_rhp, phase2_dft, phase2_corr, phase2_flash):
         part(b, n, results)
         free()
     peak_gib("phase2")
@@ -821,6 +952,8 @@ ENTRY_POINTS = {
                          "sliding_dft.py:35"),
     "pairwise_corr": ("pairwise_corr", "pairwise_corr", "pairwise_corr.cu",
                       "pairwise_corr.py:31"),
+    "flash_attention": ("flash_attention", "flash_attention",
+                        "flash_attention.cu", "flash_attention.py:68"),
 }
 
 
@@ -1313,6 +1446,45 @@ def phase3b(dev, seed: int, n_streams: int, n_batches: int) -> int:
     return corr_launches
 
 
+def phase4(dev, seed: int) -> int:
+    """The attention entry point: ``ops.flash_attention`` once at the
+    Qwen2-72B shape, causal bfloat16, with the counts reset just before.
+    It must launch the attention kernel exactly once and agree with the
+    plain version; returns its launches."""
+    from repro_torch.kernels import ops, ref
+
+    torch.cuda.reset_peak_memory_stats()
+    h, d, s = ATTN_HEADS, ATTN_D, ATTN_S
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+    q, k, v = attn_inputs(gen, h, s, s, d, torch.bfloat16)
+    reset_launches()                      # counts of this path only
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    launches = read_launches()["flash_attention"]
+    require(launches == 1, f"ops.flash_attention launched the attention "
+                           f"kernel {launches} times, not once")
+    require(tuple(out.shape) == (h, s, d) and out.dtype == torch.bfloat16
+            and bool(torch.isfinite(out).all()),
+            "ops.flash_attention's output is not finite bf16 [BH, S, D]")
+    want = ref.flash_attention(q, k, v, True)
+    err, scale = attn_rel_err(out, want)
+    tol = ATTN_TOL[torch.bfloat16]
+    require(err <= tol * scale, f"ops.flash_attention is off the plain "
+                                f"version by {err} over {scale}")
+    print(f"[phase4] ops.flash_attention: q/k/v [{h}, {s}, {d}] bf16 causal "
+          f"in {call_s:.4f} s (host clock, synchronized, first call of this "
+          f"shape), flash_attention launches {launches}, max abs err "
+          f"{err:.3g} = {err / scale:.3g} of the largest output (limit "
+          f"{tol})", flush=True)
+    del q, k, v, out, want
+    free()
+    peak_gib("phase4")
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1332,7 +1504,7 @@ def main() -> None:
           f"on {torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
     build.build(["countmin_scatter", "hll_max", "bitset_or", "rhp_project",
-                 "sliding_dft", "pairwise_corr"])
+                 "sliding_dft", "pairwise_corr", "flash_attention"])
     print(f"[phase1] kernels built in {time.perf_counter() - t0:.2f} s",
           flush=True)
     for name, log in build.BUILD_LOG.items():
@@ -1353,10 +1525,13 @@ def main() -> None:
                                         n_streams=2 * n_streams,
                                         n_batches=192)
     print(f"[phase3b] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    launches["flash_attention"] = phase4(dev, args.seed)
+    print(f"[phase4] done in {time.perf_counter() - t0:.1f} s", flush=True)
     for name in ENTRY_POINTS:
         require(launches[name] > 0, f"{name} was not launched on the main "
-                                    f"path (phase 3, or 3b's correlation "
-                                    f"step)")
+                                    f"path (phase 3, 3b's correlation step "
+                                    f"or phase 4)")
     fresh = timings["onehot_scatter_add@fresh"]
     require(fresh["device_ms"] <= fresh["library_device_ms"],
             f"the CountMin one-row launch takes {fresh['device_ms']:.4f} ms "
@@ -1372,7 +1547,8 @@ def main() -> None:
             replaces=f"src/repro/kernels/{replaced}",
             launches=launches[name], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            bound_by=r["bound_by"], ops_per_s=r["ops_per_s"],
+            library_ms=r["library_ms"],
             device_ms=r["device_ms"], plain_device_ms=r["plain_device_ms"],
             library_device_ms=r["library_device_ms"]))
         large = timings.get(f"{name}@{1 << 20}")

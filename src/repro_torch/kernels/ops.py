@@ -1,5 +1,6 @@
-"""Entry points around the kernels -- the engine's and the correlation
-step's (``corr_matrix``) -- and the update-kernel registry (port of a
+"""Entry points around the kernels -- the engine's, the correlation
+step's (``corr_matrix``) and the attention forward's
+(``flash_attention``) -- and the update-kernel registry (port of a
 subset of ``repro/kernels/ops.py``).
 
 Kernel dispatch is a REGISTRY, as in the reference: a kind declares
@@ -32,9 +33,19 @@ Differences from the reference:
   * ``corr_matrix`` pads nothing and has no ``tile`` keyword: the
     reference pads N to its 256 tile and K to the MXU's 128 lanes; the
     CUDA kernel masks its own ragged edge.
+  * ``flash_attention`` pads nothing and slices nothing: the kernel masks
+    its own ragged Sq and Sk. Its ``bq``/``bk`` keywords choose no tiling;
+    they only decide the one call the reference refuses, a non-causal
+    call with ``Sk % bk != 0`` (``ValueError`` here, an ``assert``
+    there). The head dim must be a multiple of 16 from 16 to 256.
+  * For a causal ``flash_attention`` with Sq > Sk and Sk not a multiple of
+    ``bk``, the port follows the oracle (``ref.flash_attention``). The
+    reference pads Sk with zero keys, which query rows at positions >= Sk
+    see: each adds ``exp(0 - m)`` to their denominator, so its op
+    departs from its own oracle there.
 
 Not yet ported: the sharded, collective, merged and subpopulation
-estimate paths, the AMS kernel and ``flash_attention``.
+estimate paths and the AMS kernel.
 """
 from __future__ import annotations
 
@@ -45,8 +56,8 @@ from typing import Callable, Dict, Optional
 import torch
 
 from repro_torch.core import batched, hashing
-from . import (bitset_or, fm_bitmap, hll_max, onehot_matmul, pairwise_corr,
-               probe, rhp_project, sliding_dft)
+from . import (bitset_or, flash_attention as fa, fm_bitmap, hll_max,
+               onehot_matmul, pairwise_corr, probe, rhp_project, sliding_dft)
 
 _FALSY = ("0", "false", "no", "off")
 
@@ -142,6 +153,20 @@ def corr_matrix(coeffs: torch.Tensor) -> torch.Tensor:
     [N, N] f32 from the hand-written kernel (no padding)."""
     x = coeffs.reshape(coeffs.shape[0], -1).to(torch.float32).contiguous()
     return pairwise_corr.pairwise_corr(x)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, bq: int = 128,
+                    bk: int = 128) -> torch.Tensor:
+    """Streaming-softmax attention, O(S) device memory. q [BH, Sq, D],
+    k/v [BH, Sk, D] -> [BH, Sq, D] in q's dtype, from the hand-written
+    kernel (no padding). ``bq`` and ``bk`` only decide the reference's
+    refusal: a non-causal call needs ``Sk % bk == 0``."""
+    del bq
+    if not causal and k.shape[1] % bk:
+        raise ValueError(f"non-causal needs Sk % bk == 0, got Sk = "
+                         f"{k.shape[1]}, bk = {bk}")
+    return fa.flash_attention(q, k, v, causal)
 
 
 # ---------------------------------------------------------------------------

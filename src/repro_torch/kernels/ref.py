@@ -1,12 +1,12 @@
 """Plain PyTorch versions of the hand-written kernels (port of the
-scatter, sliding-DFT and pairwise-correlation oracles in
+scatter, sliding-DFT, pairwise-correlation and attention oracles in
 ``repro/kernels/ref.py``, and of the one-hot max cube of
 ``repro/kernels/bitset_or.py``, which has no oracle there).
 
 The wrappers run these on CPU tensors; ``chip_smoke.py`` holds each CUDA
 kernel against them on the card. The updates work in place (the
 reference's sliding-DFT oracle returns new planes); the pairwise
-correlation returns a new ``[N, N]`` matrix, or fills ``out``.
+correlation and the attention return a new tensor, or fill ``out``.
 
 Unlike the reference's CountMin oracle, whose ``.at[-1]`` wraps a
 ``syn_idx = -1`` tuple onto the LAST row, these drop rows outside
@@ -16,6 +16,7 @@ tuple's value instead, which drops it too.)
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -121,3 +122,28 @@ def pairwise_corr(x: torch.Tensor,
     sq = torch.sum(x * x, dim=-1)
     gram = x @ x.T
     return torch.sub(1.0, sq[:, None] + sq[None, :] - 2.0 * gram, out=out)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain softmax attention, as the reference's oracle computes it:
+    float32 scores over q [BH, Sq, D] and k [BH, Sk, D] divided by
+    sqrt(D); with ``causal`` a top-left ``tril`` [Sq, Sk] where masked
+    scores become -1e30; softmax over keys; the product with v [BH, Sk, D]
+    in float32, cast to q's dtype. Returns [BH, Sq, D], or fills ``out``.
+    Holds the [BH, Sq, Sk] float32 scores twice at its peak."""
+    d = q.shape[-1]
+    s = torch.einsum("bqd,bkd->bqk", q.to(torch.float32),
+                     k.to(torch.float32))
+    s.div_(math.sqrt(d))
+    if causal:
+        keep = torch.ones((q.shape[1], k.shape[1]), dtype=torch.bool,
+                          device=q.device).tril()
+        s.masked_fill_(~keep, -1e30)
+    p = torch.softmax(s, dim=-1)
+    del s
+    o = torch.einsum("bqk,bkd->bqd", p, v.to(torch.float32)).to(q.dtype)
+    if out is None:
+        return o
+    return out.copy_(o)

@@ -14,8 +14,10 @@ for float weights; for the sliding-DFT tick odd S, F = 1, all or no
 rows masked, and the interleaved in-place planes the engine passes, byte
 for byte; for the pairwise correlation N = 1 to 5,000 with ragged tiles
 and K from 1 to 40, the same bytes in two runs, and an N past 46,341
-where N * N passes 2**31. Tests marked ``cuda`` need a card; run them
-there with
+where N * N passes 2**31; for the attention forward S = 1, S = 200,
+Sq != Sk both ways, D = 16 to 256, float32 and bfloat16, causal and not,
+the same bytes in two runs, one launch a call, and a BH * S * D past
+2**31. Tests marked ``cuda`` need a card; run them there with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -27,9 +29,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import (bitset_or, fm_bitmap, hll_max, onehot_matmul,
-                                 ops, pairwise_corr, probe, ref, rhp_project,
-                                 sliding_dft)
+from repro_torch.kernels import (bitset_or, flash_attention, fm_bitmap,
+                                 hll_max, onehot_matmul, ops, pairwise_corr,
+                                 probe, ref, rhp_project, sliding_dft)
 from repro_torch.service import routing
 
 
@@ -496,6 +498,101 @@ def test_pairwise_corr_64_bit_offsets(dev):
         assert float((out[rows] - want).abs().max()) <= CORR_ATOL
     assert float(out[-1, -1]) == 1.0 and float(out[-1, 0]) == float(out[0, -1])
     del out
+    torch.cuda.empty_cache()
+
+
+# largest abs error over the largest output (tests/test_kernels.py's limits)
+ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _attn_inputs(rng, bh, sq, sk, d, dtype, dev):
+    q = rng.randn(bh, sq, d).astype(np.float32) * 0.3
+    k = rng.randn(bh, sk, d).astype(np.float32) * 0.3
+    v = rng.randn(bh, sk, d).astype(np.float32)
+    return [torch.from_numpy(a).to(dev, dtype) for a in (q, k, v)]
+
+
+def _attn_err(got, want):
+    """Largest abs error over the largest output, in float32."""
+    return float((got.float() - want.float()).abs().max()) / (
+        float(want.float().abs().max()) + 1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,sq,sk,d", [(1, 1, 1, 16), (2, 200, 200, 64),
+                                        (3, 200, 100, 128), (2, 100, 300, 256),
+                                        (2, 1, 257, 64), (2, 257, 1, 128),
+                                        (1, 65, 129, 16), (2, 130, 70, 256),
+                                        (1, 64, 64, 48), (1, 190, 190, 208)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_attention_kernel_matches_plain(dev, bh, sq, sk, d, dtype,
+                                              causal):
+    """Against the plain version within ATTN_TOL of its largest output;
+    one launch a call; the same bytes in two runs."""
+    rng = np.random.RandomState(bh + sq + 3 * sk + d)
+    q, k, v = _attn_inputs(rng, bh, sq, sk, d, dtype, dev)
+    fn = flash_attention.flash_attention
+    before = fn.launches
+    got = fn(q, k, v, causal)
+    assert fn.launches == before + 1
+    again = fn(q, k, v, causal)
+    assert fn.launches == before + 2
+    want = ref.flash_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (bh, sq, d)
+    assert _attn_err(got, want) <= ATTN_TOL[dtype]
+    assert torch.equal(got.view(torch.uint8), again.view(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_flash_attention_wrapper_counts_launches_and_rejects_bad_operands(dev):
+    rng = np.random.RandomState(11)
+    q, k, v = _attn_inputs(rng, 2, 70, 70, 64, torch.bfloat16, dev)
+    fn = flash_attention.flash_attention
+    before = fn.launches
+    out = torch.full((2, 70, 64), float("nan"), dtype=torch.bfloat16,
+                     device=dev)
+    assert fn(q, k, v, True, out) is out and not bool(out.isnan().any())
+    got = ops.flash_attention(q, k, v, causal=False, bk=70)
+    assert fn.launches == before + 2
+    assert _attn_err(got, ref.flash_attention(q, k, v, False)) <= 2e-2
+    with pytest.raises(ValueError, match="Sk % bk"):
+        ops.flash_attention(q, k, v, causal=False)
+    with pytest.raises(ValueError, match="is on cpu"):
+        fn(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="is on cpu"):
+        fn(q, k, v, True, out.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(q.transpose(0, 1).contiguous().transpose(0, 1), k, v)
+    with pytest.raises(ValueError, match="shape"):
+        fn(q, k, v, True, out[:, :69])
+    with pytest.raises(ValueError, match="head dim"):
+        fn(q[..., :8].contiguous(), k[..., :8].contiguous(),
+           v[..., :8].contiguous())
+    with pytest.raises(ValueError, match="one dtype"):
+        fn(q.float(), k, v)
+    flat = torch.zeros(2 * 70 * 64 + 1, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        fn(flat[1:].view(2, 70, 64), k, v)
+    assert fn.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_flash_attention_64_bit_offsets(dev):
+    """BH = 131,100 heads of S = 128, D = 128 in bfloat16: BH * S * D =
+    2.15e9 elements (4.3 GB a tensor), past 2**31. The last two heads and
+    the first against the plain version on those heads alone."""
+    bh, s, d = 131100, 128, 128
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn((bh, s, d), generator=gen, device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+    out = flash_attention.flash_attention(q, k, v, True)
+    for heads in (slice(bh - 2, bh), slice(0, 1)):
+        want = ref.flash_attention(q[heads], k[heads], v[heads], True)
+        assert _attn_err(out[heads], want) <= 2e-2
+    del q, k, v, out
     torch.cuda.empty_cache()
 
 
