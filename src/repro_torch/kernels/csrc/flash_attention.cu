@@ -24,9 +24,12 @@
 //     D > 128) staged in shared memory by cp.async (the next K tile loads
 //     during softmax and P.V, the next V tile during q.k^T). Scores and
 //     P.V run on the tensor cores with mma.sync m16n8k16 (bf16 inputs,
-//     float32 sums); P is rounded to bf16 for P.V, as flash attention on
-//     GPUs does; the row max, the denominator and the accumulator are
-//     float32. D is padded in shared memory (zeros) to 64, 128 or 256.
+//     float32 sums). P enters P.V as the sum of two bf16 parts (hi =
+//     bf16(p), lo = bf16(p - hi)), two MMAs, so it keeps 16 significant
+//     bits: one bf16 P (8 bits, as flash attention on GPUs takes it) puts
+//     outputs up to two bf16 ulps off the reference's float32 p. The row
+//     max, the denominator and the accumulator are float32. D is padded
+//     in shared memory (zeros) to 64, 128 or 256.
 //   * float32: 256 threads, 64 query rows, key tiles of 32, on the CUDA
 //     cores with fmaf, every score and every output summed by one thread
 //     in a fixed order (no TF32: the float32 result stays within 1e-5 of
@@ -42,7 +45,8 @@
 // and out, 0.080 ms at 3.35 TB/s. What this first design does about it:
 // it keeps the products on the tensor cores, never writes scores, reads
 // K and V once per 64 query rows (from L2 after the first head's tile),
-// and skips the masked half of the causal work. It leaves for later:
+// and skips the masked half of the causal work. The two-part P costs half
+// again the MMAs of the function (P.V runs twice). It leaves for later:
 // wgmma and TMA (mma.sync reaches a fraction of the wgmma rate), warp
 // specialisation, a deeper K/V pipeline, Q held in registers (it is read
 // from shared memory at every key tile), and a persistent grid.
@@ -109,9 +113,15 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
+// (x0, x1) as a pair of bf16 pairs, hi + lo, whose sum carries 16 of
+// float32's 24 significant bits: hi = bf16(x), lo = bf16(x - hi)
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 r = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&r);
 }
 
 // rows [row0, row0 + R) of a [*, D] bf16 matrix into shared [R][DP + 8];
@@ -255,20 +265,25 @@ attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     }
 
     // acc += P V: the score fragments of two key groups of 8 are the A
-    // fragment of one 16-key step
+    // fragment of one 16-key step. P goes in as hi + lo, two bf16 MMAs,
+    // so it keeps 16 significant bits where one bf16 would keep 8: the
+    // reference multiplies a float32 p by v cast to float32
 #pragma unroll
     for (int j = 0; j < BK / 16; ++j) {
-      const uint32_t a[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
-                             pack_bf16(s[2 * j][2], s[2 * j][3]),
-                             pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-                             pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
+      uint32_t hi[4], lo[4];
+      split_bf16(s[2 * j][0], s[2 * j][1], hi[0], lo[0]);
+      split_bf16(s[2 * j][2], s[2 * j][3], hi[1], lo[1]);
+      split_bf16(s[2 * j + 1][0], s[2 * j + 1][1], hi[2], lo[2]);
+      split_bf16(s[2 * j + 1][2], s[2 * j + 1][3], hi[3], lo[3]);
 #pragma unroll
       for (int dp = 0; dp < DP / 16; ++dp) {
         uint32_t b[4];
         ldsm_x4_trans(b, Vs + (j * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) *
                                   LD + dp * 16 + (lane >> 4) * 8);
-        mma_bf16(acc[2 * dp], a, b[0], b[1]);
-        mma_bf16(acc[2 * dp + 1], a, b[2], b[3]);
+        mma_bf16(acc[2 * dp], hi, b[0], b[1]);
+        mma_bf16(acc[2 * dp + 1], hi, b[2], b[3]);
+        mma_bf16(acc[2 * dp], lo, b[0], b[1]);
+        mma_bf16(acc[2 * dp + 1], lo, b[2], b[3]);
       }
     }
 

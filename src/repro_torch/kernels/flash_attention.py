@@ -17,6 +17,12 @@ bfloat16 runs on the tensor cores (``mma.sync``, float32 sums), float32
 on the CUDA cores. No atomics and no split over keys: two runs give the
 same bytes.
 
+Arithmetic, bfloat16: the reference multiplies a float32 p by v cast to
+float32; the bf16 MMA takes bf16 operands only, so the kernel feeds p
+to P.V as two bf16 parts, hi = bf16(p) and lo = bf16(p - hi), which
+carry 16 of p's 24 significant bits (relative error at most 2**-17).
+Scores, sums, the running max and denominator stay float32.
+
 Contract, both on the CPU and on the card: rank 3, one dtype (float32 or
 bfloat16) for q, k and v, matching BH and D, Sq and Sk >= 1, and D a
 multiple of 16 from 16 to 256 (Gemma-7B's head_dim of 256 is the widest

@@ -43,6 +43,12 @@ Differences from the reference:
     reference pads Sk with zero keys, which query rows at positions >= Sk
     see: each adds ``exp(0 - m)`` to their denominator, so its op
     departs from its own oracle there.
+  * For a bfloat16 ``flash_attention`` on the card, p enters P.V as two
+    bf16 parts, hi + lo (16 significant bits; the bf16 MMA takes no
+    float32 operand), where the reference multiplies a float32 p by v
+    cast to float32. A single bf16 p (8 bits) would put outputs up to
+    two bf16 ulps off the reference; the two parts keep every output
+    within one ulp plus 1e-3 of the largest.
 
 Not yet ported: the sharded, collective, merged and subpopulation
 estimate paths and the AMS kernel.
