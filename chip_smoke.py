@@ -24,16 +24,17 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      pairwise correlation at N = 5,000 and K = 16 (the paper's 12.5M
      pairs at Figure 6's 8 coefficients), to 1e-5 and byte for byte
      across two runs, with the float32 matmul settings read (never set)
-     and required to be full float32; the attention forward at
-     Qwen2-72B's width (64 heads of 128, ``configs/qwen2_72b.py``), batch
-     1 at train_4k's S = 4096, causal bfloat16, each output element
-     within 2**-7 of itself plus 1e-3 of the largest output of the plain
-     version, byte for byte across two runs, timed beside
-     ``scaled_dot_product_attention``; then untimed the same shape in
+     and required to be full float32; the attention forward at each
+     config's width (Qwen2-72B's 64 heads of 128, ``configs/qwen2_72b.py``;
+     Qwen2-0.5B's 14 x 64; Gemma-7B's 16 x 256), batch 1 at train_4k's
+     S = 4096, causal bfloat16, each output element within 2**-7 of
+     itself plus 1e-3 of the largest output of the plain version, byte
+     for byte across two runs, timed beside
+     ``scaled_dot_product_attention``; then untimed Qwen2-72B's shape in
      float32 (1e-5 of the largest output) and with peaky scores (q, k at
-     1.5 N(0, 1), causal and not), Qwen2-0.5B's 14 x 64 and Gemma-7B's
-     16 x 256 heads (also peaky), a ragged causal S = 4000, a non-causal
-     S = 4096 and a causal Sq = 200, Sk = 100. Plus the
+     1.5 N(0, 1), causal and not), Gemma-7B's heads peaky, a ragged
+     causal S = 4000, a non-causal S = 4096 and a causal Sq = 200,
+     Sk = 100. Plus the
      one-row fresh-sketch launch each CM, HLL, Bloom and FM data-source
      fold makes (``<name>@fresh``; RHP's fold is a torch reduction and
      launches none), an untimed exactness run of both bit-set entry
@@ -74,10 +75,10 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      must equal a numpy recomputation, prune some pairs and keep every
      pair above the threshold, and distinct streams must correlate above
      it.
-  4. The attention entry point: ``ops.flash_attention`` once at the
-     Qwen2-72B shape, causal bfloat16, with the counts reset just before;
-     it must launch the attention kernel exactly once and agree with the
-     plain version within phase 2's bfloat16 limits.
+  4. The attention entry point: ``ops.flash_attention`` once at each
+     config's width, causal bfloat16, with the counts reset just before
+     each call; each must launch the attention kernel exactly once and
+     agree with the plain version within phase 2's bfloat16 limits.
   5. The gate of the CountMin one-row launch: its device time no higher
      than the library call's. Then one JSON line with each kernel's
      launches in phase 3 (the correlation kernel's in phase 3b, the
@@ -122,6 +123,12 @@ CORR_GROUPS = 8         # phase 3b's streams follow one of 8 latent walks
 # the attention forward: Qwen2-72B (configs/qwen2_72b.py: 64 heads, d_model
 # 8192 -> head_dim 128), batch 1 at train_4k's S = 4096 (configs/base.py)
 ATTN_HEADS, ATTN_D, ATTN_S = 64, 128, 4096
+# row name -> (heads, head_dim) of each config's attention: Qwen2-72B,
+# Qwen2-0.5B (configs/qwen2_05b.py: 14 x 64), Gemma-7B
+# (configs/gemma_7b.py: 16 x 256)
+ATTN_WIDTHS = {"flash_attention": (ATTN_HEADS, ATTN_D),
+               "flash_attention@d64": (14, 64),
+               "flash_attention@d256": (16, 256)}
 # float32: largest abs error over the largest output. bfloat16, each
 # element: |got - want| <= 2**-7 |want| (one bf16 ulp of the value) plus
 # 1e-3 of the largest output (values near zero)
@@ -855,60 +862,60 @@ def attn_limit(dtype) -> str:
 
 
 def phase2_flash(b, n: int, results: dict) -> None:
-    """The attention forward at Qwen2-72B's width, batch 1 at S = 4096,
-    causal bfloat16: within ``attn_check``'s limits of the plain version,
-    byte-identical across two runs, timed beside
-    ``scaled_dot_product_attention``. Then, untimed, the same shape in
-    float32, with peaky scores (q, k at ATTN_PEAKY N(0, 1): the running
-    max moves across key tiles), Qwen2-0.5B's and Gemma-7B's heads, a
-    ragged causal S, a non-causal S and a causal Sq > Sk, each against
-    the plain version (which follows the reference's oracle) and
-    byte-identical across two runs."""
+    """The attention forward at each config's width, batch 1 at S = 4096,
+    causal bfloat16 (ATTN_WIDTHS: Qwen2-72B's row ``flash_attention``,
+    Qwen2-0.5B's ``@d64``, Gemma-7B's ``@d256``): within ``attn_check``'s
+    limits of the plain version, byte-identical across two runs, timed
+    beside ``scaled_dot_product_attention``. Then, untimed, Qwen2-72B's
+    shape in float32, with peaky scores (q, k at ATTN_PEAKY N(0, 1): the
+    running max moves across key tiles), Gemma-7B's heads peaky, a ragged
+    causal S, a non-causal S and a causal Sq > Sk, each against the plain
+    version (which follows the reference's oracle) and byte-identical
+    across two runs."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa, ref
 
     del n
     bf16 = torch.bfloat16
-    h, d, s = ATTN_HEADS, ATTN_D, ATTN_S
-    q, k, v = attn_inputs(b.gen, h, s, s, d, bf16)
-    n_bytes, n_ops = attn_work(h, s, s, d, True, 2)
-    kern = lambda o: fa.flash_attention(q, k, v, True, o)
+    s = ATTN_S
+    for name, (h, d) in ATTN_WIDTHS.items():
+        q, k, v = attn_inputs(b.gen, h, s, s, d, bf16)
+        n_bytes, n_ops = attn_work(h, s, s, d, True, 2)
+        kern = lambda o: fa.flash_attention(q, k, v, True, o)
 
-    def two_runs(state0):
-        a, c = state0.clone(), state0.clone()
-        kern(a)
-        kern(c)
-        torch.cuda.synchronize()
-        require(same_bytes(a, c), "flash_attention: two runs differ "
-                                  "byte-wise")
-        print("[phase2] flash_attention: byte-identical over 2 runs",
-              flush=True)
+        def two_runs(state0):
+            a, c = state0.clone(), state0.clone()
+            kern(a)
+            kern(c)
+            torch.cuda.synchronize()
+            require(same_bytes(a, c), f"{name}: two runs differ byte-wise")
+            print(f"[phase2] {name}: byte-identical over 2 runs", flush=True)
 
-    def within(got, want):
-        err, worst = attn_check(got, want)
-        print(f"[phase2] flash_attention: q/k/v [{h}, {s}, {d}] bf16 causal: "
-              f"max abs err {err:.3g}, worst element at {worst:.3g} of its "
-              f"limit ({attn_limit(bf16)})", flush=True)
-        return worst <= 1.0
+        def within(got, want):
+            err, worst = attn_check(got, want)
+            print(f"[phase2] {name}: q/k/v [{h}, {s}, {d}] bf16 causal: max "
+                  f"abs err {err:.3g}, worst element at {worst:.3g} of its "
+                  f"limit ({attn_limit(bf16)})", flush=True)
+            return worst <= 1.0
 
-    # the library call on [1, H, S, D] views: PyTorch's fused attention
-    # backends take 4-D inputs only (3-D ones run its unfused math path)
-    record(results, "flash_attention", kern,
-           lambda o: ref.flash_attention(q, k, v, True, o),
-           lambda o: F.scaled_dot_product_attention(q[None], k[None],
-                                                    v[None], is_causal=True),
-           torch.zeros((h, s, d), dtype=bf16, device=b.dev), n_bytes, n_ops,
-           floats=two_runs, within=within, rate="bf16 tensor cores")
-    del q, k, v
-    free()
+        # the library call on [1, H, S, D] views: PyTorch's fused attention
+        # backends take 4-D inputs only (3-D ones run its unfused math path)
+        record(results, name, kern,
+               lambda o: ref.flash_attention(q, k, v, True, o),
+               lambda o: F.scaled_dot_product_attention(
+                   q[None], k[None], v[None], is_causal=True),
+               torch.zeros((h, s, d), dtype=bf16, device=b.dev), n_bytes,
+               n_ops, floats=two_runs, within=within,
+               rate="bf16 tensor cores")
+        del q, k, v, kern
+        free()
 
     # untimed exactness: (label, BH, Sq, Sk, D, dtype, causal, q/k scale)
+    h, d = ATTN_WIDTHS["flash_attention"]
     for label, bh, sq, sk, dd, dtype, causal, qk in (
             ("Qwen2-72B f32", h, s, s, d, torch.float32, True, 0.3),
             ("peaky scores", h, s, s, d, bf16, True, ATTN_PEAKY),
             ("peaky non-causal", h, s, s, d, bf16, False, ATTN_PEAKY),
-            ("Qwen2-0.5B", 14, s, s, 64, bf16, True, 0.3),
-            ("Gemma-7B", 16, s, s, 256, bf16, True, 0.3),
             ("Gemma-7B peaky", 16, s, s, 256, bf16, True, ATTN_PEAKY),
             ("ragged causal", h, 4000, 4000, d, bf16, True, 0.3),
             ("non-causal", h, s, s, d, bf16, False, 0.3),
@@ -984,6 +991,10 @@ ENTRY_POINTS = {
                       "pairwise_corr.py:31"),
     "flash_attention": ("flash_attention", "flash_attention",
                         "flash_attention.cu", "flash_attention.py:68"),
+    "flash_attention@d64": ("flash_attention", "flash_attention",
+                            "flash_attention.cu", "flash_attention.py:68"),
+    "flash_attention@d256": ("flash_attention", "flash_attention",
+                             "flash_attention.cu", "flash_attention.py:68"),
 }
 
 
@@ -1476,40 +1487,46 @@ def phase3b(dev, seed: int, n_streams: int, n_batches: int) -> int:
     return corr_launches
 
 
-def phase4(dev, seed: int) -> int:
-    """The attention entry point: ``ops.flash_attention`` once at the
-    Qwen2-72B shape, causal bfloat16, with the counts reset just before.
-    It must launch the attention kernel exactly once and agree with the
-    plain version; returns its launches."""
+def phase4(dev, seed: int) -> dict:
+    """The attention entry point: ``ops.flash_attention`` once at each
+    config's width (ATTN_WIDTHS), S = 4096, causal bfloat16, with the
+    counts reset just before each call and read just after. Each call must
+    launch the attention kernel exactly once and agree with the plain
+    version; returns each row's launches."""
     from repro_torch.kernels import ops, ref
 
     torch.cuda.reset_peak_memory_stats()
-    h, d, s = ATTN_HEADS, ATTN_D, ATTN_S
+    s = ATTN_S
     gen = torch.Generator(device=dev).manual_seed(seed + 4)
-    q, k, v = attn_inputs(gen, h, s, s, d, torch.bfloat16)
-    reset_launches()                      # counts of this path only
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = ops.flash_attention(q, k, v, causal=True)
-    torch.cuda.synchronize()
-    call_s = time.perf_counter() - t0
-    launches = read_launches()["flash_attention"]
-    require(launches == 1, f"ops.flash_attention launched the attention "
-                           f"kernel {launches} times, not once")
-    require(tuple(out.shape) == (h, s, d) and out.dtype == torch.bfloat16
-            and bool(torch.isfinite(out).all()),
-            "ops.flash_attention's output is not finite bf16 [BH, S, D]")
-    want = ref.flash_attention(q, k, v, True)
-    err, worst = attn_check(out, want)
-    require(worst <= 1.0, f"ops.flash_attention is off the plain version "
-                          f"by {err}, {worst:.3g} times its limit")
-    print(f"[phase4] ops.flash_attention: q/k/v [{h}, {s}, {d}] bf16 causal "
-          f"in {call_s:.4f} s (host clock, synchronized, first call of this "
-          f"shape), flash_attention launches {launches}, max abs err "
-          f"{err:.3g}, worst element at {worst:.3g} of its limit "
-          f"({attn_limit(torch.bfloat16)})", flush=True)
-    del q, k, v, out, want
-    free()
+    launches = {}
+    for name, (h, d) in ATTN_WIDTHS.items():
+        q, k, v = attn_inputs(gen, h, s, s, d, torch.bfloat16)
+        reset_launches()                  # counts of this call only
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ops.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        launches[name] = read_launches()[name]
+        require(launches[name] == 1, f"ops.flash_attention ({name}) "
+                                     f"launched the attention kernel "
+                                     f"{launches[name]} times, not once")
+        require(tuple(out.shape) == (h, s, d) and out.dtype == torch.bfloat16
+                and bool(torch.isfinite(out).all()),
+                f"ops.flash_attention ({name})'s output is not finite bf16 "
+                f"[BH, S, D]")
+        want = ref.flash_attention(q, k, v, True)
+        err, worst = attn_check(out, want)
+        require(worst <= 1.0, f"ops.flash_attention ({name}) is off the "
+                              f"plain version by {err}, {worst:.3g} times "
+                              f"its limit")
+        print(f"[phase4] ops.flash_attention ({name}): q/k/v [{h}, {s}, {d}] "
+              f"bf16 causal in {call_s:.4f} s (host clock, synchronized, "
+              f"first call of this shape), launches {launches[name]}, max "
+              f"abs err {err:.3g}, worst element at {worst:.3g} of its limit "
+              f"({attn_limit(torch.bfloat16)})", flush=True)
+        del q, k, v, out, want
+        free()
     peak_gib("phase4")
     return launches
 
@@ -1555,7 +1572,7 @@ def main() -> None:
                                         n_batches=192)
     print(f"[phase3b] done in {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    launches["flash_attention"] = phase4(dev, args.seed)
+    launches.update(phase4(dev, args.seed))
     print(f"[phase4] done in {time.perf_counter() - t0:.1f} s", flush=True)
     for name in ENTRY_POINTS:
         require(launches[name] > 0, f"{name} was not launched on the main "

@@ -16,25 +16,63 @@
 // Sk and rows past Sq are masked in the kernel, so nothing is padded. With
 // causal, key tiles wholly above the diagonal are skipped: in the
 // reference such a tile adds exp(-1e30 - m) = 0, since every row's first
-// key is unmasked. Query tiles run in reverse order, so the causal tiles
-// with the most key tiles start first.
+// key is unmasked.
 //
 // Two kernels, one per dtype:
-//   * bfloat16: 4 warps, 64 query rows (16 a warp), key tiles of 64 (32 at
-//     D > 128) staged in shared memory by cp.async (the next K tile loads
-//     during softmax and P.V, the next V tile during q.k^T). Scores and
-//     P.V run on the tensor cores with mma.sync m16n8k16 (bf16 inputs,
-//     float32 sums). P enters P.V as the sum of two bf16 parts (hi =
-//     bf16(p), lo = bf16(p - hi)), two MMAs, so it keeps 16 significant
-//     bits: one bf16 P (8 bits, as flash attention on GPUs takes it) puts
-//     outputs up to two bf16 ulps off the reference's float32 p. The row
-//     max, the denominator and the accumulator are float32. D is padded
-//     in shared memory (zeros) to 64, 128 or 256.
+//   * bfloat16 (attn_bf16_kernel): a warp-specialised block of 384
+//     threads owns a 128-row query tile. Warpgroup 0 is the producer: it
+//     gives up registers (setmaxnreg 40) and one thread issues every TMA
+//     load. Warpgroups 1 and 2 are the consumers (setmaxnreg 232), 64
+//     query rows each. The Q tile is loaded once; K and V tiles pass
+//     through a ring of NS stages in shared memory, each with a full and
+//     an empty mbarrier for K and for V, so the next tiles land while the
+//     consumers use the current ones, and a consumer releases K as soon
+//     as its scores are in registers. The tensor maps are 3-D, [BH, S,
+//     D], with 128-byte swizzle: a box is 64 columns (one 128-byte row)
+//     by the tile's rows by one head, so a tile of DP columns is DP / 64
+//     boxes, and TMA's zero fill supplies the columns past D and the rows
+//     past Sq or Sk of this head (a 2-D map over [BH S, D] would read the
+//     next head's rows at a ragged S). Both products run on wgmma with
+//     float32 accumulators in registers: S = Q K^T with Q and K read from
+//     shared memory by descriptor (both K-major), and O += P V with P in
+//     registers and V from shared memory through the descriptor's
+//     transpose bit. P enters P.V as two bf16 parts, two wgmmas on the
+//     same V tile: hi = p with its low 16 bits cleared, lo = bf16(p - hi)
+//     (p - hi is exact in float32), so the pair keeps 16 of p's 24
+//     significant bits (relative error under 2**-16); one bf16 P (8 bits)
+//     puts outputs up to two bf16 ulps off the reference's float32 p. The
+//     softmax runs in the wgmma accumulator layout: raw float32 scores,
+//     masked only on tiles that cross Sk or the causal diagonal, the
+//     running max and the denominator in float32, exp2 of the score
+//     scaled to log2 units by one fma. Key-tile widths and ring depths
+//     (shared memory per block): D <= 64: 128 keys, 4 stages (145 KiB);
+//     D <= 128: 128 keys, 2 stages (161 KiB); D <= 256: 64 keys, 2 stages
+//     (193 KiB); one block per SM. Inside a consumer, tile kt's Q K^T
+//     and tile kt - 1's P V go out together as two wgmma groups: the
+//     softmax of tile kt runs once Q K^T is done, while P V is still on
+//     the tensor cores, and the accumulator is rescaled after P V has
+//     read it (FA3's intra-warpgroup overlap). At D <= 128 the two
+//     consumers also take turns at issuing their groups, through named
+//     barriers (FA3's ping-pong), so one's softmax runs under the other's
+//     products; at D = 256 the turn bookkeeping spills registers and
+//     measured slower, so there the consumers issue as they are ready.
+//     Grid: one block per (head, query tile), in groups of 8 heads;
+//     within a group the query tiles run in reverse, so the causal tiles
+//     with the most key tiles start first, and the 8 heads' K and V
+//     (16 MiB at S = 4096, D = 128) stay in L2 while all their query
+//     tiles walk them. No persistent grid: the C interface gives no
+//     scratch for a tile counter, so a persistent grid would schedule
+//     statically, and causal tiles of unequal length then leave SMs idle
+//     at the end unless query tiles i and n_qt - 1 - i are paired (their
+//     key-tile counts sum to a constant); the block scheduler already
+//     hands out tiles longest first. Left for later: that paired
+//     persistent grid, O stored through shared memory by TMA, and P.V
+//     with a single fp16 P (it needs V scaled into fp16's range).
 //   * float32: 256 threads, 64 query rows, key tiles of 32, on the CUDA
 //     cores with fmaf, every score and every output summed by one thread
 //     in a fixed order (no TF32: the float32 result stays within 1e-5 of
 //     the plain version, relative to its largest output).
-// Each output element sums its terms in one thread (mma's own fixed
+// Each output element sums its terms in one thread (wgmma's own fixed
 // order included) and each row's denominator in one fixed shuffle tree:
 // no atomics and no split over keys, so two runs give the same bytes.
 // Offsets are 64-bit: BH * S * D passes 2**31 at prefill lengths.
@@ -42,17 +80,16 @@
 // Bound on this card: operations. For causal bf16 at Qwen2-72B's shape
 // (BH = 64, S = 4096, D = 128) the work is 2 BH S^2 D = 0.275 TFLOP, 0.278
 // ms at the 989 TFLOP/s bf16 tensor-core rate, against 268 MB of q, k, v
-// and out, 0.080 ms at 3.35 TB/s. What this first design does about it:
-// it keeps the products on the tensor cores, never writes scores, reads
-// K and V once per 64 query rows (from L2 after the first head's tile),
-// and skips the masked half of the causal work. The two-part P costs half
-// again the MMAs of the function (P.V runs twice). It leaves for later:
-// wgmma and TMA (mma.sync reaches a fraction of the wgmma rate), warp
-// specialisation, a deeper K/V pipeline, Q held in registers (it is read
-// from shared memory at every key tile), and a persistent grid.
+// and out, 0.080 ms at 3.35 TB/s. The two-part P makes P.V run twice, so
+// this design's own tensor-core floor is 6 D operations a kept pair,
+// 0.417 ms. The tensor maps are encoded on the host at every call, with
+// cuTensorMapEncodeTiled found through cudaGetDriverEntryPoint, so the
+// library links against the CUDA runtime alone.
+#include <cuda.h>                       // CUtensorMap and its enums only
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cmath>
 #include <cstdint>
 
@@ -61,257 +98,555 @@ namespace {
 constexpr float kNeg = -1e30f;          // the reference's masked score
 
 // ---------------------------------------------------------------------------
-// bfloat16: mma.sync tensor cores
+// bfloat16: TMA, mbarriers, wgmma; one producer and two consumer warpgroups
 // ---------------------------------------------------------------------------
-constexpr int kWarps = 4;
-constexpr int kBq = 16 * kWarps;        // query rows a block
-constexpr int kMmaThreads = 32 * kWarps;
+constexpr int kBq = 128;                // query rows a block, 64 a consumer
+constexpr int kThreads = 384;           // warpgroup 0 loads, 1 and 2 compute
+constexpr int kConsumerThreads = 256;
+constexpr int kBox = 64;                // bf16 columns a box: 128 bytes
+constexpr int kRowBytes = 2 * kBox;     // a swizzled row of a column block
+constexpr int kHeadGroup = 8;           // heads whose query tiles run together
+// the consumers take turns at issuing wgmmas (FA3's ping-pong) at D <= 128;
+// at D = 256 the turn bookkeeping costs spills and the turns cost time
+template <int DP>
+constexpr bool kPingPong = DP <= 128;
+constexpr int kProducerRegs = 40;       // 128 x 40 + 256 x 232 <= 65,536
+constexpr int kConsumerRegs = 232;
+
+// Shared memory of one block: the Q tile, NS K tiles, NS V tiles, then the
+// mbarriers (Q; full and empty for each K and V stage). A tile of R rows
+// is DP / 64 column blocks of R x 128 bytes, each as TMA writes it with
+// the 128-byte swizzle, which repeats every 1024 bytes: tiles start on a
+// 1024-byte boundary (the slack in kSmem rounds the base up).
+template <int DP, int BK, int NS>
+struct Plan {
+  static constexpr int kQBytes = kBq * DP * 2;
+  static constexpr int kKVBytes = BK * DP * 2;
+  static constexpr int kBarOffset = kQBytes + 2 * NS * kKVBytes;
+  static constexpr int kSmem = 1024 + kBarOffset + 8 * (1 + 4 * NS);
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes global -> shared; ``bytes`` = 0 writes 16 zero bytes
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               ::"r"(smem_u32(dst)), "l"(src), "r"(bytes));
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               ::"r"(bar), "r"(count));
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+// arrive once and expect ``bytes`` of TMA transfers in this phase
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes) : "memory");
 }
 
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+
+// until the phase of parity ``parity`` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  while (!mbar_try_wait(bar, parity)) {
+  }
+}
+
+// one box of a 3-D tensor map (column, row, head) into shared memory,
+// reported to ``bar`` as transferred bytes
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int col, int row,
+                                         int head) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col),
+        "r"(row), "r"(head)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// until at most N of this warpgroup's wgmma groups are in flight
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+// named barriers 1 and 2: the consumers take turns at issuing wgmmas
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// registers a wgmma wrote: no read of them moves above the wait
+template <int N>
+__device__ __forceinline__ void hold(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// wgmma descriptor of a 128-byte-swizzled tile in shared memory: start
+// address, leading and stride byte offsets (16-byte units), layout 1
+// (128-byte swizzle) in bits 62-63. K-major operands (Q, K): rows of 128
+// bytes, 8-row groups 1024 bytes apart (the stride offset), the leading
+// offset unused. MN-major (V): 8-key groups 1024 bytes apart (stride),
+// 64-column blocks ``lbo`` bytes apart (leading).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(1024 >> 4) << 32 | static_cast<uint64_t>(1)
+                                                      << 62;
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B in shared memory by
+// descriptor, both K-major; scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
+                                             uint64_t db, int scale_d) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const void* p) {
+// d[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B in shared memory by
+// descriptor, both K-major; scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
+                                              uint64_t db, int scale_d) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      " %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      " %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// c[16 x 8] += a[16 x 16] b[16 x 8], bf16 inputs, float32 sums
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+// d[64 x 64] += A[64 x 16] B[16 x 64], A in registers (the m16n8k16
+// A fragment of each warp's 16 rows), B in shared memory MN-major
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                             uint64_t db) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// (x0, x1) as a pair of bf16 pairs, hi + lo, whose sum carries 16 of
-// float32's 24 significant bits: hi = bf16(x), lo = bf16(x - hi)
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 r = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&r);
+// d[64 x 128] += A[64 x 16] B[16 x 128], A in registers (the m16n8k16
+// A fragment of each warp's 16 rows), B in shared memory MN-major
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      " %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      " %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// rows [row0, row0 + R) of a [*, D] bf16 matrix into shared [R][DP + 8];
-// rows at or past ``limit`` and columns at or past D are zeros
-template <int R, int DP>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* s,
-                                          const __nv_bfloat16* g,
-                                          long long row0, long long limit,
-                                          int D) {
-  constexpr int kChunks = DP / 8;       // 16-byte chunks a row
-  for (int e = threadIdx.x; e < R * kChunks; e += kMmaThreads) {
-    const int r = e / kChunks;
-    const int col = (e - r * kChunks) * 8;
-    const bool ok = row0 + r < limit && col < D;
-    cp_async16(s + r * (DP + 8) + col, ok ? g + (row0 + r) * D + col : g,
-               ok ? 16 : 0);
-  }
+// S[64 x BK] = Q[64 x 16] K^T[16 x BK] (scale_d 1: +=)
+template <int BK>
+__device__ __forceinline__ void qk_mma(float* s, uint64_t dq, uint64_t dk,
+                                       int scale_d) {
+  if constexpr (BK == 128)
+    wgmma_ss_n128(s, dq, dk, scale_d);
+  else
+    wgmma_ss_n64(s, dq, dk, scale_d);
 }
 
+// O[64 x DP] += P[64 x 16] V[16 x DP] for the 16 keys whose V rows start at
+// ``v`` (column blocks BK x 128 bytes apart); D = 256 as two halves
 template <int DP, int BK>
-__global__ void __launch_bounds__(kMmaThreads)
-attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ out, long long Sq, long long Sk,
-                 int D, int causal, float scale_log2) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int LD = DP + 8;            // 16 bytes of padding a row: the 8
-                                        // rows of an ldmatrix hit 8 banks
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = Qs + kBq * LD;
-  __nv_bfloat16* Vs = Ks + BK * LD;
+__device__ __forceinline__ void pv_mma(float* o, const uint32_t* p,
+                                       uint32_t v) {
+  constexpr uint32_t kLbo = BK * kRowBytes;
+  if constexpr (DP == 64) {
+    wgmma_rs_n64(o, p, sw128_desc(v, kLbo));
+  } else if constexpr (DP == 128) {
+    wgmma_rs_n128(o, p, sw128_desc(v, kLbo));
+  } else {
+    wgmma_rs_n128(o, p, sw128_desc(v, kLbo));
+    wgmma_rs_n128(o + 64, p, sw128_desc(v + 2 * kLbo, kLbo));
+  }
+}
 
-  const long long bh = blockIdx.x;
-  const long long q0 = (long long)(gridDim.y - 1 - blockIdx.y) * kBq;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;               // fragment row
-  const int c = lane % 4;               // fragment column pair
-  const __nv_bfloat16* qh = q + bh * Sq * D;
-  const __nv_bfloat16* kh = k + bh * Sk * D;
-  const __nv_bfloat16* vh = v + bh * Sk * D;
-  const long long kend = causal ? min(Sk, q0 + kBq) : Sk;
-  const int n_kt = (int)((kend + BK - 1) / BK);
-  const long long qw = q0 + warp * 16;  // the warp's first row
-  const long long row_a = qw + g;       // this thread's two rows
-  const long long row_b = row_a + 8;
+// issue S = Q K^T for one key tile as one wgmma group: DP / 16 steps of 16
+// columns (32 bytes within a swizzled row; a new column block every 4)
+template <int DP, int BK>
+__device__ __forceinline__ void qk_issue(float* s, uint32_t q, uint32_t k) {
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < DP / 16; ++ks)
+    qk_mma<BK>(s,
+               sw128_desc(q + (ks / 4) * kBq * kRowBytes + (ks % 4) * 32, 16),
+               sw128_desc(k + (ks / 4) * BK * kRowBytes + (ks % 4) * 32, 16),
+               ks > 0);
+  wgmma_commit();
+}
 
-  load_tile<kBq, DP>(Qs, qh, q0, Sq, D);
-  load_tile<BK, DP>(Ks, kh, 0, Sk, D);
-  cp_async_commit();
-  load_tile<BK, DP>(Vs, vh, 0, Sk, D);
-  cp_async_commit();
+// issue O += P V for one key tile as one wgmma group, P as hi + lo: two
+// wgmmas on each 16-key step (2048 bytes of V)
+template <int DP, int BK>
+__device__ __forceinline__ void pv_issue(float* o, uint32_t (*p_hi)[4],
+                                         uint32_t (*p_lo)[4], uint32_t v) {
+  wgmma_fence();
+#pragma unroll
+  for (int t = 0; t < BK / 16; ++t) {
+    pv_mma<DP, BK>(o, p_hi[t], v + t * 16 * kRowBytes);
+    pv_mma<DP, BK>(o, p_lo[t], v + t * 16 * kRowBytes);
+  }
+  wgmma_commit();
+}
 
-  float acc[DP / 8][4];
+// One key tile of the online softmax, in place on the raw scores ``s``:
+// mask keys past Sk and, causal, past the row (only on a tile that crosses
+// either); the quad of threads holding a row shares its max; p = exp2 of
+// the score minus the max in log2 units; the running max ``m`` and this
+// thread's share ``l`` of the denominator move on, and ``corr`` is what
+// the accumulator must be multiplied by.
+template <int BK>
+__device__ __forceinline__ void softmax_tile(float* s, float (&m)[2],
+                                             float (&l)[2], float (&corr)[2],
+                                             int k0, int Sk, int causal,
+                                             int row_w, int g, int c,
+                                             float scale_log2) {
+  if (k0 + BK > Sk || (causal && k0 + BK - 1 > row_w)) {
 #pragma unroll
-  for (int dt = 0; dt < DP / 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.0f;
-  float m[2] = {kNeg, kNeg};            // running max, log2 units
-  float l[2] = {0.0f, 0.0f};            // this thread's share of the
-                                        // running denominator
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const long long k0 = (long long)kt * BK;
-    cp_async_wait<1>();                 // Q and this K tile are in
-    __syncthreads();
-
-    float s[BK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
-#pragma unroll
-    for (int ks = 0; ks < DP / 16; ++ks) {
-      uint32_t a[4];
-      ldsm_x4(a, Qs + (warp * 16 + (lane & 15)) * LD + ks * 16 +
-                     (lane >> 4) * 8);
-#pragma unroll
-      for (int np = 0; np < BK / 16; ++np) {
-        uint32_t b[4];
-        ldsm_x4(b, Ks + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * LD +
-                       ks * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * np], a, b[0], b[1]);
-        mma_bf16(s[2 * np + 1], a, b[2], b[3]);
-      }
-    }
-
-    cp_async_wait<0>();                 // this V tile is in, and every
-    __syncthreads();                    // warp is done with Ks
-    if (kt + 1 < n_kt) {
-      load_tile<BK, DP>(Ks, kh, k0 + BK, Sk, D);
-      cp_async_commit();
-    }
-
-    // scale to log2 units; mask keys past Sk and, causal, past the row
-    const bool edge = k0 + BK > Sk || (causal && k0 + BK - 1 > qw);
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float t = s[nt][e] * scale_log2;
-        if (edge) {
-          const long long key = k0 + nt * 8 + 2 * c + (e & 1);
-          const long long row = e < 2 ? row_a : row_b;
-          if (key >= Sk || (causal && key > row)) t = kNeg;
-        }
-        s[nt][e] = t;
-      }
-
-    // online softmax: the quad of threads holding a row shares its max
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
-    }
-    float corr[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      corr[h] = exp2f(m[h] - mx[h]);
-      m[h] = mx[h];
-    }
-    float rs[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] = exp2f(s[nt][e] - mx[e >> 1]);
-        rs[e >> 1] += s[nt][e];
-      }
-    l[0] = l[0] * corr[0] + rs[0];
-    l[1] = l[1] * corr[1] + rs[1];
-#pragma unroll
-    for (int dt = 0; dt < DP / 8; ++dt) {
-      acc[dt][0] *= corr[0];
-      acc[dt][1] *= corr[0];
-      acc[dt][2] *= corr[1];
-      acc[dt][3] *= corr[1];
-    }
-
-    // acc += P V: the score fragments of two key groups of 8 are the A
-    // fragment of one 16-key step. P goes in as hi + lo, two bf16 MMAs,
-    // so it keeps 16 significant bits where one bf16 would keep 8: the
-    // reference multiplies a float32 p by v cast to float32
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-      uint32_t hi[4], lo[4];
-      split_bf16(s[2 * j][0], s[2 * j][1], hi[0], lo[0]);
-      split_bf16(s[2 * j][2], s[2 * j][3], hi[1], lo[1]);
-      split_bf16(s[2 * j + 1][0], s[2 * j + 1][1], hi[2], lo[2]);
-      split_bf16(s[2 * j + 1][2], s[2 * j + 1][3], hi[3], lo[3]);
-#pragma unroll
-      for (int dp = 0; dp < DP / 16; ++dp) {
-        uint32_t b[4];
-        ldsm_x4_trans(b, Vs + (j * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) *
-                                  LD + dp * 16 + (lane >> 4) * 8);
-        mma_bf16(acc[2 * dp], hi, b[0], b[1]);
-        mma_bf16(acc[2 * dp + 1], hi, b[2], b[3]);
-        mma_bf16(acc[2 * dp], lo, b[0], b[1]);
-        mma_bf16(acc[2 * dp + 1], lo, b[2], b[3]);
-      }
-    }
-
-    __syncthreads();                    // every warp is done with Vs
-    if (kt + 1 < n_kt) {
-      load_tile<BK, DP>(Vs, vh, k0 + BK, Sk, D);
-      cp_async_commit();
+    for (int i = 0; i < BK / 2; ++i) {
+      const int key = k0 + 8 * (i / 4) + 2 * c + (i & 1);
+      const int row = row_w + g + (i & 2 ? 8 : 0);
+      if (key >= Sk || (causal && key > row)) s[i] = kNeg;
     }
   }
-
-  // the row's denominator over its quad, in one fixed tree; divide, store
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i)
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+  float mb[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-    l[h] = fmaxf(l[h], 1e-30f);
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    corr[h] = ex2((m[h] - mx[h]) * scale_log2);
+    m[h] = mx[h];
+    mb[h] = mx[h] * scale_log2;
   }
-  __nv_bfloat16* oh = out + bh * Sq * D;
+  float rs[2] = {0.0f, 0.0f};
 #pragma unroll
-  for (int dt = 0; dt < DP / 8; ++dt) {
-    const int col = dt * 8 + 2 * c;
-    if (col >= D) continue;
-    if (row_a < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(oh + row_a * D + col) =
-          __floats2bfloat162_rn(acc[dt][0] / l[0], acc[dt][1] / l[0]);
-    if (row_b < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(oh + row_b * D + col) =
-          __floats2bfloat162_rn(acc[dt][2] / l[1], acc[dt][3] / l[1]);
+  for (int i = 0; i < BK / 2; ++i) {
+    s[i] = ex2(fmaf(s[i], scale_log2, -mb[(i >> 1) & 1]));
+    rs[(i >> 1) & 1] += s[i];
+  }
+  l[0] = l[0] * corr[0] + rs[0];
+  l[1] = l[1] * corr[1] + rs[1];
+}
+
+// Scores to P.V's A operand. A 64 x N wgmma accumulator holds, in thread
+// (warp w, lane = 4 g + c), rows 16 w + g and 16 w + g + 8 at columns
+// 8 j + 2 c and 8 j + 2 c + 1: d[4 j + 0, 1] on the first row, d[4 j + 2,
+// 3] on the second. The register A fragment of a 16-key step t wants, per
+// thread, (row g, keys 16 t + 2 c, +1), (row g + 8, the same keys), (row g,
+// keys 16 t + 8 + 2 c, +1), (row g + 8, the same): accumulator entries
+// 8 t .. 8 t + 7 in order, two to a register. So no data moves between
+// threads: entries 8 t + 2 e, 8 t + 2 e + 1 make register e, as the hi part
+// (the top 16 bits of each float, lower column in the low half) and the lo
+// part (bf16 of the exact float32 remainder).
+template <int BK>
+__device__ __forceinline__ void p_fragments(const float* s,
+                                            uint32_t (*hi)[4],
+                                            uint32_t (*lo)[4]) {
+#pragma unroll
+  for (int t = 0; t < BK / 16; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x0 = s[8 * t + 2 * e];
+      const float x1 = s[8 * t + 2 * e + 1];
+      const uint32_t u0 = __float_as_uint(x0);
+      const uint32_t u1 = __float_as_uint(x1);
+      hi[t][e] = __byte_perm(u0, u1, 0x7632);
+      const __nv_bfloat162 r = __floats2bfloat162_rn(
+          x0 - __uint_as_float(u0 & 0xffff0000u),
+          x1 - __uint_as_float(u1 & 0xffff0000u));
+      lo[t][e] = *reinterpret_cast<const uint32_t*>(&r);
+    }
+}
+
+template <int DP, int BK, int NS>
+__global__ void __launch_bounds__(kThreads, 1)
+attn_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v,
+                 __nv_bfloat16* __restrict__ out, int BH, int Sq, int Sk,
+                 int D, int causal, float scale_log2) {
+  using P = Plan<DP, BK, NS>;
+  constexpr int kColBlocks = DP / kBox;
+  extern __shared__ unsigned char smem[];
+  const uint32_t base = (smem_u32(smem) + 1023u) & ~1023u;
+  const uint32_t q_s = base;
+  const uint32_t k_s = q_s + P::kQBytes;           // stage st: + st kKVBytes
+  const uint32_t v_s = k_s + NS * P::kKVBytes;
+  const uint32_t full_q = base + P::kBarOffset;
+  const uint32_t full_k = full_q + 8;               // stage st: + 8 st
+  const uint32_t empty_k = full_k + 8 * NS;
+  const uint32_t full_v = empty_k + 8 * NS;
+  const uint32_t empty_v = full_v + 8 * NS;
+
+  // block -> (head, query tile): groups of kHeadGroup heads, query tiles
+  // in reverse within a group, heads fastest
+  const int n_qt = (Sq + kBq - 1) / kBq;
+  const int group = kHeadGroup * n_qt;
+  const int r = (int)(blockIdx.x % (unsigned)group);
+  const int bh = (int)(blockIdx.x / (unsigned)group) * kHeadGroup +
+                 r % kHeadGroup;
+  if (bh >= BH) return;
+  const int q0 = (n_qt - 1 - r / kHeadGroup) * kBq;
+  const int kend = causal ? min(Sk, q0 + kBq) : Sk;
+  const int n_kt = (kend + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int st = 0; st < NS; ++st) {
+      mbar_init(full_k + 8 * st, 1);
+      mbar_init(empty_k + 8 * st, kConsumerThreads);
+      mbar_init(full_v + 8 * st, 1);
+      mbar_init(empty_v + 8 * st, kConsumerThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(full_q, P::kQBytes);
+#pragma unroll
+      for (int b = 0; b < kColBlocks; ++b)
+        tma_load(q_s + b * kBq * kRowBytes, &tm_q, full_q, b * kBox, q0, bh);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int st = kt % NS;
+        const uint32_t ph = (kt / NS) & 1;
+        mbar_wait(empty_k + 8 * st, ph ^ 1);
+        mbar_expect_tx(full_k + 8 * st, P::kKVBytes);
+#pragma unroll
+        for (int b = 0; b < kColBlocks; ++b)
+          tma_load(k_s + st * P::kKVBytes + b * BK * kRowBytes, &tm_k,
+                   full_k + 8 * st, b * kBox, kt * BK, bh);
+        mbar_wait(empty_v + 8 * st, ph ^ 1);
+        mbar_expect_tx(full_v + 8 * st, P::kKVBytes);
+#pragma unroll
+        for (int b = 0; b < kColBlocks; ++b)
+          tma_load(v_s + st * P::kKVBytes + b * BK * kRowBytes, &tm_v,
+                   full_v + 8 * st, b * kBox, kt * BK, bh);
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns query rows q0 + 64 wg .. q0 + 64 wg + 63
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int wg = threadIdx.x / 128 - 1;
+    const int warp = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x % 32;
+    const int g = lane / 4;               // accumulator row
+    const int c = lane % 4;               // accumulator column pair
+    const int row_w = q0 + 64 * wg + 16 * warp;   // the warp's first row
+    const uint32_t q_w = q_s + 64 * wg * kRowBytes;
+    // key tiles not wholly above this warpgroup's diagonal (at least 1)
+    const int n_own = causal ? min(n_kt, (q0 + 64 * wg + 63) / BK + 1)
+                             : n_kt;
+
+    float o[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) o[i] = 0.0f;
+    float m[2] = {kNeg, kNeg};            // running max of the raw scores
+    float l[2] = {0.0f, 0.0f};            // this thread's share of the
+                                          // running denominator
+    float corr[2];
+    float s[BK / 2];
+    uint32_t p_hi[BK / 16][4], p_lo[BK / 16][4];
+
+    // Tile kt's Q K^T is issued with tile kt - 1's P V behind it: the
+    // softmax of tile kt runs while P V is on the tensor cores, and the
+    // accumulator is rescaled once P V has read it. The two warpgroups
+    // take turns at issuing (named barrier 1 + wg is this one's turn;
+    // warpgroup 0 opens), so one's softmax runs under the other's
+    // products. A turn comes n_turns times to each: once for tile 0's
+    // Q K^T, once a later tile, once for the last P V, and warpgroup 0,
+    // which may own one tile fewer, passes its spare turn empty.
+    const int n_turns = (causal ? min(n_kt, (q0 + kBq - 1) / BK + 1)
+                                : n_kt) + 1;
+    int turn = 0;
+    const auto take_turn = [&] {
+      if constexpr (kPingPong<DP>) bar_sync(1 + wg, kConsumerThreads);
+    };
+    const auto pass_turn = [&] {
+      if constexpr (kPingPong<DP>)
+        if (wg == 0 || turn < n_turns - 1)
+          bar_arrive(2 - wg, kConsumerThreads);
+      ++turn;
+    };
+    if (kPingPong<DP> && wg == 0) bar_arrive(1, kConsumerThreads);
+    mbar_wait(full_q, 0);
+    mbar_wait(full_k, 0);
+    take_turn();
+    qk_issue<DP, BK>(s, q_w, k_s);
+    pass_turn();
+    wgmma_wait<0>();
+    hold<BK / 2>(s);
+    mbar_arrive(empty_k);
+    softmax_tile<BK>(s, m, l, corr, 0, Sk, causal, row_w, g, c, scale_log2);
+    p_fragments<BK>(s, p_hi, p_lo);
+    for (int kt = 1; kt < n_own; ++kt) {
+      const int st = kt % NS, st_prev = (kt - 1) % NS;
+      mbar_wait(full_k + 8 * st, (kt / NS) & 1);
+      mbar_wait(full_v + 8 * st_prev, ((kt - 1) / NS) & 1);
+      take_turn();
+      qk_issue<DP, BK>(s, q_w, k_s + st * P::kKVBytes);
+      pv_issue<DP, BK>(o, p_hi, p_lo, v_s + st_prev * P::kKVBytes);
+      pass_turn();
+      wgmma_wait<1>();                    // Q K^T is done, P V may run on
+      hold<BK / 2>(s);
+      mbar_arrive(empty_k + 8 * st);
+      softmax_tile<BK>(s, m, l, corr, kt * BK, Sk, causal, row_w, g, c,
+                       scale_log2);
+      wgmma_wait<0>();
+      hold<DP / 2>(o);
+      hold<BK / 2>(s);
+      mbar_arrive(empty_v + 8 * st_prev);
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+      p_fragments<BK>(s, p_hi, p_lo);
+    }
+    const int st_last = (n_own - 1) % NS;
+    mbar_wait(full_v + 8 * st_last, ((n_own - 1) / NS) & 1);
+    take_turn();
+    pv_issue<DP, BK>(o, p_hi, p_lo, v_s + st_last * P::kKVBytes);
+    pass_turn();
+    wgmma_wait<0>();
+    hold<DP / 2>(o);
+    mbar_arrive(empty_v + 8 * st_last);
+    // tiles loaded for the other warpgroup only: released once they have
+    // landed, so that the arrival falls in their phase of the ring (an
+    // early one could complete the stage's previous phase while the other
+    // warpgroup still reads it)
+    for (int kt = n_own; kt < n_kt; ++kt) {
+      const int st = kt % NS;
+      mbar_wait(full_k + 8 * st, (kt / NS) & 1);
+      mbar_arrive(empty_k + 8 * st);
+      mbar_wait(full_v + 8 * st, (kt / NS) & 1);
+      mbar_arrive(empty_v + 8 * st);
+    }
+    while (turn < n_turns) {
+      take_turn();
+      pass_turn();
+    }
+
+    // the row's denominator over its quad, in one fixed tree; divide, store
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+      l[h] = fmaxf(l[h], 1e-30f);
+    }
+    const int row_a = row_w + g;          // this thread's two rows
+    const int row_b = row_a + 8;
+    __nv_bfloat16* oh = out + (long long)bh * Sq * D;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + 2 * c;
+      if (col >= D) continue;
+      if (row_a < Sq)
+        *reinterpret_cast<__nv_bfloat162*>(oh + (long long)row_a * D + col) =
+            __floats2bfloat162_rn(o[4 * j] / l[0], o[4 * j + 1] / l[0]);
+      if (row_b < Sq)
+        *reinterpret_cast<__nv_bfloat162*>(oh + (long long)row_b * D + col) =
+            __floats2bfloat162_rn(o[4 * j + 2] / l[1], o[4 * j + 3] / l[1]);
+    }
   }
 }
 
@@ -474,22 +809,76 @@ attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int DP, int BK>
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+cudaError_t encoder(EncodeTiled* fn) {
+  static EncodeTiled found = nullptr;
+  if (found == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
+#endif
+    if (err != cudaSuccess) return err;
+    if (status != cudaDriverEntryPointSuccess || p == nullptr)
+      return cudaErrorNotSupported;
+    found = reinterpret_cast<EncodeTiled>(p);
+  }
+  *fn = found;
+  return cudaSuccess;
+}
+
+// [BH, S, D] bf16 as a 3-D map, D innermost; boxes of 64 columns x ``rows``
+// rows x 1 head with the 128-byte swizzle; what lies past D or S reads as 0
+cudaError_t tensor_map(CUtensorMap* map, EncodeTiled encode, const void* x,
+                       long long BH, long long S, int D, int rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)kBox, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int DP, int BK, int NS>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* out, long long BH, long long Sq, long long Sk,
                         int D, int causal, cudaStream_t stream) {
-  constexpr int smem = (kBq + 2 * BK) * (DP + 8) * (int)sizeof(__nv_bfloat16);
-  auto kern = attn_bf16_kernel<DP, BK>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  using P = Plan<DP, BK, NS>;
+  const long long n_qt = (Sq + kBq - 1) / kBq;
+  const long long blocks = (BH + kHeadGroup - 1) / kHeadGroup * kHeadGroup *
+                           n_qt;
+  if (blocks > INT_MAX || Sk > INT_MAX)   // a TMA coordinate is 32-bit
+    return cudaErrorInvalidValue;
+  EncodeTiled encode;
+  cudaError_t err = encoder(&encode);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)BH, (unsigned)((Sq + kBq - 1) / kBq));
+  CUtensorMap tq, tk, tv;
+  if ((err = tensor_map(&tq, encode, q, BH, Sq, D, kBq)) != cudaSuccess ||
+      (err = tensor_map(&tk, encode, k, BH, Sk, D, BK)) != cudaSuccess ||
+      (err = tensor_map(&tv, encode, v, BH, Sk, D, BK)) != cudaSuccess)
+    return err;
+  auto kern = attn_bf16_kernel<DP, BK, NS>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             P::kSmem);
+  if (err != cudaSuccess) return err;
   const float scale_log2 = (float)(1.4426950408889634 / std::sqrt((double)D));
-  kern<<<grid, kMmaThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      Sq, Sk, D, causal, scale_log2);
+  kern<<<(unsigned)blocks, kThreads, P::kSmem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), (int)BH, (int)Sq,
+      (int)Sk, D, causal, scale_log2);
   return cudaGetLastError();
 }
 
@@ -529,11 +918,14 @@ int flash_attention(const void* q, const void* k, const void* v, void* out,
   cudaError_t err;
   if (bf16) {
     if (D <= 64)
-      err = launch_bf16<64, 64>(q, k, v, out, BH, Sq, Sk, D, causal, stream);
+      err = launch_bf16<64, 128, 4>(q, k, v, out, BH, Sq, Sk, D, causal,
+                                    stream);
     else if (D <= 128)
-      err = launch_bf16<128, 64>(q, k, v, out, BH, Sq, Sk, D, causal, stream);
+      err = launch_bf16<128, 128, 2>(q, k, v, out, BH, Sq, Sk, D, causal,
+                                     stream);
     else
-      err = launch_bf16<256, 32>(q, k, v, out, BH, Sq, Sk, D, causal, stream);
+      err = launch_bf16<256, 64, 2>(q, k, v, out, BH, Sq, Sk, D, causal,
+                                    stream);
   } else {
     if (D <= 64)
       err = launch_f32<64>(q, k, v, out, BH, Sq, Sk, D, causal, stream);

@@ -10,18 +10,22 @@ the top left (key position <= query position), as the Pallas body does.
 The TPU kernel walks a sequential (BH, Sq/bq, Sk/bk) grid with the
 running max, denominator and float32 accumulator in VMEM scratch, over
 inputs padded to its blocks. On Hopper it is one hand-written kernel,
-``csrc/flash_attention.cu``: a block owns a 64-row query tile and loops
-over the key tiles (skipping those wholly above the causal diagonal),
-masks its own ragged edge, and keeps the scores out of device memory;
-bfloat16 runs on the tensor cores (``mma.sync``, float32 sums), float32
-on the CUDA cores. No atomics and no split over keys: two runs give the
-same bytes.
+``csrc/flash_attention.cu``: a block owns a query tile and loops over the
+key tiles (skipping those wholly above the causal diagonal), masks its
+own ragged edge, and keeps the scores out of device memory. bfloat16 is
+warp-specialised: one producer warp loads Q once and K/V tiles through a
+ring of shared-memory stages by TMA (3-D tensor maps, so a ragged Sk
+reads zeros, never the next head), and two consumer warpgroups of 64
+query rows run both products on ``wgmma`` with float32 accumulators;
+float32 runs on the CUDA cores. No atomics and no split over keys: two
+runs give the same bytes.
 
 Arithmetic, bfloat16: the reference multiplies a float32 p by v cast to
-float32; the bf16 MMA takes bf16 operands only, so the kernel feeds p
-to P.V as two bf16 parts, hi = bf16(p) and lo = bf16(p - hi), which
-carry 16 of p's 24 significant bits (relative error at most 2**-17).
-Scores, sums, the running max and denominator stay float32.
+float32; the bf16 tensor cores take bf16 operands only, so the kernel
+feeds p to P.V as two bf16 parts, hi (p with its low 16 bits cleared)
+and lo = bf16(p - hi), which carry 16 of p's 24 significant bits
+(relative error under 2**-16). Scores, sums, the running max and
+denominator stay float32.
 
 Contract, both on the CPU and on the card: rank 3, one dtype (float32 or
 bfloat16) for q, k and v, matching BH and D, Sq and Sk >= 1, and D a

@@ -16,7 +16,8 @@ for byte; for the pairwise correlation N = 1 to 5,000 with ragged tiles
 and K from 1 to 40, the same bytes in two runs, and an N past 46,341
 where N * N passes 2**31; for the attention forward S = 1, S = 200,
 Sq != Sk both ways, D = 16 to 256, float32 and bfloat16, causal and not,
-the same bytes in two runs, one launch a call, and a BH * S * D past
+the same bytes in two runs, one launch a call, heads kept apart at a
+ragged Sk (a neighbour head's K and V all inf), and a BH * S * D past
 2**31. Tests marked ``cuda`` need a card; run them there with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -551,6 +552,29 @@ def test_flash_attention_kernel_matches_plain(dev, bh, sq, sk, d, dtype,
     assert _attn_within(got, want)
     assert torch.equal(got.view(torch.uint8), again.view(torch.uint8))
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk", [(200, 200), (64, 130)])
+@pytest.mark.parametrize("d", [128, 208])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_attention_heads_stay_apart_at_a_ragged_sk(dev, sq, sk, d,
+                                                          causal):
+    """BH = 3 with head 1's K and V all inf: heads 0 and 2 equal, byte for
+    byte, the kernel run on each head alone. A key tile past a ragged Sk
+    must read zeros, not the next head's rows (inf there would make NaN)."""
+    rng = np.random.RandomState(sq + sk + d)
+    q, k, v = _attn_inputs(rng, 3, sq, sk, d, torch.bfloat16, dev)
+    k[1] = float("inf")
+    v[1] = float("inf")
+    fn = flash_attention.flash_attention
+    got = fn(q, k, v, causal)
+    for h in (0, 2):
+        alone = fn(q[h:h + 1].contiguous(), k[h:h + 1].contiguous(),
+                   v[h:h + 1].contiguous(), causal)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(alone).all())
+        assert torch.equal(got[h:h + 1].view(torch.uint8),
+                           alone.view(torch.uint8))
 
 
 @pytest.mark.cuda

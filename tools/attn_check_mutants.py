@@ -3,22 +3,28 @@
 
     python3 tools/attn_check_mutants.py      # needs one CUDA card and nvcc
 
-Builds ``csrc/flash_attention.cu`` as it is and three variants of it, each
+Builds ``csrc/flash_attention.cu`` as it is and four variants of it, each
 made by a text edit of a copy in a temporary directory:
 
   * ``no_acc_rescale``: the bf16 kernel's accumulator is not multiplied by
     exp(m_old - m_new) when the running max moves;
   * ``no_l_rescale``: its running denominator is not;
-  * ``one_part_p``: P enters P.V as one bf16 value (hi only, 8
-    significant bits) instead of hi + lo.
+  * ``one_part_p``: P enters P.V as one bf16 value (hi only: p with its
+    low 16 bits cleared, 8 significant bits) instead of hi + lo;
+  * ``no_softmax``: the raw scores go to P.V with no mask, max, exp or
+    rescale: wrong by design, its time is the products' alone.
 
 Each goes through the wrapper ``flash_attention.flash_attention`` at
 Qwen2-72B's attention width (q/k/v [64, 4096, 128] bfloat16), causal and
 not, with q and k at 0.3 N(0, 1) and at chip_smoke's ATTN_PEAKY, and is
-held against the plain version with ``chip_smoke.attn_check``. Prints a
-line for each (variant, case) and then one JSON line. Exits non-zero
-unless the source as it is passes every case and both rescale variants
-fail every case; ``one_part_p`` is reported only.
+held against the plain version with ``chip_smoke.attn_check``. Each
+variant is also timed on the causal q/k 0.3 case (``torch.profiler``
+device time, ``chip_smoke.device_ms``): beside the source, ``one_part_p``
+shows what the second P.V costs and ``no_softmax`` what the softmax
+costs that the products do not hide. Prints a line for each (variant,
+case) and then one JSON line. Exits non-zero unless the source as it is
+passes every case and both rescale variants fail every case;
+``one_part_p`` and ``no_softmax`` are reported only.
 """
 from __future__ import annotations
 
@@ -36,13 +42,10 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 
-ACC_RESCALE = """      acc[dt][0] *= corr[0];
-      acc[dt][1] *= corr[0];
-      acc[dt][2] *= corr[1];
-      acc[dt][3] *= corr[1];
+ACC_RESCALE = """#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) o[i] *= corr[(i >> 1) & 1];
 """
-LO_MMAS = """        mma_bf16(acc[2 * dp], lo, b[0], b[1]);
-        mma_bf16(acc[2 * dp + 1], lo, b[2], b[3]);
+LO_MMAS = """    pv_mma<DP, BK>(o, p_lo[t], v + t * 16 * kRowBytes);
 """
 VARIANTS = {
     "as_is": [],
@@ -50,6 +53,11 @@ VARIANTS = {
     "no_l_rescale": [("l[0] = l[0] * corr[0] + rs[0];", "l[0] += rs[0];"),
                      ("l[1] = l[1] * corr[1] + rs[1];", "l[1] += rs[1];")],
     "one_part_p": [(LO_MMAS, "")],
+    "no_softmax": [("softmax_tile<BK>(s, m, l, corr, 0,",
+                    "if (0) softmax_tile<BK>(s, m, l, corr, 0,"),
+                   ("softmax_tile<BK>(s, m, l, corr, kt * BK,",
+                    "if (0) softmax_tile<BK>(s, m, l, corr, kt * BK,"),
+                   ("float corr[2];", "float corr[2] = {1.0f, 1.0f};")],
 }
 RESCALE_VARIANTS = ("no_acc_rescale", "no_l_rescale")
 
@@ -89,10 +97,15 @@ def main() -> None:
                                           case[1])
             wants[case] = ref.flash_attention(*inputs[case], case[0])
             cs.free()
-        rows = []
+        rows, times = [], {}
         for name in VARIANTS:
             lib = build.load(f"attn_{name}", fa._SIGNATURES)
             fa._lib = lambda lib=lib: lib
+            timed = inputs[True, 0.3]
+            times[name] = cs.device_ms(lambda: fa.flash_attention(*timed,
+                                                                  True))
+            print(f"{name}: q/k/v [{h}, {s}, {d}] bf16 causal: "
+                  f"{times[name]:.4f} ms device", flush=True)
             for causal, qk in cases:
                 got = fa.flash_attention(*inputs[causal, qk], causal)
                 err, worst = cs.attn_check(got, wants[causal, qk])
@@ -107,7 +120,8 @@ def main() -> None:
                 cs.free()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    print(json.dumps({"attn_check_mutants": rows}), flush=True)
+    print(json.dumps({"attn_check_mutants": rows, "device_ms": times}),
+          flush=True)
     for r in rows:
         if r["variant"] == "as_is":
             cs.require(r["passes"], f"the kernel as it is fails: {r}")
