@@ -44,8 +44,15 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      exactly; the two float-sum kernels (CM and RHP) under float weights
      to a stated tolerance and byte for byte across two kernel runs.
      Times are CUDA-event medians of one call (host enqueue included),
-     each with its ``torch.profiler`` device time per call beside it. One
-     entry's tensors are held at a time.
+     each with its ``torch.profiler`` device time per call beside it (its
+     kernels' summed durations; for RHP, whose kernels run on two streams
+     at once, the union of their intervals). The two
+     RHP rows also print their device time by kernel (the sort, the
+     probe, the products pass, the short and the long walk), the batch's
+     longest run and the chain floor it sets (its adds at FADD_CYCLES
+     each at the card's top SM clock) beside the bound, and must have
+     walked every run of LONG_RUN+ tuples through the ring (the wrappers'
+     ``long_runs``). One entry's tensors are held at a time.
   3. The main path through ``SDE(device="cuda").handle``: per-stream CM,
      HLL, Bloom, FM, RHP and Figure-6 DFT over 65,536 hashed 63-bit ids;
      a data-source CM, HLL, Bloom(1,048,576, 0.01) (own stack: 64 x 2**24
@@ -59,8 +66,10 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      byte for byte, with their answers equal to the replay's; the DFT
      replay finds each row's last routed value in numpy and ticks with
      ``DFT.step``), the data-source DFT must stay at init, no ingested id
-     may be missing from its Bloom, every entry point must launch, and
-     the RHP fold must make no one-row launch.
+     may be missing from its Bloom, every entry point must launch, the
+     RHP fold must make no one-row launch, and each RHP entry point's
+     ring walk must have taken exactly the runs of LONG_RUN+ tuples of
+     the batches it ingested.
   3b. Every ring wraps: a per-stream Figure-6 DFT over 131,072 hashed ids
      and 192 ingests, each carrying every stream once plus 1/8 duplicates
      (the last one wins), 1/16 unrouted and a few negative ids, every
@@ -86,7 +95,8 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      phase-2 numbers (``ms``, ``plain_ms``,
      ``library_ms`` by CUDA event; ``device_ms``, ``plain_device_ms``,
      ``library_device_ms`` by ``torch.profiler``; the sliding-DFT row
-     adds its S = 2**20 numbers), then the device line.
+     adds its S = 2**20 numbers, the RHP rows their split, longest run,
+     chain floor and phase-3 long runs), then the device line.
 """
 from __future__ import annotations
 
@@ -110,6 +120,7 @@ TIMING_RUNS = 25
 FLOAT_RTOL, FLOAT_ATOL = 1e-4, 1e-3   # float sums of up to ~10^4 terms
                                       # taken in another order
 PEAK_LIMIT_GIB = 48.0
+FADD_CYCLES = 4         # a dependent float32 add's latency on the card
 SRC_BLOOM_ELEMENTS = 1 << 20          # phase 3's data-source Bloom
 # the paper's Figure-6 DFT (benchmarks/fig6_dft_workflow.py)
 FIG6_DFT = {"window": 128, "n_coeffs": 8, "threshold": 0.9,
@@ -158,9 +169,10 @@ def cuda_ms(fn, runs: int = TIMING_RUNS) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, runs: int = 5, attempts: int = 6) -> float:
-    """Mean device time of ``fn()`` per run from ``torch.profiler``: the
-    summed durations of its kernels and copies, without the host's enqueue
+def device_events(fn, runs: int = 5, attempts: int = 6) -> list:
+    """(name, start µs, end µs) of every device activity (kernels and
+    copies) of ``runs`` calls of ``fn()`` from ``torch.profiler``, on every
+    stream, without the host's enqueue
     time, which a CUDA-event time of a few-µs launch mostly is. A profile
     that caught no device activity at all is taken again, up to
     ``attempts`` times, after a pause that doubles from 0.1 s:
@@ -178,12 +190,44 @@ def device_ms(fn, runs: int = 5, attempts: int = 6) -> float:
             for _ in range(runs):
                 fn()
             torch.cuda.synchronize()
-        spans = [e.time_range.elapsed_us() for e in prof.events()
+        spans = [(e.name, e.time_range.start, e.time_range.end)
+                 for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA]
         if spans:
-            return sum(spans) / runs / 1e3
+            return spans
     raise RuntimeError(f"torch.profiler recorded no device activity in "
                        f"{attempts} windows")
+
+
+def busy_us(spans) -> float:
+    """The union of (start, end) intervals, in their unit: the time some
+    activity ran, however many at once."""
+    busy, end = 0.0, -1.0
+    for s, e in sorted(spans):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy
+
+
+def device_ms(fn, runs: int = 5, union: bool = False) -> float:
+    """Mean device time of ``fn()`` per run (``device_events``): its
+    activities' summed durations, or, for a call whose kernels run on two
+    streams at once (``union``), the union of their intervals."""
+    spans = [(s, e) for _, s, e in device_events(fn, runs)]
+    total = busy_us(spans) if union else sum(e - s for s, e in spans)
+    return total / runs / 1e3
+
+
+def device_split(fn, groups: dict, rest: str, runs: int = 5) -> dict:
+    """Device ms of ``fn()`` per run by kernel: each activity whose name
+    holds a key of ``groups`` under that key's value, every other one
+    under ``rest``."""
+    split: dict = {}
+    for name, start, end in device_events(fn, runs):
+        key = next((g for k, g in groups.items() if k in name), rest)
+        split[key] = split.get(key, 0.0) + (end - start) / runs / 1e3
+    return split
 
 
 def bound_ms(n_bytes: int, n_ops: int, rate: str = "float32"):
@@ -283,12 +327,15 @@ def distinct(flat: torch.Tensor) -> int:
 # phase 2: every kernel entry point against its plain version
 # ---------------------------------------------------------------------------
 def record(results, name, fn_kernel, fn_plain, fn_lib, state0, n_bytes,
-           n_ops, floats=None, atol=None, within=None, rate="float32"):
+           n_ops, floats=None, atol=None, within=None, rate="float32",
+           union=False):
     """Hold ``fn_kernel`` against ``fn_plain`` on copies of ``state0``
     (torch.equal; a max abs error of at most ``atol`` when given;
     ``within(kernel_out, plain_out)`` when given), then time kernel,
     plain and library call (``fn_lib`` None: no one PyTorch call computes
-    the function). The bound takes ``n_ops`` at ``OPS_PER_S[rate]``."""
+    the function). The bound takes ``n_ops`` at ``OPS_PER_S[rate]``; the
+    kernel's device time is the union of its intervals where ``union``
+    (its kernels run on two streams)."""
     k = state0.clone()
     fn_kernel(k)
     p = state0.clone()
@@ -303,7 +350,7 @@ def record(results, name, fn_kernel, fn_plain, fn_lib, state0, n_bytes,
     if floats is not None:
         floats(state0)
     kms = cuda_ms(lambda: fn_kernel(k))
-    kdev = device_ms(lambda: fn_kernel(k))
+    kdev = device_ms(lambda: fn_kernel(k), union=union)
     p = state0.clone()
     pms = cuda_ms(lambda: fn_plain(p))
     pdev = device_ms(lambda: fn_plain(p))
@@ -683,9 +730,43 @@ def phase2_rhp(b, n: int, results: dict) -> None:
                          dtype=torch.int32).to(torch.float32)
     record(results, "rhp_project_update", project(v_int),
            project_plain(v_int), lib, rhp0, t * 4 + batch_b + state_b, n_ops,
-           floats=float_checks)
+           floats=float_checks, union=True)
     record(results, "rhp_probe_update", fused(v_int), fused_plain(v_int), lib,
-           rhp0, t * 8 + TABLE_B * slots + batch_b + state_b, n_ops)
+           rhp0, t * 8 + TABLE_B * slots + batch_b + state_b, n_ops,
+           union=True)
+    # the add chains: the longest run's adds are one dependent chain (the
+    # byte contract), FADD_CYCLES each at the card's top SM clock
+    n_long, longest = rhp_project.long_runs_of(rows, n)
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    floor_ms = longest * FADD_CYCLES / (mhz * 1e6) * 1e3
+    groups = {"probe_kernel": "probe", "products_kernel": "products",
+              "short_kernel": "short walk", "long_kernel": "long walk"}
+    for name, fn in (("rhp_project_update", project(v_int)),
+                     ("rhp_probe_update", fused(v_int))):
+        wrapper = getattr(rhp_project, name)
+        k = rhp0.clone()
+        wrapper.long_runs.reset()
+        fn(k)
+        walked = int(wrapper.long_runs)
+        require(walked == n_long > 0, f"{name}: the ring walk took {walked} "
+                                      f"runs, not the batch's {n_long} runs "
+                                      f"of {rhp_project.LONG_RUN}+ tuples")
+        split = device_split(lambda: fn(k), groups, "sort")
+        del k
+        r = results[name]
+        r.update(longest_run=longest, long_runs=n_long,
+                 chain_floor_ms=floor_ms, split_device_ms=split)
+        print(f"[phase2] {name}: longest run {longest} tuples, chain floor "
+              f"{floor_ms:.5f} ms ({FADD_CYCLES} cycles an add at {mhz:.0f} "
+              f"MHz) beside the bound {r['bound_ms']:.5f} ms; {n_long} runs "
+              f"of {rhp_project.LONG_RUN}+ tuples, all walked by the ring; "
+              f"device ms by kernel (the short walk runs beside the "
+              f"products pass and the long walk): " + ", ".join(
+                  f"{g} {ms:.4f}" for g, ms in sorted(
+                      split.items(), key=lambda kv: -kv[1])), flush=True)
     del rhp0
     free()
 
@@ -1010,6 +1091,8 @@ def reset_launches() -> None:
         fn.launches = 0
         if hasattr(fn, "one_row_launches"):
             fn.one_row_launches = 0
+        if hasattr(fn, "long_runs"):
+            fn.long_runs.reset()
 
 
 def read_launches() -> dict:
@@ -1078,18 +1161,13 @@ def profile_batches(sde, batches, first: int) -> None:
     nb = len(batches)
     dev_events = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end)
+    busy = busy_us((e.time_range.start, e.time_range.end)
                    for e in dev_events)
-    busy_us, end = 0.0, -1.0
-    for s, e in spans:                      # union of device intervals
-        if e > end:
-            busy_us += e - max(s, end)
-            end = e
     by_name: dict = {}
     for e in dev_events:
         tot, cnt = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (tot + e.time_range.elapsed_us(), cnt + 1)
-    busy_ms = busy_us / 1e3
+    busy_ms = busy / 1e3
     print(f"[phase3] profiled {nb} batches (torch.profiler, fused then "
           f"unfused): {wall_ms / nb:.4f} ms wall per batch, device busy "
           f"{busy_ms / nb:.4f} ms per batch, idle share "
@@ -1274,6 +1352,9 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
             "one continuous response per continuous query and batch "
             "expected")
     launches = read_launches()
+    walked = {name: int(getattr(rhp_project, name).long_runs)
+              for name in ("rhp_probe_update", "rhp_project_update")}
+    launches.update({f"{k}.long_runs": v for k, v in walked.items()})
     one_row = rhp_project.rhp_project_update.one_row_launches
     require(one_row == 0, f"the RHP data-source fold launched {one_row} "
                           "one-row kernels")
@@ -1295,12 +1376,16 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
         replay = batched.stacked_init(kind, stack.capacity, dev)
         klo, khi, trows = stack.device_table()
         src = stack.source_rows_idx()
-        for sids, vals_b in batches:
+        long_runs = [0, 0]            # the fused (even) and unfused batches'
+        for i, (sids, vals_b) in enumerate(batches):
             sid64 = sids.astype(np.int64)
             lo, hi = routing.split64(sid64)
             rows = probe.probe_rows(klo, khi, trows, dt(lo.view(np.int32)),
                                     dt(hi.view(np.int32)),
                                     n_probe=stack.n_probe)
+            if kind.update_kernel == "rhp_project":
+                long_runs[i % 2] += rhp_project.long_runs_of(
+                    rows, stack.capacity)[0]
             batched.stacked_update(
                 kind, replay, rows,
                 dt(routing.fold64(sid64).view(np.int32)), dt(vals_b),
@@ -1323,6 +1408,15 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
                             f"plain replay's")
             print(f"[phase3] {n_rhp} RHP signatures, Hamming weights and "
                   f"buckets equal the plain replay's", flush=True)
+            want = dict(zip(("rhp_probe_update", "rhp_project_update"),
+                            long_runs))
+            require(walked == want and min(long_runs) > 0,
+                    f"the RHP ring walk took {walked} runs of "
+                    f"{rhp_project.LONG_RUN}+ tuples, not the batches' "
+                    f"{want}")
+            print(f"[phase3] RHP runs of {rhp_project.LONG_RUN}+ tuples "
+                  f"walked by the ring: {walked}, as the batches hold",
+                  flush=True)
         print(f"[phase3] {type(kind).__name__} stack "
               f"{tuple(stack.state.shape)} equals the plain replay",
               flush=True)
@@ -1596,6 +1690,11 @@ def main() -> None:
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             device_ms=r["device_ms"], plain_device_ms=r["plain_device_ms"],
             library_device_ms=r["library_device_ms"]))
+        if "chain_floor_ms" in r:       # RHP: its add chains and the split
+            kernels[-1].update(
+                long_runs_phase3=launches[f"{name}.long_runs"], **{
+                    k: r[k] for k in ("longest_run", "long_runs",
+                                      "chain_floor_ms", "split_device_ms")})
         large = timings.get(f"{name}@{1 << 20}")
         if large is not None:       # the same kernel at S = 2**20 rows
             kernels[-1][f"at_{1 << 20}"] = {

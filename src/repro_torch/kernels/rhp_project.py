@@ -9,16 +9,23 @@ f32); a batch of T tuples adds ``v_t * sgn_t`` into its routed row:
 The TPU kernels compute it as a one-hot MXU matmul. On Hopper it is a
 deterministic routed row add written by hand in ``csrc/rhp_project.cu``:
 the wrapper orders the routed rows with a stable ``torch.sort`` (equal
-rows keep batch order) and the kernel gives every state element one
+rows keep batch order) and the kernels give every state element one
 owner thread, which adds its row's tuples in that order. No float
-``atomicAdd``, so the state bytes are the same on every run.
+``atomicAdd``, so the state bytes are the same on every run. The source
+makes three launches: a walk of the runs of fewer than ``LONG_RUN``
+tuples, and, beside it on a second stream, a parallel pass that
+multiplies the sign rows of the longer runs into a scratch of products
+in sorted order, then a walk of those runs through a shared-memory ring
+(batches of fewer than ``LONG_RUN`` tuples make the first launch only).
 
 Both entry points update ``state`` in place and need no padding. On a
 CPU tensor each wrapper runs the plain version (``ref.py``); on a CUDA
-tensor it launches the kernel or raises. ``<wrapper>.launches`` counts
-kernel launches, and ``rhp_project_update.one_row_launches`` those on a
-one-row state (the engine's data-source fold makes none: it sums the
-batch with a torch reduction, as the reference does outside its kernel).
+tensor it launches the kernels or raises. ``<wrapper>.launches`` counts
+calls that launched them, ``rhp_project_update.one_row_launches`` those on
+a one-row state (the engine's data-source fold makes none: it sums the
+batch with a torch reduction, as the reference does outside its kernel),
+and ``<wrapper>.long_runs`` (a :class:`RunCount`) the runs of at least
+``LONG_RUN`` tuples that the ring walk took, counted on the card.
 """
 from __future__ import annotations
 
@@ -30,8 +37,14 @@ from . import build, ref
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# runs of at least this many tuples take the ring walk (``kLongRun`` in
+# csrc/rhp_project.cu); a ring stage holds RING_ROWS sorted positions
+# (4 * kRingGroups), counted from the group of 4 positions that holds a
+# run's first
+LONG_RUN = 256
+RING_ROWS = 256
 _SIGNATURES = {
-    "rhp_project": (_P, _I, _I, _P, _P, _P, _P, _I, _P),
+    "rhp_project": (_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P),
     "rhp_probe_rows": (_P, _P, _P, _I, _P, _P, _I, _P, _I, _P),
 }
 
@@ -49,13 +62,58 @@ def _check_batch(state, values, signs, t):
     build.check(signs, "signs", torch.float32, (t, state.shape[1]), dev)
 
 
-def _project(state, rows, values, signs) -> None:
-    """Stable-sort the routed rows, then launch the summing kernel."""
+class RunCount:
+    """A count kept on the card, one int64 per device, that the kernels add
+    to without a host synchronisation. ``int(count)`` reads it (and so
+    synchronises); ``reset()`` sets it to 0."""
+
+    def __init__(self):
+        self._counts = {}
+
+    def ptr(self, device: torch.device) -> int:
+        c = self._counts.get(device)
+        if c is None:
+            c = self._counts[device] = torch.zeros((), dtype=torch.int64,
+                                                   device=device)
+        return c.data_ptr()
+
+    def __int__(self) -> int:
+        return sum(int(c) for c in self._counts.values())
+
+    def reset(self) -> None:
+        for c in self._counts.values():
+            c.zero_()
+
+
+def long_runs_of(rows: torch.Tensor, n: int) -> tuple:
+    """(runs of at least ``LONG_RUN`` tuples, longest run) of a batch's
+    routed rows ``rows`` [T] on a stack of ``n`` rows: what the ring walk
+    takes, and the length of the longest add chain. Synchronises; for
+    checks, not for the path."""
+    kept = rows[(rows >= 0) & (rows < n)].long()
+    if kept.numel() == 0:
+        return 0, 0
+    counts = torch.bincount(kept, minlength=n)
+    return int((counts >= LONG_RUN).sum()), int(counts.max())
+
+
+def _project(state, rows, values, signs, walked: RunCount) -> None:
+    """Stable-sort the routed rows, then launch the kernels: the short-run
+    walk, and (where a run can reach LONG_RUN) the products pass and the
+    long-run walk, with scratch for their products and each long run's
+    end (by row)."""
     srow, perm = torch.sort(rows, stable=True)
     n, b = state.shape
+    t = rows.shape[0]
+    prod = run_end = None               # no run can reach LONG_RUN
+    if t >= LONG_RUN:
+        prod = torch.empty(((b + 31) // 32, (t + 3) // 4, 32, 4),
+                           dtype=torch.float32, device=state.device)
+        run_end = torch.empty((n,), dtype=torch.int32, device=state.device)
     err = _lib().rhp_project(
         state.data_ptr(), n, b, srow.data_ptr(), perm.data_ptr(),
-        values.data_ptr(), signs.data_ptr(), rows.shape[0],
+        values.data_ptr(), signs.data_ptr(), t, build.ptr(prod),
+        build.ptr(run_end), walked.ptr(state.device),
         build.stream(state.device))
     build.check_launch(err, "rhp_project")
 
@@ -74,7 +132,7 @@ def rhp_project_update(state: torch.Tensor, syn_idx: torch.Tensor,
     build.check(syn_idx, "syn_idx", torch.int32, (t,), state.device)
     if t == 0 or state.numel() == 0:
         return state
-    _project(state, syn_idx, values, signs)
+    _project(state, syn_idx, values, signs, rhp_project_update.long_runs)
     rhp_project_update.launches += 1
     rhp_project_update.one_row_launches += state.shape[0] == 1
     return state
@@ -83,6 +141,7 @@ def rhp_project_update(state: torch.Tensor, syn_idx: torch.Tensor,
 rhp_project_update.launches = 0
 # of those, launches on a one-row state (a data-source fold would be one)
 rhp_project_update.one_row_launches = 0
+rhp_project_update.long_runs = RunCount()
 
 
 def rhp_probe_update(state: torch.Tensor, keys_lo: torch.Tensor,
@@ -110,9 +169,10 @@ def rhp_probe_update(state: torch.Tensor, keys_lo: torch.Tensor,
         sid_lo.data_ptr(), sid_hi.data_ptr(), int(n_probe), rows.data_ptr(),
         t, build.stream(state.device))
     build.check_launch(err, "rhp_probe_rows")
-    _project(state, rows, values, signs)
+    _project(state, rows, values, signs, rhp_probe_update.long_runs)
     rhp_probe_update.launches += 1
     return state
 
 
 rhp_probe_update.launches = 0
+rhp_probe_update.long_runs = RunCount()

@@ -6,19 +6,21 @@ below, at and above one 1024-tuple chunk, count-sketch signs, float
 weights; for the bit-set kernel empty batches, k = 1, positions at
 m - 1, a probe bound of 1 and a stack past 2**31 lanes; for the RHP
 projection ragged plane counts (b = 200 and b = 1), empty batches, rows
-out of range, one hot row walked across many 32-tuple steps, and float
-weights byte-identical from run to run; for CountMin's small-stack
-bucket-range launch (d * n < 1024, the data-source fresh sketch) n = 1
-to 3 at depths 1, 5 and 12, byte-equal to the CPU's serial scatter even
-for float weights; for the sliding-DFT tick odd S, F = 1, all or no
-rows masked, and the interleaved in-place planes the engine passes, byte
-for byte; for the pairwise correlation N = 1 to 5,000 with ragged tiles
-and K from 1 to 40, the same bytes in two runs, and an N past 46,341
-where N * N passes 2**31; for the attention forward S = 1, S = 200,
-Sq != Sk both ways, D = 16 to 256, float32 and bfloat16, causal and not,
-the same bytes in two runs, one launch a call, heads kept apart at a
-ragged Sk (a neighbour head's K and V all inf), and a BH * S * D past
-2**31. Tests marked ``cuda`` need a card; run them there with
+out of range, runs just under, at and over the ring walk's threshold,
+runs ending on and one past a ring stage, a hot run of ~8k tuples, and
+float weights byte-identical to the CPU's serial sum; for CountMin's
+small-stack bucket-range launch (d * n < 1024, the data-source fresh
+sketch) n = 1 to 3 at depths 1, 5 and 12, byte-equal to the CPU's serial
+scatter even for float weights; for the sliding-DFT tick odd S, F = 1,
+all or no rows masked, and the interleaved in-place planes the engine
+passes, byte for byte; for the pairwise correlation N = 1 to 5,000 with
+ragged tiles and K from 1 to 40, the same bytes in two runs, and an N
+past 46,341 where N * N passes 2**31; for the attention forward S = 1,
+S = 200, Sq != Sk both ways, D = 16 to 256, float32 and bfloat16,
+causal and not, the same bytes in two runs, one launch a call, heads
+kept apart at a ragged Sk (a neighbour head's K and V all inf), and a
+BH * S * D past 2**31. Tests marked ``cuda`` need a card; run them there
+with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -352,39 +354,93 @@ def test_bitset_and_fm_wrappers_count_their_own_launches(dev):
     assert bitset_or.bitset_max_update.launches == b0 + 1
 
 
+def _run_rows(rng, n, lengths, noise, invalid):
+    """Rows [T] i32 in batch order: one run of each length in ``lengths``
+    (the first on row 0, the last on row n - 1, the rest on distinct rows
+    between), ``noise`` tuples spread over the other rows, and, where
+    ``invalid``, rows -1 and n; shuffled, so the stable sort matters."""
+    used = list(rng.choice(np.arange(1, n - 1), len(lengths), replace=False))
+    used[0], used[-1] = 0, n - 1
+    rows = [np.full(k, r) for k, r in zip(lengths, used)]
+    rows.append(rng.choice(np.setdiff1d(np.arange(n), used), noise))
+    if invalid:
+        rows += [np.full(37, -1), np.full(41, n)]
+    rows = np.concatenate(rows).astype(np.int32)
+    rng.shuffle(rows)
+    return rows
+
+
+L, RR = rhp_project.LONG_RUN, rhp_project.RING_ROWS
+# (n, b, t, run lengths): random rows as before where no runs are given;
+# else several runs over LONG_RUN, one of exactly LONG_RUN and one of
+# LONG_RUN - 1, a run that ends on a ring-stage boundary and one that ends
+# one past it (the first run, on row 0, starts the sorted batch where no
+# row is -1, so its stages start at 0), and a hot run of ~8k tuples at
+# ragged widths
+RHP_CASES = [(1, 64, 300, None), (5, 1, 77, None), (16, 200, 513, None),
+             (9, 33, 0, None), (300, 64, 70001, None), (2, 64, 5000, None),
+             (16, 64, 0, [3 * RR, L - 1, L, L + 1, 3 * RR + 1, 1000, 3, 1]),
+             (16, 64, 0, [3 * RR + 1, L, 2 * RR - 1, 40]),
+             (64, 64, 0, [8299, 3777, 2409, 300, L, 40]),
+             (64, 1, 0, [8299, 3777, 2409, 300, L, 40]),
+             (64, 33, 0, [8299, 3777, 2409, 300, L, 40]),
+             (64, 200, 0, [8299, 3777, 2409, 300, L, 40])]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,b,t", [(1, 64, 300), (5, 1, 77), (16, 200, 513),
-                                   (9, 33, 0), (300, 64, 70001),
-                                   (2, 64, 5000)])
-def test_rhp_kernels_match_plain(dev, n, b, t):
+@pytest.mark.parametrize(
+    "n,b,t,runs", RHP_CASES,
+    ids=[f"{n}-{b}-{t}" if runs is None else f"{n}-{b}-runs{len(runs)}"
+         for n, b, t, runs in RHP_CASES])
+def test_rhp_kernels_match_plain(dev, n, b, t, runs):
     """Rows -1 and n dropped; b = 1, 33 and 200 leave a ragged lane
     slice; t = 0 launches nothing; n = 2 with t = 5000 makes runs of
-    thousands of tuples, walked 32 at a time past their chunk. The kernel
-    adds each row's tuples in batch order, as the plain version does on
-    the CPU (``index_add_`` there walks the batch in order), so even float
-    weights give the CPU's bytes; the card's ``index_add_`` adds in no
-    fixed order."""
-    rng = np.random.RandomState(n + b + t)
+    thousands of tuples. Cases with ``runs`` place runs of given lengths
+    around the ring walk's threshold and stage size (rows -1 and n only at
+    b != 64, so the b = 64 hot run starts the sorted batch and the last
+    run ends it). The kernels add each row's tuples in batch order, as
+    the plain version does on the CPU (``index_add_`` there walks the
+    batch in order), so even float weights give the CPU's bytes; the
+    card's ``index_add_`` adds in no fixed order. The long-run count
+    moves by the runs of at least LONG_RUN tuples, and only by them."""
+    rng = np.random.RandomState(n + b + t + len(runs or ()))
     pop, (klo, khi, trows, n_probe) = _table(rng, n, dev)
     c = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    if t:
+    if runs is not None:
+        rows_np = _run_rows(rng, n, runs, noise=5 * n, invalid=b != 64)
+        t = rows_np.shape[0]
+        sids = np.where((rows_np >= 0) & (rows_np < n),
+                        pop[np.clip(rows_np, 0, n - 1)], (1 << 62) + 12345)
+        lo, hi = routing.split64(sids)
+        slo, shi = c(lo.view(np.int32)), c(hi.view(np.int32))
+    elif t:
         slo, shi = _batch(rng, pop, t, dev)
     else:
         slo = shi = torch.zeros(0, dtype=torch.int32, device=dev)
     signs = c(np.where(rng.rand(t, b) > 0.5, 1.0, -1.0).astype(np.float32))
-    rows = c(rng.randint(-1, n + 1, t).astype(np.int32))
+    if runs is None:
+        rows_np = rng.randint(-1, n + 1, t).astype(np.int32)
+    rows = c(rows_np)
+    prows = probe.probe_rows(klo, khi, trows, slo, shi, n_probe=n_probe)
+    n_long = rhp_project.long_runs_of(rows, n)[0]
+    n_long_f = rhp_project.long_runs_of(prows, n)[0]
+    if runs is not None:
+        assert n_long == n_long_f == sum(k >= L for k in runs)
     state0 = c(rng.randint(-3, 4, (n, b)).astype(np.float32))
-    before = rhp_project.rhp_project_update.launches
+    proj, fused = rhp_project.rhp_project_update, rhp_project.rhp_probe_update
+    before = proj.launches
+    walked0 = (int(proj.long_runs), int(fused.long_runs))
     for vals in (c(rng.randint(0, 5, t).astype(np.float32)),
                  c(rng.randn(t).astype(np.float32) * 3)):
         want = ref.rhp_project_update(state0.clone(), rows, vals, signs)
-        a = rhp_project.rhp_project_update(state0.clone(), rows, vals, signs)
-        b2 = rhp_project.rhp_project_update(state0.clone(), rows, vals, signs)
+        a = proj(state0.clone(), rows, vals, signs)
+        # read on the caller's stream straight after the call: the walks'
+        # second stream has joined it
+        b2 = proj(state0.clone(), rows, vals, signs).clone()
         want_f = ref.rhp_probe_update(state0.clone(), klo, khi, trows, slo,
                                       shi, vals, signs, n_probe=n_probe)
-        got_f = rhp_project.rhp_probe_update(state0.clone(), klo, khi, trows,
-                                             slo, shi, vals, signs,
-                                             n_probe=n_probe)
+        got_f = fused(state0.clone(), klo, khi, trows, slo, shi, vals, signs,
+                      n_probe=n_probe)
         torch.cuda.synchronize()
         assert torch.equal(a.view(torch.int32), b2.view(torch.int32))
         torch.testing.assert_close(a, want, rtol=1e-4, atol=1e-3)
@@ -395,22 +451,22 @@ def test_rhp_kernels_match_plain(dev, n, b, t):
                            serial.view(torch.int32))
         assert torch.equal(got_f.cpu().view(torch.int32),
                            ref.rhp_project_update(
-                               cpu[0].clone(), probe.probe_rows(
-                                   klo, khi, trows, slo, shi,
-                                   n_probe=n_probe).cpu(),
+                               cpu[0].clone(), prows.cpu(),
                                *cpu[2:]).view(torch.int32))
     # integer weights: exact, both entry points
     ints = c(rng.randint(-4, 5, t).astype(np.float32))
+    assert torch.equal(proj(state0.clone(), rows, ints, signs),
+                       ref.rhp_project_update(state0.clone(), rows, ints,
+                                              signs))
     assert torch.equal(
-        rhp_project.rhp_project_update(state0.clone(), rows, ints, signs),
-        ref.rhp_project_update(state0.clone(), rows, ints, signs))
-    assert torch.equal(
-        rhp_project.rhp_probe_update(state0.clone(), klo, khi, trows, slo,
-                                     shi, ints, signs, n_probe=n_probe),
+        fused(state0.clone(), klo, khi, trows, slo, shi, ints, signs,
+              n_probe=n_probe),
         ref.rhp_probe_update(state0.clone(), klo, khi, trows, slo, shi, ints,
                              signs, n_probe=n_probe))
-    launched = rhp_project.rhp_project_update.launches - before
+    launched = proj.launches - before
     assert launched == (5 if t else 0)
+    assert (int(proj.long_runs) - walked0[0],
+            int(fused.long_runs) - walked0[1]) == (5 * n_long, 3 * n_long_f)
 
 
 @pytest.mark.cuda

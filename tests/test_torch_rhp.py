@@ -100,6 +100,30 @@ def test_rhp_plain_matches_jax_oracle_and_drops_out_of_range_rows():
     assert rhp_project.rhp_project_update.one_row_launches == 0
 
 
+@pytest.mark.parametrize("n,t,hot", [(5, 0, 0), (50, 300, 0),
+                                     (8, 3000, 0), (131, 20000, 1.1),
+                                     (2, 700, 0)])
+def test_long_runs_of_matches_numpy(n, t, hot):
+    """``rhp_project.long_runs_of`` (the runs the ring walk takes, and the
+    longest add chain) against a numpy count of each kept row's tuples,
+    with rows -1 and n dropped; ``hot`` draws the rows from a Zipf law."""
+    rng = np.random.RandomState(n + t)
+    if hot:
+        p = 1.0 / np.arange(1, n + 1) ** hot
+        rows = rng.choice(n, t, p=p / p.sum())
+    else:
+        rows = rng.randint(0, n, t)
+    rows = np.where(rng.rand(t) < 0.1, rng.choice([-1, n], t), rows)
+    rows = rows.astype(np.int32)
+    kept = rows[(rows >= 0) & (rows < n)]
+    counts = np.bincount(kept, minlength=n)
+    want = (int((counts >= rhp_project.LONG_RUN).sum()),
+            int(counts.max()) if kept.size else 0)
+    assert rhp_project.long_runs_of(_t(rows), n) == want
+    if t >= 3000:
+        assert want[0] > 0
+
+
 def _routed_inputs(seed, n=24, t=300, float_weights=False):
     rng = np.random.RandomState(seed)
     pop = np.unique(rng.randint(0, 2**62, size=4 * n, dtype=np.int64))[:n]
