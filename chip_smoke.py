@@ -42,15 +42,18 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      to its last rows, and an untimed RHP run at b = 200 with rows -1 and
      n and a batch of no multiple of 32. Integer results must match
      exactly; the two float-sum kernels (CM and RHP) under float weights
-     to a stated tolerance and byte for byte across two kernel runs.
+     to a stated tolerance and byte for byte across two kernel runs, CM's
+     also to a serial float32 loop's bytes on every touched element. The
+     CountMin kernels' own row sort must equal ``torch.sort(stable=True)``.
      Times are CUDA-event medians of one call (host enqueue included),
      each with its ``torch.profiler`` device time per call beside it (its
      kernels' summed durations; for RHP, whose kernels run on two streams
-     at once, the union of their intervals). The two
-     RHP rows also print their device time by kernel (the sort, the
-     probe, the products pass, the short and the long walk), the batch's
-     longest run and the chain floor it sets (its adds at FADD_CYCLES
-     each at the card's top SM clock) beside the bound, and must have
+     at once, the union of their intervals). The CountMin and RHP rows
+     also print their device time by kernel (CM: the probe, the row sort
+     with its memset, the gather, the walk; RHP: the sort, the probe, the
+     products pass, the short and the long walk), the batch's longest run and the chain floor
+     it sets (its adds at FADD_CYCLES each at the card's top SM clock)
+     beside the bound; the RHP rows must have
      walked every run of LONG_RUN+ tuples through the ring (the wrappers'
      ``long_runs``). One entry's tensors are held at a time.
   3. The main path through ``SDE(device="cuda").handle``: per-stream CM,
@@ -88,15 +91,17 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      config's width, causal bfloat16, with the counts reset just before
      each call; each must launch the attention kernel exactly once and
      agree with the plain version within phase 2's bfloat16 limits.
-  5. The gate of the CountMin one-row launch: its device time no higher
-     than the library call's. Then one JSON line with each kernel's
+  5. The gate of the CountMin rows (#1, #2 and the one-row launch): each
+     one's device time no higher than the library call's. Then one JSON
+     line with each kernel's
      launches in phase 3 (the correlation kernel's in phase 3b, the
      attention kernel's in phase 4) and its
      phase-2 numbers (``ms``, ``plain_ms``,
      ``library_ms`` by CUDA event; ``device_ms``, ``plain_device_ms``,
      ``library_device_ms`` by ``torch.profiler``; the sliding-DFT row
-     adds its S = 2**20 numbers, the RHP rows their split, longest run,
-     chain floor and phase-3 long runs), then the device line.
+     adds its S = 2**20 numbers, the CM and RHP rows their split, longest
+     run, chain floor, and CM's runs or RHP's phase-3 long runs), then the
+     device line.
 """
 from __future__ import annotations
 
@@ -228,6 +233,17 @@ def device_split(fn, groups: dict, rest: str, runs: int = 5) -> dict:
         key = next((g for k, g in groups.items() if k in name), rest)
         split[key] = split.get(key, 0.0) + (end - start) / runs / 1e3
     return split
+
+
+def chain_floor_ms(longest: int) -> tuple:
+    """(ms, MHz): the least time of ``longest`` dependent float32 adds,
+    FADD_CYCLES each at the card's top SM clock. Under the byte contract
+    the hottest run's adds at one element are such a chain."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    return longest * FADD_CYCLES / (mhz * 1e6) * 1e3, mhz
 
 
 def bound_ms(n_bytes: int, n_ops: int, rate: str = "float32"):
@@ -376,9 +392,10 @@ def record(results, name, fn_kernel, fn_plain, fn_lib, state0, n_bytes,
           f"the {rate} rate)", flush=True)
 
 
-def float_runs(label, kern, plain, state0) -> None:
+def float_runs(label, kern, plain, state0, serial=None) -> None:
     """Float weights: two kernel runs byte-identical, and allclose to the
-    plain version at FLOAT_RTOL / FLOAT_ATOL."""
+    plain version at FLOAT_RTOL / FLOAT_ATOL; where ``serial`` is given,
+    ``serial(out)`` must hold too (the bytes of a serial loop)."""
     a = state0.clone()
     kern(a)
     c = state0.clone()
@@ -390,9 +407,13 @@ def float_runs(label, kern, plain, state0) -> None:
     plain(p)
     _, ferr, close = compare(a, p)
     require(close, f"{label}: float weights off by {ferr}")
+    tail = ""
+    if serial is not None:
+        serial(a)
+        tail = "; the serial loop's bytes on every touched element"
     print(f"[phase2] {label}: float weights byte-identical over 2 runs; max "
           f"abs err vs plain {ferr:.3g} (rtol {FLOAT_RTOL}, atol "
-          f"{FLOAT_ATOL})", flush=True)
+          f"{FLOAT_ATOL}){tail}", flush=True)
     del a, p
     free()
 
@@ -428,6 +449,29 @@ def phase2_batch(dev, seed: int, n_streams: int, t: int):
     return b
 
 
+def serial_countmin(state0, rows, idx, v):
+    """A check that a CountMin state holds, on the elements the batch
+    touches, the bytes of a serial loop over the batch in float32 (numpy's
+    ``add.at`` adds repeated indices in order; zero weights skipped, as the
+    kernels skip them) from ``state0``'s values."""
+    n, d, w = state0.shape
+    r, ix, vv = (x.cpu().numpy() for x in (rows, idx, v))
+    keep = (r >= 0) & (r < n) & (vv != 0)
+    flat = np.concatenate([(r[keep].astype(np.int64) * d + j) * w
+                           + ix[keep, j] for j in range(d)])
+    uniq, inv = np.unique(flat, return_inverse=True)
+    where = torch.from_numpy(uniq).to(state0.device)
+    want = state0.view(-1)[where].cpu().numpy()
+    np.add.at(want, inv, np.tile(vv[keep], d))
+
+    def check(out):
+        got = out.view(-1)[where].cpu().numpy()
+        require(got.tobytes() == want.tobytes(),
+                f"CountMin float weights: {int((got != want).sum())} of "
+                f"{len(uniq)} touched elements differ from the serial loop")
+    return check
+
+
 def phase2_countmin(b, n: int, results: dict) -> None:
     from repro_torch import core
     from repro_torch.core import hashing
@@ -450,19 +494,30 @@ def phase2_countmin(b, n: int, results: dict) -> None:
     n_upd = int(keep.sum()) * d
     slots = probed_slots(b, torch.ones_like(b.mask))
     print(f"[phase2] CountMin: n={n} d={d} w={w}", flush=True)
+    # the kernels' own row sort against torch.sort(stable=True) (the
+    # yardstick, here only)
+    srow, perm = onehot_matmul.sort_rows(rows, n)
+    want_rows, order = torch.sort(kept_rows.int(), stable=True)
+    require(torch.equal(srow, want_rows) and torch.equal(
+        perm.long(), torch.nonzero(keep)[:, 0][order]),
+        "the CountMin row sort differs from torch.sort(stable=True)")
+    print(f"[phase2] CountMin row sort: {srow.numel()} tuples, equal to "
+          f"torch.sort(stable=True)", flush=True)
+    del srow, perm, want_rows, order
 
     def float_checks(state0):
+        serial = serial_countmin(state0, rows, idx, v_flt)
         float_runs("onehot_scatter_add",
                    lambda s: onehot_matmul.onehot_scatter_add(s, rows, idx,
                                                               v_flt),
                    lambda s: ref.onehot_scatter_add(s, rows, idx, v_flt),
-                   state0)
+                   state0, serial)
         float_runs("onehot_probe_scatter",
                    lambda s: onehot_matmul.onehot_probe_scatter(
                        s, b.klo, b.khi, b.trows, b.slo, b.shi, idx, v_flt,
                        n_probe=b.n_probe),
                    lambda s: ref.onehot_scatter_add(s, rows, idx, v_flt),
-                   state0)
+                   state0, serial)
 
     cm0 = torch.randint(0, 8, (n, d, w), generator=b.gen, device=dev,
                         dtype=torch.int32).to(torch.float32)
@@ -480,6 +535,30 @@ def phase2_countmin(b, n: int, results: dict) -> None:
                                    n_probe=b.n_probe), idx, v_int),
            lambda s: s.index_put_(lib_index, lib_vals, accumulate=True),
            cm0, t * 8 + TABLE_B * slots + batch_b + state_b, n_upd)
+    # the add chains and the split by kernel, as for RHP
+    n_runs, longest = onehot_matmul.runs_of(rows, n)
+    floor_ms, mhz = chain_floor_ms(longest)
+    groups = {"probe_kernel": "probe", "sort_": "sort", "Memset": "sort",
+              "gather_kernel": "gather", "walk_kernel": "walk"}
+    for name, fn in (("onehot_scatter_add",
+                      lambda s: onehot_matmul.onehot_scatter_add(
+                          s, rows, idx, v_int)),
+                     ("onehot_probe_scatter",
+                      lambda s: onehot_matmul.onehot_probe_scatter(
+                          s, b.klo, b.khi, b.trows, b.slo, b.shi, idx, v_int,
+                          n_probe=b.n_probe))):
+        k = cm0.clone()
+        split = device_split(lambda: fn(k), groups, "other")
+        del k
+        r = results[name]
+        r.update(longest_run=longest, runs=n_runs, chain_floor_ms=floor_ms,
+                 split_device_ms=split)
+        print(f"[phase2] {name}: {n_runs} runs, longest {longest} tuples, "
+              f"chain floor {floor_ms:.5f} ms ({FADD_CYCLES} cycles an add "
+              f"at {mhz:.0f} MHz) beside the bound {r['bound_ms']:.5f} ms; "
+              f"device ms by kernel: " + ", ".join(
+                  f"{g} {ms:.4f}" for g, ms in sorted(
+                      split.items(), key=lambda kv: -kv[1])), flush=True)
     del cm0
     free()
 
@@ -737,11 +816,7 @@ def phase2_rhp(b, n: int, results: dict) -> None:
     # the add chains: the longest run's adds are one dependent chain (the
     # byte contract), FADD_CYCLES each at the card's top SM clock
     n_long, longest = rhp_project.long_runs_of(rows, n)
-    mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        check=True).stdout.split()[0])
-    floor_ms = longest * FADD_CYCLES / (mhz * 1e6) * 1e3
+    floor_ms, mhz = chain_floor_ms(longest)
     groups = {"probe_kernel": "probe", "products_kernel": "products",
               "short_kernel": "short walk", "long_kernel": "long walk"}
     for name, fn in (("rhp_project_update", project(v_int)),
@@ -1672,11 +1747,12 @@ def main() -> None:
         require(launches[name] > 0, f"{name} was not launched on the main "
                                     f"path (phase 3, 3b's correlation step "
                                     f"or phase 4)")
-    fresh = timings["onehot_scatter_add@fresh"]
-    require(fresh["device_ms"] <= fresh["library_device_ms"],
-            f"the CountMin one-row launch takes {fresh['device_ms']:.4f} ms "
-            f"of device time, above the library call's "
-            f"{fresh['library_device_ms']:.4f} ms")
+    for name in ("onehot_scatter_add", "onehot_probe_scatter",
+                 "onehot_scatter_add@fresh"):
+        r = timings[name]
+        require(r["device_ms"] <= r["library_device_ms"],
+                f"{name} takes {r['device_ms']:.4f} ms of device time, "
+                f"above the library call's {r['library_device_ms']:.4f} ms")
 
     kernels = []
     for name, (_, _, src, replaced) in ENTRY_POINTS.items():
@@ -1690,11 +1766,12 @@ def main() -> None:
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             device_ms=r["device_ms"], plain_device_ms=r["plain_device_ms"],
             library_device_ms=r["library_device_ms"]))
-        if "chain_floor_ms" in r:       # RHP: its add chains and the split
-            kernels[-1].update(
-                long_runs_phase3=launches[f"{name}.long_runs"], **{
-                    k: r[k] for k in ("longest_run", "long_runs",
-                                      "chain_floor_ms", "split_device_ms")})
+        # CountMin and RHP: their add chains and the split by kernel
+        kernels[-1].update({k: r[k] for k in (
+            "longest_run", "runs", "long_runs", "chain_floor_ms",
+            "split_device_ms") if k in r})
+        if f"{name}.long_runs" in launches:
+            kernels[-1]["long_runs_phase3"] = launches[f"{name}.long_runs"]
         large = timings.get(f"{name}@{1 << 20}")
         if large is not None:       # the same kernel at S = 2**20 rows
             kernels[-1][f"at_{1 << 20}"] = {

@@ -1,0 +1,296 @@
+// Stable counting sort of a batch's routed rows, for Hopper (sm_90a).
+//
+// Groups a batch by row for a walk that sums each row's tuples in batch
+// order. Given rows [T] i32, it writes the tuples whose row lies in
+// [0, n), ordered by row and, within a row, by batch index:
+//
+//   srow [T'] i32  the rows in ascending order
+//   perm [T'] i32  the batch index of each sorted position
+//   count          T', the tuples kept (on the card: the host never waits)
+//
+// It is an LSD radix sort over the ceil(log2 n) bits a row can have, in
+// passes of at most kMaxDigitBits (9) bits of equal width: n = 131,072
+// takes 2 passes of 9 bits, n = 2**18 + 1 takes 3 of 7. Each pass is two
+// launches on the caller's stream:
+//   1. hist: each block counts the digits of its tile of kSortTile tuples
+//      (shared-memory counts, one add per group of equal digits a warp)
+//      into hist [block, digit], and adds them into the pass's digit
+//      totals and into its group's [digit] sums (integer atomics; a group
+//      is kGroup blocks);
+//   2. scatter: each block finds where its tuples of each digit begin in
+//      the pass's output (thread g: the total of digit g, and its tuples
+//      in the groups and then the blocks of its own group before this
+//      block, a warp reading a row's 128 bytes at once; the block scans
+//      the totals over the digits), ranks its tile again and writes every
+//      tuple to its position. The first pass's block 0 also writes T'.
+// The rank is stable by construction, with no atomic deciding a position:
+// a block's tile is one slice of kWarpTile consecutive tuples a warp; a
+// warp ranks 32 tuples at a time (the lanes of a digit from one vote a
+// digit bit, then __popc(peers & the lanes below)) on top of its own
+// per-digit counts in shared memory, and a prefix of those counts over
+// the warps puts warp w's tuples after those of warps 0 .. w - 1. So
+// equal rows keep batch order.
+// The first pass drops the tuples outside [0, n).
+//
+// Scratch (SortScratch, from the caller's int32 words) holds the count,
+// the [block, digit] counts, each pass's totals and group sums (set to 0
+// by one memset a call) and two (rows, batch index) buffers that the
+// passes alternate between; the last pass always writes srow and perm.
+// Nothing is allocated here.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace sde {
+namespace {
+
+constexpr int kSortThreads = 512;
+constexpr int kSortWarps = kSortThreads / 32;
+constexpr int kSortItems = 2;                         // tuples a lane ranks
+constexpr int kWarpTile = 32 * kSortItems;            // a warp's, consecutive
+constexpr int kSortTile = kSortThreads * kSortItems;  // a block's
+constexpr int kMaxDigitBits = 9;
+constexpr int kMaxRadix = 1 << kMaxDigitBits;
+constexpr int kMaxPasses = (31 + kMaxDigitBits - 1) / kMaxDigitBits;
+constexpr int kGroup = 8;                             // blocks a group
+constexpr unsigned kSortAll = 0xffffffffu;
+
+__host__ __device__ inline long long round32(long long x) {
+  return (x + 31) / 32 * 32;
+}
+
+// The caller's scratch: int32 words from a 128-byte aligned base, laid out
+// by sort_scratch(): count (padded to 32 words), the [block, digit]
+// counts, each pass's [1 + groups, digit] sums (row 0 the totals), then
+// srow, perm and the second pair, cap = T rounded up to 32 words each.
+struct SortScratch {
+  int32_t* count;
+  int32_t* hist;
+  int32_t* sums;
+  long long sums_words;          // all passes'
+  int groups;
+  int32_t* srow;
+  int32_t* perm;
+  int32_t* keys2;
+  int32_t* perm2;
+  long long cap;
+  int blocks;
+};
+
+inline int sort_blocks(int T) { return (T + kSortTile - 1) / kSortTile; }
+inline int sort_groups(int T) {
+  return (sort_blocks(T) + kGroup - 1) / kGroup;
+}
+inline long long sort_sums_words(int T) {
+  return (long long)kMaxPasses * (1 + sort_groups(T)) * kMaxRadix;
+}
+
+// word offsets: srow (count is at 0, hist at 32, sums after it), and the
+// whole scratch
+inline long long sort_srow_word(int T) {
+  return 32 + round32((long long)kMaxRadix * sort_blocks(T)) +
+         sort_sums_words(T);
+}
+
+inline long long sort_words(int T) {
+  return sort_srow_word(T) + 4 * round32(T);
+}
+
+inline SortScratch sort_scratch(int32_t* base, int T) {
+  SortScratch s;
+  s.blocks = sort_blocks(T);
+  s.cap = round32(T);
+  s.count = base;
+  s.hist = base + 32;
+  s.groups = sort_groups(T);
+  s.sums = s.hist + round32((long long)kMaxRadix * s.blocks);
+  s.sums_words = sort_sums_words(T);
+  int32_t* const p = base + sort_srow_word(T);
+  s.srow = p;
+  s.perm = p + s.cap;
+  s.keys2 = p + 2 * s.cap;
+  s.perm2 = p + 3 * s.cap;
+  return s;
+}
+
+// For a kept lane: the kept lanes of the warp whose digit is its own, from
+// one vote a digit bit (a vote costs the same whatever the digits, unlike
+// __match_any_sync, whose time grows with the distinct values it sees).
+__device__ __forceinline__ unsigned peers_of(bool keep, int dg, int bits) {
+  unsigned peers = __ballot_sync(kSortAll, keep);
+  for (int b = 0; b < bits; ++b) {
+    const bool on = (dg >> b) & 1;
+    const unsigned m = __ballot_sync(kSortAll, on);
+    peers &= on ? m : ~m;
+  }
+  return peers;
+}
+
+// Tuple i of block b's tile is b * kSortTile + w * kWarpTile + r * 32 + lane
+// for warp w and round r: a warp's kWarpTile tuples are consecutive.
+__device__ __forceinline__ long long tile_base() {
+  return (long long)blockIdx.x * kSortTile + (threadIdx.x >> 5) * kWarpTile +
+         (threadIdx.x & 31);
+}
+
+// Step 1. The pass's input is the batch's rows (first: T tuples, those in
+// [0, n) kept) or the previous pass's output (*count tuples, all kept).
+__global__ void __launch_bounds__(kSortThreads)
+sort_hist_kernel(const int32_t* __restrict__ keys, int n, int T,
+                 const int32_t* __restrict__ count, bool first, int shift,
+                 int bits, int32_t* __restrict__ hist,
+                 int32_t* __restrict__ sums) {
+  __shared__ int s_hist[kMaxRadix];
+  const int radix = 1 << bits;
+  const int lane = threadIdx.x & 31;
+  for (int i = threadIdx.x; i < radix; i += kSortThreads) s_hist[i] = 0;
+  const long long len = first ? T : *count;
+  const long long i0 = tile_base();
+  int key[kSortItems];
+#pragma unroll
+  for (int r = 0; r < kSortItems; ++r) {
+    key[r] = i0 + r * 32 < len ? __ldg(keys + i0 + r * 32) : -1;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kSortItems; ++r) {
+    const bool keep = i0 + r * 32 < len && key[r] >= 0 && key[r] < n;
+    const int dg = (key[r] >> shift) & (radix - 1);
+    const unsigned peers = peers_of(keep, dg, bits);
+    if (keep && (peers & ((1u << lane) - 1u)) == 0u) {
+      atomicAdd(&s_hist[dg], __popc(peers));
+    }
+  }
+  __syncthreads();
+  int32_t* const group = sums + (1 + blockIdx.x / kGroup) * kMaxRadix;
+  for (int i = threadIdx.x; i < radix; i += kSortThreads) {
+    const int c = s_hist[i];
+    hist[(long long)blockIdx.x * kMaxRadix + i] = c;
+    if (c != 0) {
+      atomicAdd(sums + i, c);
+      atomicAdd(group + i, c);
+    }
+  }
+}
+
+// Step 2. Where each digit of this block begins, then the ranks: each
+// kept tuple (row, batch index) goes to that place + the tuples of its
+// digit in the warps before its own + its rank in its warp. perm ==
+// nullptr: the first pass, whose batch index is the position.
+__global__ void __launch_bounds__(kSortThreads)
+sort_scatter_kernel(const int32_t* __restrict__ keys,
+                    const int32_t* __restrict__ perm, int n, int T,
+                    int32_t* __restrict__ count, int shift, int bits,
+                    const int32_t* __restrict__ hist,
+                    const int32_t* __restrict__ sums,
+                    int32_t* __restrict__ keys_out,
+                    int32_t* __restrict__ perm_out) {
+  __shared__ int s_cnt[kSortWarps][kMaxRadix];  // a warp's counts by digit
+  __shared__ int s_base[kMaxRadix];             // where the digit begins
+  __shared__ int s_sum[kSortWarps];
+  const bool first = perm == nullptr;
+  const int radix = 1 << bits;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = threadIdx.x;                    // radix <= kSortThreads
+  for (int i = lane; i < radix; i += 32) s_cnt[warp][i] = 0;
+  const long long len = first ? T : *count;
+  const long long i0 = tile_base();
+  int key[kSortItems], tix[kSortItems], dg[kSortItems], rank[kSortItems];
+#pragma unroll
+  for (int r = 0; r < kSortItems; ++r) {
+    const long long i = i0 + r * 32;
+    key[r] = i < len ? __ldg(keys + i) : -1;
+    tix[r] = first ? (int)i : (i < len ? __ldg(perm + i) : 0);
+  }
+  // digit g: its tuples in all blocks, and in the blocks before this one
+  // (the groups before this block's, then its group's blocks before it)
+  int total = 0, before = 0;
+  if (g < radix) {
+    const int grp = blockIdx.x / kGroup;
+    total = sums[g];
+    for (int q = 0; q < grp; ++q) before += sums[(1 + q) * kMaxRadix + g];
+    for (int b = grp * kGroup; b < (int)blockIdx.x; ++b) {
+      before += hist[(long long)b * kMaxRadix + g];
+    }
+  }
+  int x = total;                                // inclusive over the warp
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kSortAll, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) s_sum[warp] = x;
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < kSortItems; ++r) {
+    const bool keep = i0 + r * 32 < len && key[r] >= 0 && key[r] < n;
+    dg[r] = keep ? (key[r] >> shift) & (radix - 1) : -1;
+    const unsigned peers = peers_of(keep, dg[r], bits);
+    const unsigned below = peers & ((1u << lane) - 1u);
+    const int seen = keep ? s_cnt[warp][dg[r]] : 0;
+    __syncwarp();                  // every peer read before the count moves
+    if (keep && below == 0u) s_cnt[warp][dg[r]] = seen + __popc(peers);
+    __syncwarp();
+    rank[r] = seen + __popc(below);
+  }
+  __syncthreads();
+  if (g < radix) {
+    int run = x - total;                        // exclusive, then warps'
+    for (int w = 0; w < warp; ++w) run += s_sum[w];
+    s_base[g] = run + before;
+    if (first && blockIdx.x == 0 && g == radix - 1) *count = run + total;
+  }
+  // per digit, the tuples of the warps before each warp
+  if (g < radix) {
+    int run = 0;
+    for (int w = 0; w < kSortWarps; ++w) {
+      const int c = s_cnt[w][g];
+      s_cnt[w][g] = run;
+      run += c;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kSortItems; ++r) {
+    if (dg[r] < 0) continue;
+    const int pos = s_base[dg[r]] + s_cnt[warp][dg[r]] + rank[r];
+    keys_out[pos] = key[r];
+    perm_out[pos] = tix[r];
+  }
+}
+
+// Sort rows [T] (rows outside [0, n) dropped) into s.srow / s.perm, T' into
+// *s.count, on `stream`. Returns the launches' error.
+inline cudaError_t sort_rows(const int32_t* rows, int n, int T,
+                             const SortScratch& s, cudaStream_t stream) {
+  const int nbits = n > 1 ? 32 - __builtin_clz((unsigned)(n - 1)) : 0;
+  const int passes =
+      nbits > 0 ? (nbits + kMaxDigitBits - 1) / kMaxDigitBits : 1;
+  const int bits = (nbits + passes - 1) / passes;
+  const cudaError_t zero = cudaMemsetAsync(
+      s.sums, 0, sizeof(int32_t) * s.sums_words, stream);
+  if (zero != cudaSuccess) return zero;
+  for (int p = 0; p < passes; ++p) {
+    const bool first = p == 0;
+    // the passes alternate buffers so that the last one writes srow / perm
+    const bool to_main = (passes - 1 - p) % 2 == 0;
+    const int32_t* in_k = first ? rows : (to_main ? s.keys2 : s.srow);
+    const int32_t* in_p = first ? nullptr : (to_main ? s.perm2 : s.perm);
+    int32_t* const out_k = to_main ? s.srow : s.keys2;
+    int32_t* const out_p = to_main ? s.perm : s.perm2;
+    const int shift = p * bits;
+    int32_t* const sums = s.sums + (long long)p * (1 + s.groups) * kMaxRadix;
+    sort_hist_kernel<<<s.blocks, kSortThreads, 0, stream>>>(
+        in_k, n, T, s.count, first, shift, bits, s.hist, sums);
+    sort_scatter_kernel<<<s.blocks, kSortThreads, 0, stream>>>(
+        in_k, in_p, n, T, s.count, shift, bits, s.hist, sums, out_k, out_p);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace
+}  // namespace sde

@@ -8,13 +8,21 @@ scatter written by hand in ``csrc/countmin_scatter.cu``:
 
     counts[s, j, idx[t, j]] += values[t] * signs[t, j]   for syn[t] == s
 
+On the main path (d * n >= 1024) the source groups the batch by row
+with a stable counting sort of its own (``csrc/row_sort.cuh``), gathers
+each sorted tuple's buckets and weights into sorted order (recording
+each run's end), then one warp per (32 sorted positions, depth row) adds
+the runs that start there, each element by one thread in batch order. Smaller stacks (the
+data-source fresh sketch) take a launch over bucket ranges. The wrapper
+allocates the scratch (``cm_layout``); no launch allocates or waits.
+
 Both entry points update ``counts`` in place (the reference aliases the
 state operand to its output, ``input_output_aliases={0: 0}``) and need no
-padding: the kernel masks its own ragged edge.
+padding: the kernels mask their own ragged edge.
 
 On a CPU tensor each wrapper runs the plain version (``ref.py``, with the
-probe from ``probe.py``). On a CUDA tensor it launches the kernel or
-raises. ``<wrapper>.launches`` counts kernel launches, and
+probe from ``probe.py``). On a CUDA tensor it launches the kernels or
+raises. ``<wrapper>.launches`` counts calls that launched them, and
 ``onehot_scatter_add.one_row_launches`` those on a one-row state.
 """
 from __future__ import annotations
@@ -29,14 +37,58 @@ from . import build, probe, ref
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "cm_scatter": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _P),
+    "cm_layout": (_I, _I, _I, _P),
+    "cm_scatter": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P),
     "cm_probe_scatter": (_P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P,
-                         _P, _P, _P, _I, _P),
+                         _P, _P, _P, _I, _P, _P),
+    "cm_sort_rows": (_P, _I, _I, _P, _P),
 }
 
 
 def _lib():
     return build.load("countmin_scatter", _SIGNATURES)
+
+
+def _scratch(n: int, d: int, t: int, device: torch.device):
+    """The scratch of a call (int32 words, laid out by the source; none for
+    the bucket-range launch; d = 0: the sort's alone) and the word offsets
+    of the sort's count, rows and batch indices."""
+    off = (ctypes.c_longlong * 4)()
+    build.check_launch(_lib().cm_layout(n, d, t, ctypes.addressof(off)),
+                       "cm_layout")
+    scratch = torch.empty((off[3],), dtype=torch.int32, device=device)
+    return scratch, tuple(off[:3])
+
+
+def runs_of(rows: torch.Tensor, n: int) -> tuple:
+    """(runs, longest run) of a batch's routed rows ``rows`` [T] on a stack
+    of ``n`` rows: the rows the walk visits, and the tuples of the hottest
+    one, whose adds at one depth row form the longest add chain where they
+    share a bucket (a stream's tuples do). Synchronises; for checks, not
+    for the path."""
+    kept = rows[(rows >= 0) & (rows < n)].long()
+    if kept.numel() == 0:
+        return 0, 0
+    counts = torch.bincount(kept, minlength=n)
+    return int((counts > 0).sum()), int(counts.max())
+
+
+def sort_rows(rows: torch.Tensor, n: int) -> tuple:
+    """The kernels' stable row sort alone, on the card: (srow, perm) of the
+    tuples whose row lies in [0, n), ordered by row and then by batch
+    index (``torch.sort(stable=True)`` of those rows and their indices).
+    Synchronises; for tests, not for the path."""
+    build.require_cuda(rows)
+    t = rows.shape[0]
+    build.check(rows, "rows", torch.int32, (t,), rows.device)
+    if t == 0 or n <= 0:
+        return rows[:0], rows[:0]
+    scratch, (c, r, p) = _scratch(n, 0, t, rows.device)
+    err = _lib().cm_sort_rows(rows.data_ptr(), n, t, scratch.data_ptr(),
+                              build.stream(rows.device))
+    build.check_launch(err, "cm_sort_rows")
+    k = int(scratch[c])
+    return scratch[r:r + k], scratch[p:p + k]
 
 
 def _check_batch(counts, idx, values, signs, t):
@@ -65,9 +117,11 @@ def onehot_scatter_add(counts: torch.Tensor, syn_idx: torch.Tensor,
     if t == 0:
         return counts
     n, d, w = counts.shape
+    scratch, _ = _scratch(n, d, t, counts.device)
     err = _lib().cm_scatter(
         counts.data_ptr(), n, d, w, syn_idx.data_ptr(), idx.data_ptr(),
-        values.data_ptr(), build.ptr(signs), t, build.stream(counts.device))
+        values.data_ptr(), build.ptr(signs), t, scratch.data_ptr(),
+        build.stream(counts.device))
     build.check_launch(err, "cm_scatter")
     onehot_scatter_add.launches += 1
     onehot_scatter_add.one_row_launches += n == 1
@@ -101,12 +155,13 @@ def onehot_probe_scatter(counts: torch.Tensor, keys_lo: torch.Tensor,
     if t == 0:
         return counts
     n, d, w = counts.shape
-    scratch = torch.empty((t,), dtype=torch.int32, device=counts.device)
+    rows = torch.empty((t,), dtype=torch.int32, device=counts.device)
+    scratch, _ = _scratch(n, d, t, counts.device)
     err = _lib().cm_probe_scatter(
         counts.data_ptr(), n, d, w, keys_lo.data_ptr(), keys_hi.data_ptr(),
         table_rows.data_ptr(), size, sid_lo.data_ptr(), sid_hi.data_ptr(),
-        int(n_probe), scratch.data_ptr(), idx.data_ptr(), values.data_ptr(),
-        build.ptr(signs), t, build.stream(counts.device))
+        int(n_probe), rows.data_ptr(), idx.data_ptr(), values.data_ptr(),
+        build.ptr(signs), t, scratch.data_ptr(), build.stream(counts.device))
     build.check_launch(err, "cm_probe_scatter")
     onehot_probe_scatter.launches += 1
     return counts

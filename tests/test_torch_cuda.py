@@ -11,7 +11,11 @@ runs ending on and one past a ring stage, a hot run of ~8k tuples, and
 float weights byte-identical to the CPU's serial sum; for CountMin's
 small-stack bucket-range launch (d * n < 1024, the data-source fresh
 sketch) n = 1 to 3 at depths 1, 5 and 12, byte-equal to the CPU's serial
-scatter even for float weights; for the sliding-DFT tick odd S, F = 1,
+scatter even for float weights; for its main path (the row sort, then a
+walk of each run) runs of 1 to ~8k tuples across chunk boundaries,
+interleaved buckets, d = 1 and 30, stacks of 2**17 + 1 and 2**18 + 1 rows,
+byte-equal to a serial batch-order loop, and the sort itself against
+``torch.sort(stable=True)``; for the sliding-DFT tick odd S, F = 1,
 all or no rows masked, and the interleaved in-place planes the engine
 passes, byte for byte; for the pairwise correlation N = 1 to 5,000 with
 ragged tiles and K from 1 to 40, the same bytes in two runs, and an N
@@ -487,6 +491,117 @@ def test_rhp_wrappers_count_launches_and_reject_bad_operands(dev):
     with pytest.raises(TypeError):
         fn(state, rows, vals.double(), signs)
     assert fn.launches == l0 + 2
+
+
+def _serial_countmin(counts0, rows, idx, vals, signs):
+    """The batch's adds one at a time, in batch order, in float32
+    (``np.add.at`` adds repeated indices in order); zero weights skipped,
+    as the kernels skip them."""
+    n, d, w = counts0.shape
+    out = counts0.copy().reshape(-1)
+    keep = (rows >= 0) & (rows < n)
+    for j in range(d):
+        v = vals if signs is None else (vals * signs[:, j]).astype(np.float32)
+        k = keep & (v != 0)
+        np.add.at(out, (rows[k].astype(np.int64) * d + j) * w + idx[k, j],
+                  v[k])
+    return out.reshape(counts0.shape)
+
+
+# (n, d, w, run lengths or a Zipf batch of t tuples): runs of 1 to 257 and
+# ~8k tuples (crossing 32-position chunks everywhere, rows -1 and n
+# between), a Zipf(1.1) batch whose hot rows spread over 3 interleaved
+# buckets, d = 1 and d = 30 with T no multiple of 32, and the stacks whose
+# rows take 17 and 19 bits (n = 2**17 + 1, 2**18 + 1: 2 and 3 sort passes)
+CM_CASES = [(64, 5, 64, [8190, 1, 31, 32, 33, 255, 256, 257, 40]),
+            (300, 5, 2048, 20000), (2048, 1, 64, 4987), (64, 30, 16, 3001),
+            (2**17 + 1, 1, 16, [9000, 33, 1]), (2**18 + 1, 2, 8, 9001)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,w,spec", CM_CASES,
+                         ids=[f"{n}-{d}-{w}" for n, d, w, _ in CM_CASES])
+@pytest.mark.parametrize("signed", [False, True], ids=["cm", "sketch"])
+def test_countmin_walk_sums_in_batch_order(dev, n, d, w, spec, signed):
+    """The main path (d * n >= 1024: the row sort, then one warp per 32
+    sorted positions and depth row): integer weights exact; float weights
+    the same bytes on two runs and a serial batch-order loop's bytes, for
+    both entry points, with one launch a call. Several runs cross each
+    32-position chunk; the hot rows' buckets interleave, so a step holds
+    several elements and the carried one comes and goes."""
+    rng = np.random.RandomState(n + d + w)
+    pop, (klo, khi, trows, n_probe) = _table(rng, min(n, 4096), dev)
+    c = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    if isinstance(spec, list):
+        rows = _run_rows(rng, min(n, 4096), spec, noise=300, invalid=True)
+        rows = np.where(rows == min(n, 4096) - 1, n - 1, rows)   # top row
+        rows = np.where(rows == min(n, 4096), n, rows).astype(np.int32)
+    else:
+        p = 1.0 / np.arange(1, n + 1) ** 1.1
+        rows = rng.choice(n, spec, p=p / p.sum()).astype(np.int32)
+        rows[rng.rand(spec) < 0.05] = -1
+        rows[rng.rand(spec) < 0.05] = n
+    t = rows.shape[0]
+    # a stream's buckets, or (Zipf batches) one of 3 per row, interleaved
+    idx = (rows[:, None].astype(np.int64) * 7919 + 13 * np.arange(d)) % w
+    if not isinstance(spec, list):
+        idx = (idx + rng.randint(0, 3, (t, 1))) % w
+    idx = idx.astype(np.int32)
+    signs = (np.where(rng.rand(t, d) > 0.5, 1.0, -1.0).astype(np.float32)
+             if signed else None)
+    # the fused entry: routed ids for the rows of the table's stack (rows
+    # -1 and n and the rows past it unrouted)
+    fused = n <= 4096
+    if fused:
+        sids = np.where((rows >= 0) & (rows < n),
+                        pop[np.clip(rows, 0, n - 1)], (1 << 62) + 12345)
+        lo, hi = routing.split64(sids)
+        slo, shi = c(lo.view(np.int32)), c(hi.view(np.int32))
+    counts0 = rng.randint(0, 4, (n, d, w)).astype(np.float32)
+    sg = None if signs is None else c(signs)
+    scatter = onehot_matmul.onehot_scatter_add
+    probe_scatter = onehot_matmul.onehot_probe_scatter
+    l0, f0 = scatter.launches, probe_scatter.launches
+    ints = rng.randint(0, 5, t).astype(np.float32)
+    got = scatter(c(counts0), c(rows), c(idx), c(ints), sg)
+    assert torch.equal(got, ref.onehot_scatter_add(c(counts0), c(rows),
+                                                   c(idx), c(ints), sg))
+    vals = (rng.rand(t) * 3).astype(np.float32)
+    vals[rng.rand(t) < 0.05] = 0.0
+    want = _serial_countmin(counts0, rows, idx, vals, signs)
+    a = scatter(c(counts0), c(rows), c(idx), c(vals), sg)
+    b = scatter(c(counts0), c(rows), c(idx), c(vals), sg)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert a.cpu().numpy().tobytes() == want.tobytes()
+    if fused:
+        got_f = probe_scatter(c(counts0), klo, khi, trows, slo, shi, c(idx),
+                              c(vals), sg, n_probe=n_probe)
+        assert got_f.cpu().numpy().tobytes() == want.tobytes()
+    assert (scatter.launches - l0, probe_scatter.launches - f0) == \
+        (3, int(fused))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t", [(1, 100), (2, 1), (1000, 5000),
+                                 (2**17, 65536), (2**17 + 1, 70001),
+                                 (2**18 + 1, 9000)])
+def test_countmin_row_sort_matches_torch_stable_sort(dev, n, t):
+    """The hand-written sort against ``torch.sort(stable=True)`` of the
+    rows in [0, n) (the yardstick, in a test only): the same rows, and
+    equal rows in batch order. Zipf rows, with -1, n and the top row."""
+    rng = np.random.RandomState(n + t)
+    p = 1.0 / np.arange(1, n + 1) ** 1.1
+    rows = rng.choice(n, t, p=p / p.sum()).astype(np.int32)
+    rows[rng.rand(t) < 0.05] = -1
+    rows[rng.rand(t) < 0.05] = n
+    rows[::101] = n - 1
+    r = torch.from_numpy(rows).to(dev)
+    srow, perm = onehot_matmul.sort_rows(r, n)
+    keep = (r >= 0) & (r < n)
+    want_rows, order = torch.sort(r[keep], stable=True)
+    assert torch.equal(srow, want_rows)
+    assert torch.equal(perm.long(), torch.nonzero(keep)[:, 0][order])
 
 
 # the float32 Gram of x ~ 0.1 N(0, 1) over K <= 40 terms, summed in

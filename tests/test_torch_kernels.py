@@ -38,12 +38,18 @@ _KINDS = {
 _MAX_KINDS = ("hyperloglog", "bloom", "fm")  # exact whatever the weights
 
 
-def _inputs(seed, n=24, t=300, float_weights=False):
+def _inputs(seed, n=24, t=300, float_weights=False, zipf=None):
+    """Routed ids over n streams, uniform or (``zipf``) Zipf-distributed
+    over the rows, every 13th unrouted."""
     rng = np.random.RandomState(seed)
     pop = np.unique(rng.randint(0, 2**62, size=4 * n, dtype=np.int64))[:n]
     table = jrouting.RouteTable()
     table.insert_many(pop, np.arange(n, dtype=np.int32))
-    sids = pop[rng.randint(0, n, t)]
+    if zipf is None:
+        sids = pop[rng.randint(0, n, t)]
+    else:
+        p = 1.0 / np.arange(1, n + 1) ** zipf
+        sids = pop[rng.choice(n, t, p=p / p.sum())]
     sids[::13] = int(pop.max()) + 7          # unrouted: must be dropped
     vals = (rng.rand(t) * 4 if float_weights
             else rng.randint(1, 4, t)).astype(np.float32)
@@ -84,10 +90,31 @@ def _check(got, want, exact):
 @pytest.mark.parametrize("name", sorted(_KINDS))
 def test_update_fn_matches_pallas_and_stacked_update(name, float_weights,
                                                      fuse):
+    _check_update_fn(name, _inputs(3, float_weights=float_weights),
+                     float_weights, fuse)
+
+
+@pytest.mark.parametrize("fuse", [True, False], ids=["fused", "unfused"])
+@pytest.mark.parametrize("float_weights", [False, True],
+                         ids=["int_weights", "float_weights"])
+@pytest.mark.parametrize("name", ["cm_unweighted", "cm_weighted"])
+def test_cm_zipf_hot_batch_matches_pallas_and_stacked_update(
+        name, float_weights, fuse):
+    """The batch shape the card's row sort and walk are built for: Zipf(1.1)
+    over 24 streams, so the hottest row takes 256+ tuples (a run the walk
+    carries across many 32-position steps), with unrouted ids (rows -1)."""
+    x = _inputs(5, t=1500, float_weights=float_weights, zipf=1.1)
+    rows = np.asarray(jops.route_probe(*_jax_args(x)[:5],
+                                       n_probe=x["n_probe"]))
+    assert np.bincount(rows[rows >= 0]).max() >= 256
+    assert (rows == -1).any()
+    _check_update_fn(name, x, float_weights, fuse)
+
+
+def _check_update_fn(name, x, float_weights, fuse):
     params, registry_name = _KINDS[name]
     jkind = jcore.make_kind(registry_name, **params)
     tkind = tcore.make_kind(registry_name, **params)
-    x = _inputs(3, float_weights=float_weights)
     ja = _jax_args(x)
     state0 = np.asarray(jbatched.stacked_init(jkind, x["n"]))
 
@@ -139,6 +166,31 @@ def test_cm_plain_drops_minus_one_rows_where_jax_oracle_wraps():
         jnp.asarray(counts0), jnp.asarray(syn), jnp.asarray(idx),
         jnp.asarray(vals), jnp.ones((t, d), jnp.float32)))
     assert not np.array_equal(wrapped[-1], want[-1])    # the hazard is real
+
+
+@pytest.mark.parametrize("batch", ["empty", "all_minus_one", "uniform",
+                                   "zipf"])
+def test_runs_of_matches_numpy(batch):
+    """``onehot_matmul.runs_of`` (the rows the walk visits, and the longest
+    run: the hottest row's add chain) against a numpy bincount of the rows
+    in [0, n), with rows -1 and n dropped."""
+    rng = np.random.RandomState(7)
+    n, t = 500, 20000
+    if batch == "empty":
+        rows = np.zeros(0, np.int32)
+    elif batch == "all_minus_one":
+        rows = np.full(t, -1, np.int32)
+    else:
+        p = 1.0 / np.arange(1, n + 1) ** (1.1 if batch == "zipf" else 0.0)
+        rows = rng.choice(n, t, p=p / p.sum()).astype(np.int32)
+        rows[rng.rand(t) < 0.1] = -1
+        rows[rng.rand(t) < 0.05] = n
+    kept = rows[(rows >= 0) & (rows < n)]
+    counts = np.bincount(kept, minlength=n)
+    want = (int((counts > 0).sum()), int(counts.max()) if kept.size else 0)
+    assert onehot_matmul.runs_of(torch.from_numpy(rows), n) == want
+    if batch == "zipf":
+        assert want[1] > 1000
 
 
 @pytest.mark.smoke
