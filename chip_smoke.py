@@ -43,15 +43,18 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      n and a batch of no multiple of 32. Integer results must match
      exactly; the two float-sum kernels (CM and RHP) under float weights
      to a stated tolerance and byte for byte across two kernel runs, CM's
-     also to a serial float32 loop's bytes on every touched element. The
+     also to a serial float32 loop's bytes on every touched element (CM's
+     fresh sketch too, and at AMS's depth 12 with +-1 signs). The
      CountMin kernels' own row sort must equal ``torch.sort(stable=True)``.
      Times are CUDA-event medians of one call (host enqueue included),
      each with its ``torch.profiler`` device time per call beside it (its
      kernels' summed durations; for RHP, whose kernels run on two streams
      at once, the union of their intervals). The CountMin and RHP rows
      also print their device time by kernel (CM: the probe, the row sort
-     with its memset, the gather, the walk; RHP: the sort, the probe, the
-     products pass, the short and the long walk), the batch's longest run and the chain floor
+     with its memset, the gather, the walk, and for the fresh sketch the
+     key pass; RHP: the sort, the probe, the products pass, the short and
+     the long walk), the batch's longest run (for the fresh sketch, the
+     most entries at one element, and its elements) and the chain floor
      it sets (its adds at FADD_CYCLES each at the card's top SM clock)
      beside the bound; the RHP rows must have
      walked every run of LONG_RUN+ tuples through the ring (the wrappers'
@@ -100,7 +103,8 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      ``library_ms`` by CUDA event; ``device_ms``, ``plain_device_ms``,
      ``library_device_ms`` by ``torch.profiler``; the sliding-DFT row
      adds its S = 2**20 numbers, the CM and RHP rows their split, longest
-     run, chain floor, and CM's runs or RHP's phase-3 long runs), then the
+     run, chain floor, and CM's runs (the fresh sketch's: elements) or
+     RHP's phase-3 long runs), then the
      device line.
 """
 from __future__ import annotations
@@ -126,6 +130,7 @@ FLOAT_RTOL, FLOAT_ATOL = 1e-4, 1e-3   # float sums of up to ~10^4 terms
                                       # taken in another order
 PEAK_LIMIT_GIB = 48.0
 FADD_CYCLES = 4         # a dependent float32 add's latency on the card
+AMS_DEPTH = 12          # AMS(delta=0.05), the reference's default depth
 SRC_BLOOM_ELEMENTS = 1 << 20          # phase 3's data-source Bloom
 # the paper's Figure-6 DFT (benchmarks/fig6_dft_workflow.py)
 FIG6_DFT = {"window": 128, "n_coeffs": 8, "threshold": 0.9,
@@ -449,20 +454,25 @@ def phase2_batch(dev, seed: int, n_streams: int, t: int):
     return b
 
 
-def serial_countmin(state0, rows, idx, v):
+def serial_countmin(state0, rows, idx, v, signs=None):
     """A check that a CountMin state holds, on the elements the batch
     touches, the bytes of a serial loop over the batch in float32 (numpy's
-    ``add.at`` adds repeated indices in order; zero weights skipped, as the
-    kernels skip them) from ``state0``'s values."""
+    ``add.at`` adds repeated indices in order; each weight ``v * sign``
+    rounded on its own, zero weights skipped, as the kernels skip them)
+    from ``state0``'s values."""
     n, d, w = state0.shape
     r, ix, vv = (x.cpu().numpy() for x in (rows, idx, v))
-    keep = (r >= 0) & (r < n) & (vv != 0)
-    flat = np.concatenate([(r[keep].astype(np.int64) * d + j) * w
-                           + ix[keep, j] for j in range(d)])
-    uniq, inv = np.unique(flat, return_inverse=True)
+    sg = None if signs is None else signs.cpu().numpy()
+    flat, wts = [], []
+    for j in range(d):
+        x = vv if sg is None else (vv * sg[:, j]).astype(np.float32)
+        keep = (r >= 0) & (r < n) & (x != 0)
+        flat.append((r[keep].astype(np.int64) * d + j) * w + ix[keep, j])
+        wts.append(x[keep])
+    uniq, inv = np.unique(np.concatenate(flat), return_inverse=True)
     where = torch.from_numpy(uniq).to(state0.device)
     want = state0.view(-1)[where].cpu().numpy()
-    np.add.at(want, inv, np.tile(vv[keep], d))
+    np.add.at(want, inv, np.concatenate(wts))
 
     def check(out):
         got = out.view(-1)[where].cpu().numpy()
@@ -562,19 +572,57 @@ def phase2_countmin(b, n: int, results: dict) -> None:
     del cm0
     free()
 
-    # the data-source fold's fresh sketch: n = 1, every tuple to row 0
+    # the data-source fold's fresh sketch: n = 1, every tuple to row 0,
+    # each entry keyed by its element (d * n < 1024)
+    fresh = lambda v, ix=idx, sg=None: (
+        lambda s: onehot_matmul.onehot_scatter_add(s, b.to_row0, ix, v, sg))
+    fresh_plain = lambda v, ix=idx, sg=None: (
+        lambda s: ref.onehot_scatter_add(s, b.to_row0, ix, v, sg))
+
+    def fresh_float_checks(state0):
+        float_runs("onehot_scatter_add@fresh", fresh(v_flt),
+                   fresh_plain(v_flt), state0,
+                   serial_countmin(state0, b.to_row0, idx, v_flt))
+        # AMS's depth with its +-1 signs: AMS(eps=0.05, delta=0.05), the
+        # reference's defaults, is [12, 2048] with seed 13
+        seeds = hashing.as_u32(hashing.row_seeds(13, AMS_DEPTH))
+        ix12 = hashing.bucket_hash(b.items, seeds, cm.log2_width)
+        sg12 = hashing.sign_hash(b.items, seeds)
+        ams0 = torch.zeros((1, AMS_DEPTH, w), device=dev)
+        float_runs(f"onehot_scatter_add@fresh d={AMS_DEPTH} signed",
+                   fresh(v_flt, ix12, sg12), fresh_plain(v_flt, ix12, sg12),
+                   ams0, serial_countmin(ams0, b.to_row0, ix12, v_flt, sg12))
+
     js_all = torch.arange(d, device=dev)[None, :].expand(idx.shape)
     fresh_index = (torch.zeros_like(idx, dtype=torch.long), js_all,
                    idx.long())
     fresh_vals = v_int[:, None].expand(idx.shape).contiguous()
     fresh_b = 8 * distinct((js_all * w + idx.long())[v_int != 0])
-    record(results, "onehot_scatter_add@fresh",
-           lambda s: onehot_matmul.onehot_scatter_add(s, b.to_row0, idx,
-                                                      v_int),
-           lambda s: ref.onehot_scatter_add(s, b.to_row0, idx, v_int),
+    fresh0 = torch.zeros((1, d, w), device=dev)
+    record(results, "onehot_scatter_add@fresh", fresh(v_int),
+           fresh_plain(v_int),
            lambda s: s.index_put_(fresh_index, fresh_vals, accumulate=True),
-           torch.zeros((1, d, w), device=dev), t * 4 + batch_b + fresh_b,
-           t * d)
+           fresh0, t * 4 + batch_b + fresh_b, t * d,
+           floats=fresh_float_checks)
+    # its runs are elements: how many, the longest chain, and the split
+    n_el, longest = onehot_matmul.element_runs_of(b.to_row0, idx, v_int, 1,
+                                                  w)
+    floor_ms, mhz = chain_floor_ms(longest)
+    k = fresh0.clone()
+    split = device_split(lambda: fresh(v_int)(k),
+                         {"key_kernel": "key", "sort_": "sort",
+                          "Memset": "sort", "gather_kernel": "gather",
+                          "walk_kernel": "walk"}, "other")
+    del k
+    r = results["onehot_scatter_add@fresh"]
+    r.update(longest_run=longest, runs=n_el, chain_floor_ms=floor_ms,
+             split_device_ms=split)
+    print(f"[phase2] onehot_scatter_add@fresh: {n_el} elements, the longest "
+          f"run {longest} entries, chain floor {floor_ms:.5f} ms "
+          f"({FADD_CYCLES} cycles an add at {mhz:.0f} MHz) beside the bound "
+          f"{r['bound_ms']:.5f} ms; device ms by kernel: " + ", ".join(
+              f"{g} {ms:.4f}" for g, ms in sorted(
+                  split.items(), key=lambda kv: -kv[1])), flush=True)
 
 
 def phase2_hll(b, n: int, results: dict) -> None:

@@ -59,18 +59,25 @@
 // What remains above the chain floor: the 6 launches before the walk, and
 // a step's ring wait, vote and copies (~550 cycles a 512-add step).
 //
-// Bucket ranges (bucket_kernel, d * n < 1024; the data-source fresh sketch
-// has n = 1): a run of the whole batch on one row would be one long walk.
-// Instead block (x, y) owns state row y / d, depth row y % d and the 256
-// buckets from x * 256, one per thread of its first 8 warps, so 8 * 5
-// blocks share a [1, 5, 2048] sketch. Each block streams the batch (the
-// next chunk's loads in flight while it walks this one), keeping only the
-// tuples of its own (row, bucket range), compacted in batch order (warp
-// ballot + prefix count over the 32 warps). Per 32-entry step, each entry
-// sets its bit in its owner's mask (a shared-memory atomicOr), and each
-// owner adds its entries lowest bit first, taking their weights by warp
-// shuffle. The owner keeps its element in a register from the first to
-// the last tuple.
+// Small stacks (d * n < 1024; the data-source fresh sketch has n = 1):
+// grouped by row, the batch would be one run a depth row, walked by one
+// warp. So the route keys each entry by its element instead:
+//   * key_kernel: entry e = t * d + j (one thread each) gets its element's
+//     flat offset (rows[t] * d + j) * w + idx[t, j], or -1 where it adds
+//     nothing, and its weight v * sign rounded on its own.
+//   * The same stable sort over the n * d * w keys (10,240 at the fresh
+//     sketch: 2 passes of 7 bits) orders the entries by element and,
+//     within an element, by e: batch order, since an element's entries
+//     share j.
+//   * gather_kernel and walk_kernel as above with d = w = 1: every run is
+//     one element, so the hot element's run (a stream's tuples share one
+//     bucket a depth row) takes the walk's 512-add steps, and the d depth
+//     rows' hot elements are walked at once by d warps. The gather also
+//     lists the chunks whose last run holds kLongRun (2,048) entries or
+//     more, and the walk's first kLongWarps warps take them: so those
+//     walks start with the grid, not after the ~10,000 chunk warps before
+//     them (the walk's blocks hold 32 KB of ring each, 7 to an SM).
+// A small stack whose keys or entries pass 2**30 - 1 takes the row route.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -80,18 +87,18 @@
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
-static_assert(kWarps == 32, "the warp-count scan uses one warp");
+constexpr int kMaxDepth = 1024;
+constexpr long long kSmallStack = 1024;  // d * n below it: keyed by element
+constexpr long long kMaxKeyed = (1LL << 30) - 1;  // keys and entries
 constexpr int kProbeThreads = 256;
-constexpr int kRange = 256;      // the buckets a bucket_kernel block owns
-static_assert(kRange % 32 == 0 && kRange <= kThreads, "whole owner warps");
 constexpr int kGatherThreads = 256;
 constexpr int kWalkWarps = 2;    // walk_kernel warps a block
 constexpr int kStep = 512;       // sorted positions a continuation step
 constexpr int kSub = kStep / 32;           // a lane's positions in a step
 constexpr int kRing = 4;         // a walk warp's ring stages
 constexpr int kStage = 2 * kStep;          // words: buckets, weights
+constexpr int kLongRun = 4 * kStep;   // a run the long list takes
+constexpr int kLongWarps = 32;        // the walk warps of the long list
 constexpr unsigned kFull = 0xffffffffu;
 
 __global__ void probe_kernel(const uint32_t* __restrict__ keys_lo,
@@ -107,35 +114,16 @@ __global__ void probe_kernel(const uint32_t* __restrict__ keys_lo,
   }
 }
 
-// Block-wide stream compaction in batch order (warp ballot + prefix count
-// over the 32 warps): returns how many threads of the block keep, and in
-// *slot each keeping thread's rank among them. Callers sync before the
-// next call reuses s_warp.
-__device__ __forceinline__ int compact(bool keep, int* s_warp, int* slot) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const unsigned ballot = __ballot_sync(0xffffffffu, keep);
-  if (lane == 0) s_warp[warp] = __popc(ballot);
-  __syncthreads();
-  if (warp == 0) {
-    int c = s_warp[lane];
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, c, o);
-      if (lane >= o) c += y;
-    }
-    s_warp[lane] = c;
-  }
-  __syncthreads();
-  *slot = (warp ? s_warp[warp - 1] : 0) + __popc(ballot & ((1u << lane) - 1u));
-  return s_warp[kWarps - 1];
-}
-
 // After the sort: for each sorted position p and depth row j, the bucket
 // sidx[j, p] and the weight sval[j, p], v * sign rounded on its own, so
 // that a walk's loads depend on p alone; where the walk adds nothing (a
 // zero weight, or a bucket outside [0, w)), -1 and -0.0, which leaves any
 // float as it is when added. The last position of each run records the
-// run's end under its row (run_end [n]). One thread a position.
+// run's end under its row (run_end [n]). One thread a position. For the
+// element-keyed route (d = w = 1, the key is the element) idx is null:
+// every bucket is 0, and values holds the rounded weights by entry; and
+// the first position of each run of kLongRun or more appends its chunk to
+// long_list (*n_long entries, zeroed by the key pass).
 __global__ void __launch_bounds__(kGatherThreads)
 gather_kernel(const int32_t* __restrict__ srow,
               const int32_t* __restrict__ perm,
@@ -144,7 +132,8 @@ gather_kernel(const int32_t* __restrict__ srow,
               const float* __restrict__ values,
               const float* __restrict__ signs, int32_t* __restrict__ sidx,
               float* __restrict__ sval, long long cap,
-              int32_t* __restrict__ run_end) {
+              int32_t* __restrict__ run_end, int32_t* __restrict__ long_list,
+              int32_t* __restrict__ n_long) {
   const long long p = (long long)blockIdx.x * kGatherThreads + threadIdx.x;
   const long long len = *count;
   if (p >= len) return;
@@ -152,11 +141,15 @@ gather_kernel(const int32_t* __restrict__ srow,
   if (p + 1 == len || __ldg(srow + p + 1) != row) {
     run_end[row] = (int32_t)(p + 1);
   }
+  if (long_list != nullptr && (p == 0 || __ldg(srow + p - 1) != row) &&
+      p + kLongRun <= len && __ldg(srow + p + kLongRun - 1) == row) {
+    long_list[atomicAdd(n_long, 1)] = (int32_t)(p / 32);
+  }
   const int t = __ldg(perm + p);
   const float v = __ldg(values + t);
   for (int j = 0; j < d; ++j) {
     const long long tj = (long long)t * d + j;
-    const int b = __ldg(idx + tj);
+    const int b = idx != nullptr ? __ldg(idx + tj) : 0;
     const float x = signs != nullptr ? __fmul_rn(v, __ldg(signs + tj)) : v;
     const bool adds = x != 0.0f && b >= 0 && b < w;
     sidx[j * cap + p] = adds ? b : -1;
@@ -260,27 +253,21 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
-// One warp per (chunk c of 32 sorted positions, depth row j): block B
-// holds chunks 4 (B / d) .. + 3 at depth row B % d, so a chunk's d warps
-// sit on d consecutive blocks, started at once on d SMs. A warp takes the
-// runs that start in its chunk and walks the last one to its end. srow
-// [cap] and sidx / sval [d, cap] are the sort's and the gather's output
-// (*count positions).
-__global__ void __launch_bounds__(kWalkWarps * 32)
-walk_kernel(float* __restrict__ counts, int d, int w,
-            const int32_t* __restrict__ srow,
-            const int32_t* __restrict__ sidx,
-            const float* __restrict__ sval, long long cap,
-            const int32_t* __restrict__ run_end,
-            const int32_t* __restrict__ count, long long chunks) {
-  __shared__ __align__(16) int32_t ring[kWalkWarps][kRing * kStage];
+// One warp's walk of the chunk of 32 sorted positions from c0 at depth row
+// j: it takes the runs that start in the chunk and walks the last one to
+// its end, through its ring `my`. srow [cap] and sidx / sval [d, cap] are
+// the sort's and the gather's output (len positions). With kSkipLong it
+// leaves a chunk whose last run is long (kLongRun positions or more,
+// judged as the gather judges it) to the long list's warps.
+template <bool kSkipLong>
+__device__ __forceinline__ void walk_chunk(
+    float* __restrict__ counts, int d, int w, int j, long long c0,
+    const int32_t* __restrict__ srow, const int32_t* __restrict__ sidx,
+    const float* __restrict__ sval, long long cap,
+    const int32_t* __restrict__ run_end, long long len,
+    int32_t* __restrict__ my) {
   const int lane = threadIdx.x & 31;
-  const int wib = threadIdx.x >> 5;
-  const int j = (int)(blockIdx.x % d);
-  const long long c0 = ((long long)blockIdx.x / d * kWalkWarps + wib) * 32;
-  if (c0 >= chunks * 32) return;               // uniform across the warp
-  const long long len = *count;
-  if (c0 >= len) return;
+  if (c0 >= len) return;                       // uniform across the warp
   const int32_t* const bj = sidx + j * cap;
   const float* const vj = sval + j * cap;
   // one round of independent loads: the chunk and the row before it
@@ -298,6 +285,12 @@ walk_kernel(float* __restrict__ counts, int d, int w,
   const long long key = active ? element(row, d, j, w, b) : -1 - lane;
   const float pre = active ? counts[key] : 0.0f;
   const int32_t r0 = __shfl_sync(kFull, row, 31);
+  if (kSkipLong) {
+    const long long ls = c0 + 31 - __clz(starts);   // the last run's start
+    if (ls + kLongRun <= len && __ldg(srow + ls + kLongRun - 1) == r0) {
+      return;
+    }
+  }
   const long long pend =                       // one past the chunk's last run
       c0 + 32 < len ? __ldg(run_end + r0) : 0;
   // steps of kStep positions from c0 + 32 to the run's end, through the
@@ -305,7 +298,6 @@ walk_kernel(float* __restrict__ counts, int d, int w,
   // step's position 4 * lane + k. Copies stop at the 16 bytes that hold
   // the run's last position (<= cap); the first stages are in flight while
   // the chunk itself is added.
-  int32_t* const my = ring[wib];
   const long long cb = c0 + 32;
   const long long steps = pend > cb ? (pend - cb + kStep - 1) / kStep : 0;
   const int32_t* const src[2] = {bj, reinterpret_cast<const int32_t*>(vj)};
@@ -396,102 +388,78 @@ walk_kernel(float* __restrict__ counts, int d, int w,
   if (c.key >= 0 && lane == 0) counts[c.key] = c.val;
 }
 
-// One tuple as a bucket_kernel thread reads it for depth row j.
-struct Tuple {
-  int row;
-  int bucket;
-  float value;
-};
-
-__device__ __forceinline__ Tuple load_tuple(const int32_t* rows,
-                                            const int32_t* idx,
-                                            const float* values,
-                                            const float* signs, int t, int T,
-                                            int d, int j) {
-  Tuple x{-1, -1, 0.0f};
-  if (t < T) {     // independent loads, so their latencies overlap
-    const long long tj = (long long)t * d + j;
-    x.row = __ldg(rows + t);
-    x.bucket = __ldg(idx + tj);
-    x.value = __ldg(values + t);
-    if (signs != nullptr) x.value *= __ldg(signs + tj);
+// One warp per (chunk c of 32 sorted positions, depth row j): block B
+// holds chunks kWalkWarps (B / d) .. + kWalkWarps - 1 at depth row B % d,
+// so a chunk's d warps sit on d consecutive blocks, started at once on d
+// SMs. With a long list (the element-keyed route, d = 1), the first
+// kLongWarps warps take the chunks of the list, whose last runs are long,
+// and warp kLongWarps + c takes chunk c unless it is on the list: so the
+// hot elements' walks start with the grid, not when the blocks before
+// their chunks have run.
+__global__ void __launch_bounds__(kWalkWarps * 32)
+walk_kernel(float* __restrict__ counts, int d, int w,
+            const int32_t* __restrict__ srow,
+            const int32_t* __restrict__ sidx,
+            const float* __restrict__ sval, long long cap,
+            const int32_t* __restrict__ run_end,
+            const int32_t* __restrict__ count, long long chunks,
+            const int32_t* __restrict__ long_list,
+            const int32_t* __restrict__ n_long) {
+  __shared__ __align__(16) int32_t ring[kWalkWarps][kRing * kStage];
+  const int wib = threadIdx.x >> 5;
+  const int j = (int)(blockIdx.x % d);
+  long long c = (long long)blockIdx.x / d * kWalkWarps + wib;
+  const long long len = *count;
+  if (long_list == nullptr) {
+    if (c < chunks) {
+      walk_chunk<false>(counts, d, w, j, 32 * c, srow, sidx, sval, cap,
+                        run_end, len, ring[wib]);
+    }
+    return;
   }
-  return x;
+  if (c < kLongWarps) {
+    const int k = *n_long;
+    for (int i = (int)c; i < k; i += kLongWarps) {
+      walk_chunk<false>(counts, d, w, j, 32LL * long_list[i], srow, sidx,
+                        sval, cap, run_end, len, ring[wib]);
+      __syncwarp();
+    }
+    return;
+  }
+  c -= kLongWarps;
+  if (c < chunks) {
+    walk_chunk<true>(counts, d, w, j, 32 * c, srow, sidx, sval, cap,
+                     run_end, len, ring[wib]);
+  }
 }
 
-__global__ void __launch_bounds__(kThreads)
-bucket_kernel(float* __restrict__ counts, int d, int w,
-              const int32_t* __restrict__ rows,
-              const int32_t* __restrict__ idx,
-              const float* __restrict__ values,
-              const float* __restrict__ signs, int T) {
-  // per chunk: the kept tuples' buckets (relative to b_lo) and signed
-  // weights in batch order; per owned bucket, this step's entry mask
-  __shared__ int s_warp[kWarps];
-  __shared__ int s_b[kThreads];
-  __shared__ float s_v[kThreads];
-  __shared__ unsigned s_mine[kRange];
-
-  const int s = blockIdx.y / d;
-  const int j = blockIdx.y % d;
-  const int b_lo = blockIdx.x * kRange;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const bool owner = tid < kRange && b_lo + tid < w;
-  float* elem = counts + ((long long)s * d + j) * w + b_lo + tid;
-  float acc = owner ? *elem : 0.0f;
-  bool touched = false;
-
-  Tuple cur = load_tuple(rows, idx, values, signs, tid, T, d, j);
-  for (int base = 0; base < T; base += kThreads) {
-    // the next chunk's loads fly while this chunk is compacted and walked
-    const Tuple nxt =
-        load_tuple(rows, idx, values, signs, base + kThreads + tid, T, d, j);
-    const int bb = cur.bucket - b_lo;
-    // adding +-0 never changes a sum, so zero weights are dropped here
-    const bool keep = cur.row == s && bb >= 0 && bb < kRange &&
-                      b_lo + bb < w && cur.value != 0.0f;
-    int off;
-    const int total = compact(keep, s_warp, &off);
-    if (keep) {
-      s_b[off] = bb;
-      s_v[off] = cur.value;
-    }
-    __syncthreads();
-    // 32 entries per step, walked by the warps that own buckets: each
-    // entry of this warp's 32 buckets sets its lane's bit in its owner's
-    // mask; each owner then takes its entries lowest lane first (batch
-    // order), reading their weights from the lanes that hold them
-    if (warp < kRange / 32) {
-      for (int k0 = 0; k0 < total; k0 += 32) {
-        const int e = k0 + lane < total ? s_b[k0 + lane] : -1;
-        const float v = k0 + lane < total ? s_v[k0 + lane] : 0.0f;
-        s_mine[tid] = 0u;
-        __syncwarp();
-        if (e >= 0 && (e >> 5) == warp) atomicOr(&s_mine[e], 1u << lane);
-        __syncwarp();
-        unsigned mine = s_mine[tid];
-        touched |= mine != 0u;
-        const int steps = (int)__reduce_max_sync(0xffffffffu, __popc(mine));
-        for (int i = 0; i < steps; ++i) {
-          const int src = mine != 0u ? __ffs(mine) - 1 : lane;
-          const float x = __shfl_sync(0xffffffffu, v, src);
-          if (mine != 0u) {
-            acc += x;
-            mine &= mine - 1u;
-          }
-        }
-        __syncwarp();   // the next step clears s_mine
-      }
-    }
-    __syncthreads();    // the next chunk reuses the shared buffers
-    cur = nxt;
-  }
-  if (owner && touched) *elem = acc;
+// The small-stack route's key pass, one thread an entry e = t * d + j:
+// key[e] the element (rows[t] * d + j) * w + idx[t, j], or -1 where the
+// entry adds nothing (a row outside [0, n), a bucket outside [0, w), a zero
+// weight), so that the sort drops it; wt[e] its weight v * sign, rounded
+// on its own. n * d * w and T * d are at most kMaxKeyed. It also zeroes the
+// long list's count.
+__global__ void __launch_bounds__(kGatherThreads)
+key_kernel(int n, int d, int w, const int32_t* __restrict__ rows,
+           const int32_t* __restrict__ idx, const float* __restrict__ values,
+           const float* __restrict__ signs, int entries,
+           int32_t* __restrict__ key, float* __restrict__ wt,
+           int32_t* __restrict__ n_long) {
+  const int e = blockIdx.x * kGatherThreads + threadIdx.x;
+  if (e == 0) *n_long = 0;
+  if (e >= entries) return;
+  const int t = e / d;
+  const int j = e - t * d;
+  const int32_t row = __ldg(rows + t);
+  const int b = __ldg(idx + e);
+  const float v = __ldg(values + t);
+  const float x = signs != nullptr ? __fmul_rn(v, __ldg(signs + e)) : v;
+  const bool adds = x != 0.0f && row >= 0 && row < n && b >= 0 && b < w;
+  key[e] = adds ? (row * d + j) * w + b : -1;
+  wt[e] = x;
 }
 
-// The main path's scratch (cm_layout's words): the sort's (row_sort.cuh),
+// A sort and walk's scratch (cm_layout's words): the sort's (row_sort.cuh),
 // then sidx and sval [d, cap] and run_end [n].
 struct Layout {
   sde::SortScratch sort;
@@ -514,60 +482,99 @@ Layout layout(int32_t* base, int d, int T) {
   return l;
 }
 
-bool small_stack(int n, int d) { return (long long)d * n < kThreads; }
+// Whether a stack takes the element-keyed route: d * n < kSmallStack, with
+// its keys and entries within kMaxKeyed. Its scratch (key_words) is key and
+// wt [T * d], the long list's count (padded to 32 words) and the list (a
+// chunk per run of kLongRun or more), before a layout of the T * d entries
+// with d = 1 and n * d * w keys.
+bool keyed(int n, int d, int w, int T) {
+  return (long long)d * n < kSmallStack && w >= 1 &&
+         (long long)n * d * w <= kMaxKeyed && (long long)T * d <= kMaxKeyed;
+}
+
+long long key_words(int entries) {
+  return 2 * sde::round32(entries) + 32 +
+         sde::round32(entries / kLongRun + 1);
+}
+
+// Sort `entries` by keys in [0, nkeys), then gather and walk them; the
+// element of a sorted position is (key * d + j) * w + its bucket. A long
+// list (d = 1 only) puts kLongWarps warps before the chunks' own.
+int sort_and_walk(float* counts, const int32_t* keys, int nkeys, int d, int w,
+                  const int32_t* idx, const float* values, const float* signs,
+                  int entries, const Layout& l, int32_t* long_list,
+                  int32_t* n_long, cudaStream_t stream) {
+  const long long chunks = ((long long)entries + 31) / 32;
+  const long long warps = chunks + (long_list != nullptr ? kLongWarps : 0);
+  const long long blocks = (warps + kWalkWarps - 1) / kWalkWarps * d;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = sde::sort_rows(keys, nkeys, entries, l.sort, stream);
+  if (err != cudaSuccess) return (int)err;
+  gather_kernel<<<(unsigned)((entries + kGatherThreads - 1) / kGatherThreads),
+                  kGatherThreads, 0, stream>>>(
+      l.sort.srow, l.sort.perm, l.sort.count, d, w, idx, values, signs,
+      l.sidx, l.sval, l.sort.cap, l.run_end, long_list, n_long);
+  walk_kernel<<<(unsigned)blocks, kWalkWarps * 32, 0, stream>>>(
+      counts, d, w, l.sort.srow, l.sidx, l.sval, l.sort.cap, l.run_end,
+      l.sort.count, chunks, long_list, n_long);
+  return (int)cudaGetLastError();
+}
 
 int launch_scatter(float* counts, int n, int d, int w, const int32_t* rows,
                    const int32_t* idx, const float* values,
                    const float* signs, int T, int32_t* scratch,
                    cudaStream_t stream) {
-  if (d < 1 || d > kThreads || w < 1) return (int)cudaErrorInvalidValue;
-  if (small_stack(n, d)) {
-    const dim3 grid((unsigned)((w + kRange - 1) / kRange),
-                    (unsigned)(d * n));
-    bucket_kernel<<<grid, kThreads, 0, stream>>>(counts, d, w, rows, idx,
-                                                 values, signs, T);
-    return (int)cudaGetLastError();
-  }
+  if (d < 1 || d > kMaxDepth || w < 1) return (int)cudaErrorInvalidValue;
   if (scratch == nullptr) return (int)cudaErrorInvalidValue;
-  const long long chunks = ((long long)T + 31) / 32;
-  const long long blocks = (chunks + kWalkWarps - 1) / kWalkWarps * d;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const Layout l = layout(scratch, d, T);
-  const cudaError_t err = sde::sort_rows(rows, n, T, l.sort, stream);
+  if (!keyed(n, d, w, T)) {
+    return sort_and_walk(counts, rows, n, d, w, idx, values, signs, T,
+                         layout(scratch, d, T), nullptr, nullptr, stream);
+  }
+  const int entries = T * d;
+  int32_t* const key = scratch;
+  float* const wt = reinterpret_cast<float*>(scratch + sde::round32(entries));
+  int32_t* const n_long = scratch + 2 * sde::round32(entries);
+  key_kernel<<<(unsigned)((entries + kGatherThreads - 1) / kGatherThreads),
+               kGatherThreads, 0, stream>>>(n, d, w, rows, idx, values, signs,
+                                            entries, key, wt, n_long);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  gather_kernel<<<(unsigned)((T + kGatherThreads - 1) / kGatherThreads),
-                  kGatherThreads, 0, stream>>>(
-      l.sort.srow, l.sort.perm, l.sort.count, d, w, idx, values, signs,
-      l.sidx, l.sval, l.sort.cap, l.run_end);
-  walk_kernel<<<(unsigned)blocks, kWalkWarps * 32, 0, stream>>>(
-      counts, d, w, l.sort.srow, l.sidx, l.sval, l.sort.cap, l.run_end,
-      l.sort.count, chunks);
-  return (int)cudaGetLastError();
+  const Layout l = layout(scratch + key_words(entries), 1, entries);
+  return sort_and_walk(counts, key, n * d * w, 1, 1, nullptr, wt, nullptr,
+                       entries, l, n_long + 32, n_long, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// The scratch a call needs, in int32 words (none for the bucket-range
-// launch; d = 0: the sort's alone, for cm_sort_rows), and where the sort
-// leaves its output: off[0..3] = the word offsets of count, srow, perm and
-// the total.
-int cm_layout(int n, int d, int T, long long* off) {
-  if (T <= 0 || n <= 0 || d < 0 || (d > 0 && small_stack(n, d))) {
-    off[0] = off[1] = off[2] = off[3] = 0;
-    return 0;
+// The scratch a call needs, in int32 words (d = 0: the sort's alone, for
+// cm_sort_rows), and where the sort leaves its output: off[0..3] = the word
+// offsets of count, srow, perm and the total.
+int cm_layout(int n, int d, int w, int T, long long* off) {
+  off[0] = off[1] = off[2] = off[3] = 0;
+  if (T <= 0 || n <= 0 || d < 0 || (d > 0 && w < 1)) return 0;
+  long long base = 0, total;
+  int entries = T;
+  if (d == 0) {
+    total = sde::sort_words(T);
+  } else if (keyed(n, d, w, T)) {
+    entries = T * d;
+    base = key_words(entries);
+    total = base + layout_words(n * d * w, 1, entries);
+  } else {
+    total = layout_words(n, d, T);
   }
-  off[0] = 0;
-  off[1] = sde::sort_srow_word(T);
-  off[2] = off[1] + sde::round32(T);
-  off[3] = d > 0 ? layout_words(n, d, T) : sde::sort_words(T);
+  off[0] = base;
+  off[1] = base + sde::sort_srow_word(entries);
+  off[2] = off[1] + sde::round32(entries);
+  off[3] = total;
   return 0;
 }
 
 // counts [n, d, w] f32 (updated in place); rows [T] i32 (-1 drops);
 // idx [T, d] i32; values [T] f32; signs [T, d] f32 or null for +1;
-// scratch: cm_layout(n, d, T) words, 128-byte aligned.
+// scratch: cm_layout(n, d, w, T) words, 128-byte aligned.
 int cm_scatter(float* counts, int n, int d, int w, const int32_t* rows,
                const int32_t* idx, const float* values, const float* signs,
                int T, int32_t* scratch, cudaStream_t stream) {
@@ -596,7 +603,7 @@ int cm_probe_scatter(float* counts, int n, int d, int w,
                         scratch, stream);
 }
 
-// The stable row sort alone, into scratch of cm_layout(n, 0, T) words.
+// The stable row sort alone, into scratch of cm_layout(n, 0, 1, T) words.
 int cm_sort_rows(const int32_t* rows, int n, int T, int32_t* scratch,
                  cudaStream_t stream) {
   if (T <= 0 || n <= 0) return 0;

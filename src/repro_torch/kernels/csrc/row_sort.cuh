@@ -19,10 +19,13 @@
 //      is kGroup blocks);
 //   2. scatter: each block finds where its tuples of each digit begin in
 //      the pass's output (thread g: the total of digit g, and its tuples
-//      in the groups and then the blocks of its own group before this
-//      block, a warp reading a row's 128 bytes at once; the block scans
-//      the totals over the digits), ranks its tile again and writes every
-//      tuple to its position. The first pass's block 0 also writes T'.
+//      in the blocks of its own group before this block and in the groups
+//      before it, kGroup loads in flight at a time, a warp reading a row's
+//      128 bytes at once; the block scans the totals over the digits),
+//      ranks its tile again, lays its tuples out by digit in shared memory
+//      and writes each digit's tuples to their consecutive positions (a
+//      warp's stores touch a few 32-byte sectors, not one a tuple). The
+//      first pass's block 0 also writes T'.
 // The rank is stable by construction, with no atomic deciding a position:
 // a block's tile is one slice of kWarpTile consecutive tuples a warp; a
 // warp ranks 32 tuples at a time (the lanes of a digit from one vote a
@@ -188,8 +191,12 @@ sort_scatter_kernel(const int32_t* __restrict__ keys,
                     int32_t* __restrict__ keys_out,
                     int32_t* __restrict__ perm_out) {
   __shared__ int s_cnt[kSortWarps][kMaxRadix];  // a warp's counts by digit
-  __shared__ int s_base[kMaxRadix];             // where the digit begins
+  __shared__ int s_base[kMaxRadix];    // output position - staged position
+  __shared__ int s_lbase[kMaxRadix];   // where the digit's staged run begins
   __shared__ int s_sum[kSortWarps];
+  __shared__ int s_lsum[kSortWarps];
+  __shared__ int s_key[kSortTile];     // the block's tuples, by digit
+  __shared__ int s_tix[kSortTile];
   const bool first = perm == nullptr;
   const int radix = 1 << bits;
   const int lane = threadIdx.x & 31;
@@ -206,14 +213,28 @@ sort_scatter_kernel(const int32_t* __restrict__ keys,
     tix[r] = first ? (int)i : (i < len ? __ldg(perm + i) : 0);
   }
   // digit g: its tuples in all blocks, and in the blocks before this one
-  // (the groups before this block's, then its group's blocks before it)
+  // (its group's blocks before it, then the groups before its group),
+  // kGroup independent loads in flight at a time: a loop of dependent
+  // load-adds waits out one memory latency a load
   int total = 0, before = 0;
   if (g < radix) {
     const int grp = blockIdx.x / kGroup;
+    int part[kGroup];
+#pragma unroll
+    for (int i = 0; i < kGroup; ++i) {
+      const int b = grp * kGroup + i;
+      part[i] = b < (int)blockIdx.x ? hist[(long long)b * kMaxRadix + g] : 0;
+    }
     total = sums[g];
-    for (int q = 0; q < grp; ++q) before += sums[(1 + q) * kMaxRadix + g];
-    for (int b = grp * kGroup; b < (int)blockIdx.x; ++b) {
-      before += hist[(long long)b * kMaxRadix + g];
+#pragma unroll
+    for (int i = 0; i < kGroup; ++i) before += part[i];
+    for (int q0 = 0; q0 < grp; q0 += kGroup) {
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i) {
+        part[i] = q0 + i < grp ? sums[(1 + q0 + i) * kMaxRadix + g] : 0;
+      }
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i) before += part[i];
     }
   }
   int x = total;                                // inclusive over the warp
@@ -236,28 +257,53 @@ sort_scatter_kernel(const int32_t* __restrict__ keys,
     rank[r] = seen + __popc(below);
   }
   __syncthreads();
+  // per digit, the tuples of the warps before each warp, and the block's
+  int mine = 0;
   if (g < radix) {
-    int run = x - total;                        // exclusive, then warps'
-    for (int w = 0; w < warp; ++w) run += s_sum[w];
-    s_base[g] = run + before;
-    if (first && blockIdx.x == 0 && g == radix - 1) *count = run + total;
-  }
-  // per digit, the tuples of the warps before each warp
-  if (g < radix) {
-    int run = 0;
     for (int w = 0; w < kSortWarps; ++w) {
       const int c = s_cnt[w][g];
-      s_cnt[w][g] = run;
-      run += c;
+      s_cnt[w][g] = mine;
+      mine += c;
     }
+  }
+  // where digit g's tuples begin in the block's staging: a scan of the
+  // block's counts over the digits (zero past radix)
+  int y = mine;                                 // inclusive over the warp
+  for (int o = 1; o < 32; o <<= 1) {
+    const int z = __shfl_up_sync(kSortAll, y, o);
+    if (lane >= o) y += z;
+  }
+  if (lane == 31) s_lsum[warp] = y;
+  __syncthreads();
+  int kept = 0;                                 // the block's tuples
+  for (int w = 0; w < kSortWarps; ++w) kept += s_lsum[w];
+  if (g < radix) {
+    int run = x - total;                        // exclusive, then warps'
+    int lrun = y - mine;
+    for (int w = 0; w < warp; ++w) {
+      run += s_sum[w];
+      lrun += s_lsum[w];
+    }
+    s_lbase[g] = lrun;
+    s_base[g] = run + before - lrun;
+    if (first && blockIdx.x == 0 && g == radix - 1) *count = run + total;
   }
   __syncthreads();
 #pragma unroll
   for (int r = 0; r < kSortItems; ++r) {
     if (dg[r] < 0) continue;
-    const int pos = s_base[dg[r]] + s_cnt[warp][dg[r]] + rank[r];
-    keys_out[pos] = key[r];
-    perm_out[pos] = tix[r];
+    const int at = s_lbase[dg[r]] + s_cnt[warp][dg[r]] + rank[r];
+    s_key[at] = key[r];
+    s_tix[at] = tix[r];
+  }
+  __syncthreads();
+  // staged tuple i goes to s_base[its digit] + i: a digit's run of the
+  // block's tuples lands on consecutive positions
+  for (int i = threadIdx.x; i < kept; i += kSortThreads) {
+    const int k = s_key[i];
+    const int pos = s_base[(k >> shift) & (radix - 1)] + i;
+    keys_out[pos] = k;
+    perm_out[pos] = s_tix[i];
   }
 }
 

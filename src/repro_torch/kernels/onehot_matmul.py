@@ -12,9 +12,12 @@ On the main path (d * n >= 1024) the source groups the batch by row
 with a stable counting sort of its own (``csrc/row_sort.cuh``), gathers
 each sorted tuple's buckets and weights into sorted order (recording
 each run's end), then one warp per (32 sorted positions, depth row) adds
-the runs that start there, each element by one thread in batch order. Smaller stacks (the
-data-source fresh sketch) take a launch over bucket ranges. The wrapper
-allocates the scratch (``cm_layout``); no launch allocates or waits.
+the runs that start there, each element by one thread in batch order.
+Smaller stacks (the data-source fresh sketch, n = 1) key each (tuple,
+depth row) entry by the element it adds to and run the same sort, gather
+and walk over those keys: every run is then one element, summed by one
+thread in batch order. The wrapper allocates the scratch
+(``cm_layout``); no launch allocates or waits.
 
 Both entry points update ``counts`` in place (the reference aliases the
 state operand to its output, ``input_output_aliases={0: 0}``) and need no
@@ -37,7 +40,7 @@ from . import build, probe, ref
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "cm_layout": (_I, _I, _I, _P),
+    "cm_layout": (_I, _I, _I, _I, _P),
     "cm_scatter": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P),
     "cm_probe_scatter": (_P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P,
                          _P, _P, _P, _I, _P, _P),
@@ -49,12 +52,12 @@ def _lib():
     return build.load("countmin_scatter", _SIGNATURES)
 
 
-def _scratch(n: int, d: int, t: int, device: torch.device):
-    """The scratch of a call (int32 words, laid out by the source; none for
-    the bucket-range launch; d = 0: the sort's alone) and the word offsets
-    of the sort's count, rows and batch indices."""
+def _scratch(n: int, d: int, w: int, t: int, device: torch.device):
+    """The scratch of a call (int32 words, laid out by the source; d = 0:
+    the sort's alone) and the word offsets of the sort's count, keys and
+    entry indices."""
     off = (ctypes.c_longlong * 4)()
-    build.check_launch(_lib().cm_layout(n, d, t, ctypes.addressof(off)),
+    build.check_launch(_lib().cm_layout(n, d, w, t, ctypes.addressof(off)),
                        "cm_layout")
     scratch = torch.empty((off[3],), dtype=torch.int32, device=device)
     return scratch, tuple(off[:3])
@@ -73,6 +76,27 @@ def runs_of(rows: torch.Tensor, n: int) -> tuple:
     return int((counts > 0).sum()), int(counts.max())
 
 
+def element_runs_of(rows: torch.Tensor, idx: torch.Tensor,
+                    values: torch.Tensor, n: int, w: int,
+                    signs: Optional[torch.Tensor] = None) -> tuple:
+    """(elements, longest run) of a batch on a small stack (d * n < 1024)
+    of ``n`` rows and width ``w``: the elements it adds to, which are the
+    runs of the element-keyed walk, and the most entries at one element,
+    whose adds form the longest add chain. Entries that add nothing (rows
+    outside [0, n), buckets outside [0, w), zero weights) are left out, as
+    the kernels leave them out. Synchronises; for checks, not for the
+    path."""
+    d = idx.shape[1]
+    x = values[:, None] if signs is None else values[:, None] * signs
+    r, b = rows.long()[:, None], idx.long()
+    adds = (x != 0) & (r >= 0) & (r < n) & (b >= 0) & (b < w)
+    key = ((r * d + torch.arange(d, device=idx.device)) * w + b)[adds]
+    if key.numel() == 0:
+        return 0, 0
+    counts = torch.unique(key, return_counts=True)[1]
+    return int(counts.numel()), int(counts.max())
+
+
 def sort_rows(rows: torch.Tensor, n: int) -> tuple:
     """The kernels' stable row sort alone, on the card: (srow, perm) of the
     tuples whose row lies in [0, n), ordered by row and then by batch
@@ -83,7 +107,7 @@ def sort_rows(rows: torch.Tensor, n: int) -> tuple:
     build.check(rows, "rows", torch.int32, (t,), rows.device)
     if t == 0 or n <= 0:
         return rows[:0], rows[:0]
-    scratch, (c, r, p) = _scratch(n, 0, t, rows.device)
+    scratch, (c, r, p) = _scratch(n, 0, 1, t, rows.device)
     err = _lib().cm_sort_rows(rows.data_ptr(), n, t, scratch.data_ptr(),
                               build.stream(rows.device))
     build.check_launch(err, "cm_sort_rows")
@@ -117,7 +141,7 @@ def onehot_scatter_add(counts: torch.Tensor, syn_idx: torch.Tensor,
     if t == 0:
         return counts
     n, d, w = counts.shape
-    scratch, _ = _scratch(n, d, t, counts.device)
+    scratch, _ = _scratch(n, d, w, t, counts.device)
     err = _lib().cm_scatter(
         counts.data_ptr(), n, d, w, syn_idx.data_ptr(), idx.data_ptr(),
         values.data_ptr(), build.ptr(signs), t, scratch.data_ptr(),
@@ -156,7 +180,7 @@ def onehot_probe_scatter(counts: torch.Tensor, keys_lo: torch.Tensor,
         return counts
     n, d, w = counts.shape
     rows = torch.empty((t,), dtype=torch.int32, device=counts.device)
-    scratch, _ = _scratch(n, d, t, counts.device)
+    scratch, _ = _scratch(n, d, w, t, counts.device)
     err = _lib().cm_probe_scatter(
         counts.data_ptr(), n, d, w, keys_lo.data_ptr(), keys_hi.data_ptr(),
         table_rows.data_ptr(), size, sid_lo.data_ptr(), sid_hi.data_ptr(),

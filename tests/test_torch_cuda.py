@@ -9,10 +9,12 @@ projection ragged plane counts (b = 200 and b = 1), empty batches, rows
 out of range, runs just under, at and over the ring walk's threshold,
 runs ending on and one past a ring stage, a hot run of ~8k tuples, and
 float weights byte-identical to the CPU's serial sum; for CountMin's
-small-stack bucket-range launch (d * n < 1024, the data-source fresh
-sketch) n = 1 to 3 at depths 1, 5 and 12, byte-equal to the CPU's serial
-scatter even for float weights; for its main path (the row sort, then a
-walk of each run) runs of 1 to ~8k tuples across chunk boundaries,
+small-stack route (d * n < 1024, the data-source fresh sketch; each
+entry keyed by its element) n = 1 to 3 at depths 1, 5 and 12, the fresh
+sketch's own shape with an element past 8,190 adds, d * n = 1023 and
+1020, T = 1 and 33, all weights zero and buckets outside [0, w),
+byte-equal to a serial batch-order loop even for float weights; for its
+main path (the row sort, then a walk of each run) runs of 1 to ~8k tuples across chunk boundaries,
 interleaved buckets, d = 1 and 30, stacks of 2**17 + 1 and 2**18 + 1 rows,
 byte-equal to a serial batch-order loop, and the sort itself against
 ``torch.sort(stable=True)``; for the sliding-DFT tick odd S, F = 1,
@@ -111,44 +113,72 @@ def test_countmin_kernels_match_plain(dev, n, d, w, t, signed):
         ref.onehot_scatter_add(counts0.clone(), rows, idx, ints, signs))
 
 
+# (n, d, w, t, batch) of the small-stack route (d * n < 1024): n = 1 to 3
+# at depths 1, 5 and 12 with rows -1 and n and a hot bucket; the fresh
+# sketch itself (65,536 Zipf(1.1) tuples on one row, 10% zero weights, one
+# element past 8,190 adds: several whole 512-add steps and a partial one);
+# the largest stacks it serves (d * n = 1023, 1020: keys of 21 bits, 3 sort
+# passes); T = 1 and 33; all weights zero; buckets outside [0, w)
+SMALL_CASES = ([(n, d, 2048, 5000, "mixed") for d in (1, 5, 12)
+                for n in (1, 2, 3)] +
+               [(1, 5, 2048, 65536, "fresh"), (1023, 1, 2048, 5000, "mixed"),
+                (204, 5, 2048, 5000, "mixed"), (1, 5, 2048, 1, "mixed"),
+                (2, 5, 2048, 33, "mixed"), (1, 5, 2048, 3000, "zero"),
+                (3, 5, 2048, 5000, "outside")])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [1, 5, 12])
-@pytest.mark.parametrize("n", [1, 2, 3])
-def test_countmin_small_stack_launch_sums_in_batch_order(dev, n, d):
-    """d * n < 1024 takes the bucket-range launch: integer weights equal
-    the plain version, and float weights (count-sketch signs too) give the
-    same bytes on two runs and a serial loop's bytes in batch order, since
-    every element is summed by one thread in that order. (The CPU's
-    ``index_put_`` is no such loop at every shape: at n = 3, d = 12 it
-    adds in another order.) T spans several 1024-tuple chunks, with rows
-    -1 and n, and a hot bucket per row."""
-    rng = np.random.RandomState(10 * n + d)
-    w, t = 2048, 5000
+@pytest.mark.parametrize("n,d,w,t,batch", SMALL_CASES,
+                         ids=[f"{n}-{d}-{t}-{k}"
+                              for n, d, _, t, k in SMALL_CASES])
+def test_countmin_small_stack_launch_sums_in_batch_order(dev, n, d, w, t,
+                                                        batch):
+    """d * n < 1024 takes the element-keyed route (each entry keyed by its
+    element, sorted, then walked): integer weights exact, and float
+    weights (count-sketch signs too) give the same bytes on two runs and a
+    serial loop's bytes in batch order, since every element is summed by
+    one thread in that order. (The CPU's ``index_put_`` is no such loop at
+    every shape: at n = 3, d = 12 it adds in another order.)"""
+    rng = np.random.RandomState(10 * n + d + t)
     c = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    rows = rng.randint(-1, n + 1, t).astype(np.int32)
-    idx = rng.randint(0, w, (t, d)).astype(np.int32)
-    idx[::3] = 77                                     # a hot bucket
+    if batch == "fresh":
+        p = 1.0 / np.arange(1, 65537) ** 1.1
+        streams = rng.choice(65536, t, p=p / p.sum())
+        streams[rng.rand(t) < 0.05] = 0               # the hot stream
+        rows = np.zeros(t, np.int32)
+        idx = rng.randint(0, w, (65536, d)).astype(np.int32)[streams]
+    else:
+        rows = rng.randint(-1, n + 1, t).astype(np.int32)
+        idx = rng.randint(0, w, (t, d)).astype(np.int32)
+        idx[::3] = 77                                 # a hot bucket
+    if batch == "outside":
+        idx[1::4] = rng.choice([-5, -1, w, w + 7], (len(idx[1::4]), d))
     counts0 = rng.randint(0, 4, (n, d, w)).astype(np.float32)
     signs = np.where(rng.rand(t, d) > 0.5, 1.0, -1.0).astype(np.float32)
+    zero = lambda v: v * (rng.rand(t) >= (1.0 if batch == "zero" else 0.1))
     before = onehot_matmul.onehot_scatter_add.one_row_launches
-    ints = rng.randint(0, 5, t).astype(np.float32)
+    ints = zero(rng.randint(1, 5, t)).astype(np.float32)
     got = onehot_matmul.onehot_scatter_add(c(counts0), c(rows), c(idx),
                                            c(ints))
-    assert torch.equal(got, ref.onehot_scatter_add(c(counts0), c(rows),
-                                                   c(idx), c(ints)))
+    want = _serial_countmin(counts0, rows, idx, ints, None)
+    assert got.cpu().numpy().tobytes() == want.tobytes()
+    if batch != "outside":             # the plain version keeps no such bucket
+        assert torch.equal(got, ref.onehot_scatter_add(c(counts0), c(rows),
+                                                       c(idx), c(ints)))
+    if batch == "zero":
+        assert np.array_equal(want, counts0)
+    if batch == "fresh":
+        _, longest = onehot_matmul.element_runs_of(c(rows), c(idx), c(ints),
+                                                   n, w)
+        assert longest > 8190
     for sg in (None, signs):
-        vals = (rng.rand(t) * 3).astype(np.float32)
+        vals = zero(rng.rand(t) * 3).astype(np.float32)
         args = (c(rows), c(idx), c(vals), None if sg is None else c(sg))
         a = onehot_matmul.onehot_scatter_add(c(counts0), *args)
         b = onehot_matmul.onehot_scatter_add(c(counts0), *args)
         torch.cuda.synchronize()
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
-        serial = counts0.copy()
-        for i in np.nonzero((rows >= 0) & (rows < n))[0]:
-            for j in range(d):
-                v = vals[i] if sg is None else np.float32(vals[i] * sg[i, j])
-                if v != 0:
-                    serial[rows[i], j, idx[i, j]] += v
+        serial = _serial_countmin(counts0, rows, idx, vals, sg)
         assert a.cpu().numpy().tobytes() == serial.tobytes()
     assert onehot_matmul.onehot_scatter_add.one_row_launches - before == \
         (5 if n == 1 else 0)
@@ -495,14 +525,14 @@ def test_rhp_wrappers_count_launches_and_reject_bad_operands(dev):
 
 def _serial_countmin(counts0, rows, idx, vals, signs):
     """The batch's adds one at a time, in batch order, in float32
-    (``np.add.at`` adds repeated indices in order); zero weights skipped,
-    as the kernels skip them."""
+    (``np.add.at`` adds repeated indices in order); zero weights and
+    buckets outside [0, w) skipped, as the kernels skip them."""
     n, d, w = counts0.shape
     out = counts0.copy().reshape(-1)
     keep = (rows >= 0) & (rows < n)
     for j in range(d):
         v = vals if signs is None else (vals * signs[:, j]).astype(np.float32)
-        k = keep & (v != 0)
+        k = keep & (v != 0) & (idx[:, j] >= 0) & (idx[:, j] < w)
         np.add.at(out, (rows[k].astype(np.int64) * d + j) * w + idx[k, j],
                   v[k])
     return out.reshape(counts0.shape)

@@ -193,6 +193,42 @@ def test_runs_of_matches_numpy(batch):
         assert want[1] > 1000
 
 
+@pytest.mark.parametrize("batch", ["empty", "zero_weights", "fresh",
+                                   "signed_outside"])
+def test_element_runs_of_matches_numpy(batch):
+    """``onehot_matmul.element_runs_of`` (the elements a small stack's
+    batch adds to, and the most entries at one: the element-keyed walk's
+    longest add chain) against a numpy count of the (row, depth row,
+    bucket) triples that add, leaving out rows -1 and n, buckets outside
+    [0, w) and zero weights (signs included)."""
+    rng = np.random.RandomState(11)
+    n, d, w, t = (1, 5, 64, 20000) if batch == "fresh" else (3, 4, 32, 5000)
+    if batch == "empty":
+        t = 0
+    p = 1.0 / np.arange(1, 501) ** 1.1
+    streams = rng.choice(500, t, p=p / p.sum())
+    rows = (np.zeros(t) if batch == "fresh" else
+            rng.randint(-1, n + 1, t)).astype(np.int32)
+    idx = rng.randint(0, w, (500, d)).astype(np.int32)[streams]
+    vals = (rng.randint(0, 4, t) * (batch != "zero_weights")).astype(
+        np.float32)
+    signs = None
+    if batch == "signed_outside":
+        idx[::7, 1] = rng.choice([-1, w, w + 3], len(idx[::7]))
+        signs = np.where(rng.rand(t, d) > 0.5, 1.0, -1.0).astype(np.float32)
+    x = vals[:, None] * (1.0 if signs is None else signs)
+    adds = ((x != 0) & ((rows >= 0) & (rows < n))[:, None] & (idx >= 0)
+            & (idx < w))
+    key = ((rows[:, None].astype(np.int64) * d + np.arange(d)) * w + idx)
+    _, counts = np.unique(key[adds], return_counts=True)
+    want = (len(counts), int(counts.max()) if len(counts) else 0)
+    to = lambda a: None if a is None else torch.from_numpy(a)
+    assert onehot_matmul.element_runs_of(to(rows), to(idx), to(vals), n, w,
+                                         to(signs)) == want
+    if batch == "fresh":
+        assert want[1] > 1000
+
+
 @pytest.mark.smoke
 def test_hll_plain_matches_jax_oracle():
     rng = np.random.RandomState(1)
