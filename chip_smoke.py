@@ -58,7 +58,13 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      it sets (its adds at FADD_CYCLES each at the card's top SM clock)
      beside the bound; the RHP rows must have
      walked every run of LONG_RUN+ tuples through the ring (the wrappers'
-     ``long_runs``). One entry's tensors are held at a time.
+     ``long_runs``). The bit-set rows (Bloom and FM) time the kernel on
+     the state the batch already set and on a first touch (a fresh copy
+     of the state before every call, the copy not timed); their
+     ``@fresh`` rows time kernel, plain and library call on a state zeroed
+     before every call, as the fold runs them (the fill not timed); each
+     prints the distinct lanes, 32-byte sectors and the hottest lane's
+     entries beside the bound. One entry's tensors are held at a time.
   3. The main path through ``SDE(device="cuda").handle``: per-stream CM,
      HLL, Bloom, FM, RHP and Figure-6 DFT over 65,536 hashed 63-bit ids;
      a data-source CM, HLL, Bloom(1,048,576, 0.01) (own stack: 64 x 2**24
@@ -164,11 +170,14 @@ def require(cond, msg: str) -> None:
         raise RuntimeError(msg)
 
 
-def cuda_ms(fn, runs: int = TIMING_RUNS) -> float:
-    """Median CUDA-event time of ``fn()`` over ``runs`` runs (1 warm-up)."""
+def cuda_ms(fn, runs: int = TIMING_RUNS, prep=None) -> float:
+    """Median CUDA-event time of ``fn()`` over ``runs`` runs (1 warm-up);
+    ``prep()``, when given, runs before each run, outside the events."""
     fn()
     times = []
     for _ in range(runs):
+        if prep is not None:
+            prep()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -220,11 +229,21 @@ def busy_us(spans) -> float:
     return busy
 
 
-def device_ms(fn, runs: int = 5, union: bool = False) -> float:
+def device_ms(fn, runs: int = 5, union: bool = False, prep=None) -> float:
     """Mean device time of ``fn()`` per run (``device_events``): its
     activities' summed durations, or, for a call whose kernels run on two
-    streams at once (``union``), the union of their intervals."""
-    spans = [(s, e) for _, s, e in device_events(fn, runs)]
+    streams at once (``union``), the union of their intervals. ``prep()``,
+    when given, runs before each run as one device activity (a copy or a
+    fill), which is not counted."""
+    if prep is None:
+        spans = [(s, e) for _, s, e in device_events(fn, runs)]
+    else:
+        events = sorted(device_events(lambda: (prep(), fn()), runs),
+                        key=lambda ev: ev[1])
+        per = len(events) // runs
+        require(per > 1 and per * runs == len(events),
+                f"{len(events)} device activities in {runs} prepared runs")
+        spans = [(s, e) for i, (_, s, e) in enumerate(events) if i % per]
     total = busy_us(spans) if union else sum(e - s for s, e in spans)
     return total / runs / 1e3
 
@@ -344,19 +363,48 @@ def distinct(flat: torch.Tensor) -> int:
     return int(torch.unique(flat).numel())
 
 
+def lane_stats(rows: torch.Tensor, idx: torch.Tensor, upd: torch.Tensor,
+               m: int) -> dict:
+    """What a bit-set batch asks of the state [n, m]: the entries it keeps
+    (row in [0, n) is not checked: the callers pass routed rows; upd > 0;
+    position in [0, m)), the distinct lanes and 32-byte sectors they
+    touch, the most entries on one lane, and the groups left after
+    grouping equal lanes within each warp's 32 tuples at one hash index
+    (at most the atomics the kernel issues on a state none of them is
+    set in; its block table drops more)."""
+    k = idx.shape[1]
+    ok = (rows >= 0)[:, None] & (upd > 0)[:, None] & (idx >= 0) & (idx < m)
+    key = torch.where(ok, rows.long()[:, None] * m + idx.long(), -1)
+    flat = key[ok]
+    lanes, counts = torch.unique(flat, return_counts=True)
+    pad = (-key.shape[0]) % 32
+    cols = torch.cat([key, key.new_full((pad, k), -1)]).view(-1, 32, k)
+    cols = cols.transpose(1, 2).reshape(-1, 32).sort(dim=1).values
+    groups = int(((cols[:, 1:] != cols[:, :-1]) & (cols[:, 1:] >= 0)).sum()
+                 + (cols[:, 0] >= 0).sum())
+    return dict(entries=int(flat.numel()), lanes=int(lanes.numel()),
+                sectors=int(torch.unique(flat // 8).numel()),
+                hottest=int(counts.max()) if counts.numel() else 0,
+                warp_groups=groups)
+
+
 # ---------------------------------------------------------------------------
 # phase 2: every kernel entry point against its plain version
 # ---------------------------------------------------------------------------
 def record(results, name, fn_kernel, fn_plain, fn_lib, state0, n_bytes,
            n_ops, floats=None, atol=None, within=None, rate="float32",
-           union=False):
+           union=False, zeroed=False, first_touch=False):
     """Hold ``fn_kernel`` against ``fn_plain`` on copies of ``state0``
     (torch.equal; a max abs error of at most ``atol`` when given;
     ``within(kernel_out, plain_out)`` when given), then time kernel,
     plain and library call (``fn_lib`` None: no one PyTorch call computes
-    the function). The bound takes ``n_ops`` at ``OPS_PER_S[rate]``; the
-    kernel's device time is the union of its intervals where ``union``
-    (its kernels run on two streams)."""
+    the function), each on the state it left (for a max kernel: the batch
+    already set), or, where ``zeroed``, on a state zeroed before every
+    call as the data-source folds' fresh sketch is (the fill not timed).
+    ``first_touch`` adds the kernel's time on a fresh copy of ``state0``
+    before every call (the copy not timed). The bound takes ``n_ops`` at
+    ``OPS_PER_S[rate]``; the kernel's device time is the union of its
+    intervals where ``union`` (its kernels run on two streams)."""
     k = state0.clone()
     fn_kernel(k)
     p = state0.clone()
@@ -370,29 +418,43 @@ def record(results, name, fn_kernel, fn_plain, fn_lib, state0, n_bytes,
     del p
     if floats is not None:
         floats(state0)
-    kms = cuda_ms(lambda: fn_kernel(k))
-    kdev = device_ms(lambda: fn_kernel(k), union=union)
+    zero = (lambda: k.zero_()) if zeroed else None
+    kms = cuda_ms(lambda: fn_kernel(k), prep=zero)
+    kdev = device_ms(lambda: fn_kernel(k), union=union, prep=zero)
+    first = {}
+    if first_touch:
+        restore = lambda: k.copy_(state0)
+        first = dict(first_touch_ms=cuda_ms(lambda: fn_kernel(k),
+                                            prep=restore),
+                     first_touch_device_ms=device_ms(lambda: fn_kernel(k),
+                                                     prep=restore))
     p = state0.clone()
-    pms = cuda_ms(lambda: fn_plain(p))
-    pdev = device_ms(lambda: fn_plain(p))
+    zero = (lambda: p.zero_()) if zeroed else None
+    pms = cuda_ms(lambda: fn_plain(p), prep=zero)
+    pdev = device_ms(lambda: fn_plain(p), prep=zero)
     lms = ldev = None
     if fn_lib is not None:
-        lms = cuda_ms(lambda: fn_lib(p))
-        ldev = device_ms(lambda: fn_lib(p))
+        lms = cuda_ms(lambda: fn_lib(p), prep=zero)
+        ldev = device_ms(lambda: fn_lib(p), prep=zero)
     del k, p
     free()
     bms, by = bound_ms(n_bytes, n_ops, rate)
     results[name] = dict(max_abs_err=err, ms=kms, plain_ms=pms,
                          library_ms=lms, bound_ms=bms, bound_by=by,
                          device_ms=kdev,
-                         plain_device_ms=pdev, library_device_ms=ldev)
+                         plain_device_ms=pdev, library_device_ms=ldev,
+                         **first)
     lib = ("no library call" if lms is None else
            f"library {lms:.4f} ms (device {ldev:.4f} ms)")
     match = (f"max abs err {err:.3g}, within its limits" if within else
              "exact match" if atol is None else
              f"max abs err {err:.3g} <= {atol}")
+    touch = ("" if not first_touch else
+             f", first touch {first['first_touch_ms']:.4f} ms (device "
+             f"{first['first_touch_device_ms']:.4f} ms)")
     print(f"[phase2] {name}: {match}, kernel {kms:.4f} ms (device "
-          f"{kdev:.4f} ms), plain {pms:.4f} ms (device {pdev:.4f} ms), "
+          f"{kdev:.4f} ms){' from zero' if zeroed else ''}{touch}, plain "
+          f"{pms:.4f} ms (device {pdev:.4f} ms), "
           f"{lib}, bound {bms:.5f} ms ({by}, {n_bytes} B, {n_ops} ops at "
           f"the {rate} rate)", flush=True)
 
@@ -671,9 +733,11 @@ def phase2_hll(b, n: int, results: dict) -> None:
 
 
 def record_bitset(b, results, name, kernel, plain, state0, rows, idx, upd,
-                  fused):
+                  fused, zeroed=False):
     """Record one bit-set entry (``fused``: the probe runs in the kernel)
-    with its library call and bound."""
+    with its library call and bound: on a zeroed state where ``zeroed``
+    (a fresh sketch), else on the set state and on a first touch; print
+    the lanes the batch touches beside the bound."""
     m = state0.shape[1:].numel()
     k = idx.shape[1]
     keep = (rows >= 0) & (upd > 0)
@@ -685,9 +749,17 @@ def record_bitset(b, results, name, kernel, plain, state0, rows, idx, upd,
         + 8 * distinct(flat)
     if fused:
         n_bytes += TABLE_B * probed_slots(b, upd > 0)
+    stats = lane_stats(rows, idx, upd, m)
+    print(f"[phase2] {name}: {stats['entries']} entries on {stats['lanes']} "
+          f"distinct lanes in {stats['sectors']} 32-byte sectors, the "
+          f"hottest lane {stats['hottest']} entries; {stats['warp_groups']} "
+          f"groups of equal lanes by warp and hash index", flush=True)
     record(results, name, kernel, plain,
            lambda s: s.view(-1).scatter_reduce_(0, flat, src, reduce="amax"),
-           state0, n_bytes, int(keep.sum()) * k)
+           state0, n_bytes, int(keep.sum()) * k, zeroed=zeroed,
+           first_touch=not zeroed)
+    results[name].update(lanes=stats["lanes"], sectors=stats["sectors"],
+                         hottest_lane=stats["hottest"])
 
 
 def phase2_bloom(b, n: int, results: dict) -> None:
@@ -728,7 +800,7 @@ def phase2_bloom(b, n: int, results: dict) -> None:
         lambda s: bitset_or.bitset_max_update(s, b.to_row0, sidx, upd),
         lambda s: ref.bitset_max_update(s, b.to_row0, sidx, upd),
         torch.zeros((1, src_bloom.n_bits), dtype=torch.int32, device=dev),
-        b.to_row0, sidx, upd, fused=False)
+        b.to_row0, sidx, upd, fused=False, zeroed=True)
     free()
 
     # 64-bit offsets: 2**32 lanes, tuples routed to the last rows (not
@@ -812,7 +884,7 @@ def phase2_fm(b, n: int, results: dict) -> None:
         lambda s: ref.bitset_max_update(s.view(1, -1), b.to_row0, flat_pos,
                                         upd),
         torch.zeros((1, maps, bits), dtype=torch.int32, device=dev),
-        b.to_row0, flat_pos, upd, fused=False)
+        b.to_row0, flat_pos, upd, fused=False, zeroed=True)
 
 
 def phase2_rhp(b, n: int, results: dict) -> None:
@@ -1817,7 +1889,8 @@ def main() -> None:
         # CountMin and RHP: their add chains and the split by kernel
         kernels[-1].update({k: r[k] for k in (
             "longest_run", "runs", "long_runs", "chain_floor_ms",
-            "split_device_ms") if k in r})
+            "split_device_ms", "first_touch_ms", "first_touch_device_ms",
+            "lanes", "sectors", "hottest_lane") if k in r})
         if f"{name}.long_runs" in launches:
             kernels[-1]["long_runs_phase3"] = launches[f"{name}.long_runs"]
         large = timings.get(f"{name}@{1 << 20}")

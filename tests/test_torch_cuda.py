@@ -367,6 +367,102 @@ def test_fm_kernels_match_plain(dev, n, maps, bits, t):
     assert torch.equal(got, want) and torch.equal(got_f, want)
 
 
+def _hot_batch(rng, pop, n, m, t, k, dev):
+    """A batch whose tuples mostly hit one stream: its rows and stream-id
+    halves, positions (the hot stream's k lanes, the first repeated as
+    the last where k > 1; every 5th tuple's first position -1, every 9th
+    one's last m) and upd from 1 to 7 in random order with some 0 and
+    -3; rows -1, n and n + 5 on every 7th, 11th and 13th tuple."""
+    c = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    hot = rng.rand(t) < 0.7
+    which = rng.randint(0, len(pop), t)
+    which[hot] = 1
+    sids = pop[which]
+    sids[::6] = (1 << 62) + 12345                    # unrouted
+    rows = which.astype(np.int32)
+    rows[::7], rows[::11], rows[::13] = -1, n, n + 5
+    lanes = rng.randint(0, m, k).astype(np.int32)
+    lanes[-1] = lanes[0]
+    idx = rng.randint(0, m, (t, k)).astype(np.int32)
+    idx[hot] = lanes
+    idx[::5, 0] = -1
+    idx[::9, -1] = m
+    upd = rng.randint(1, 8, t).astype(np.int32)
+    upd[::17], upd[::19] = 0, -3
+    lo, hi = routing.split64(sids)
+    return (c(rows), c(lo.view(np.int32)), c(hi.view(np.int32)), c(idx),
+            c(upd), lanes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,t", [(1, 1), (3, 31), (11, 33), (40, 1),
+                                 (1, 4099), (3, 4099), (11, 4099),
+                                 (40, 4099), (49, 33), (64, 4099)])
+@pytest.mark.parametrize("state", ["zero", "set"])
+def test_bitset_kernels_hot_lanes_match_plain_byte_for_byte(dev, k, t, state):
+    """Thousands of tuples on one (row, lane) with upd 1 to 7, a lane
+    already above every upd (``set``: the batch's state after a first
+    run, its hot lanes at 9), a tuple's k positions repeating a lane,
+    T not a multiple of 32, rows and positions outside the stack; k = 49
+    and 64 read positions from global memory, not shared; both entry
+    points, twice each."""
+    rng = np.random.RandomState(k * 10007 + t)
+    n, m = 40, 512
+    pop, (klo, khi, trows, n_probe) = _table(rng, n, dev)
+    rows, slo, shi, idx, upd, lanes = _hot_batch(rng, pop, n, m, t, k, dev)
+    bits0 = torch.zeros((n, m), dtype=torch.int32, device=dev)
+    if state == "set":
+        bits0 = ref.bitset_max_update(bits0, rows, idx, upd)
+        bits0[1, int(lanes[0])] = 9
+    rows_f = probe.probe_rows(klo, khi, trows, slo, shi, n_probe=n_probe)
+    for label, kern, plain_rows in (
+            ("rows given", lambda s: bitset_or.bitset_max_update(
+                s, rows, idx, upd), rows),
+            ("probe fused", lambda s: bitset_or.bitset_probe_max_update(
+                s, klo, khi, trows, slo, shi, idx, upd, n_probe=n_probe),
+             rows_f)):
+        want = ref.bitset_max_update(bits0.clone(), plain_rows, idx, upd)
+        got = [kern(bits0.clone()) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want), label
+        assert torch.equal(got[1], got[0]), label
+    if state == "set":
+        assert int(want[1, int(lanes[0])]) == 9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 31, 33, 4099])
+@pytest.mark.parametrize("state", ["zero", "set"])
+def test_fm_kernels_hot_lanes_match_plain_byte_for_byte(dev, t, state):
+    """FM's two wrappers (k = 1 on the flat plane) on a batch whose tuples
+    mostly hit one stream's one lane, upd 1 to 7, ``which`` past the
+    maps on some tuples (a flat position past m), twice each."""
+    rng = np.random.RandomState(t + 3)
+    n, maps, bits = 40, 16, 32
+    pop, (klo, khi, trows, n_probe) = _table(rng, n, dev)
+    rows, slo, shi, flat, upd, lanes = _hot_batch(rng, pop, n, maps * bits,
+                                                  t, 1, dev)
+    flat = flat[:, 0].clamp(min=0)
+    which, pos = flat // bits, flat % bits
+    state0 = torch.zeros((n, maps, bits), dtype=torch.int32, device=dev)
+    if state == "set":
+        ref.bitset_max_update(state0.view(n, -1), rows, flat[:, None], upd)
+        state0.view(n, -1)[1, int(lanes[0])] = 9
+    rows_f = probe.probe_rows(klo, khi, trows, slo, shi, n_probe=n_probe)
+    for label, kern, plain_rows in (
+            ("rows given", lambda s: fm_bitmap.fm_bit_update(
+                s, rows, which, pos, upd), rows),
+            ("probe fused", lambda s: fm_bitmap.fm_probe_bit_update(
+                s, klo, khi, trows, slo, shi, which, pos, upd,
+                n_probe=n_probe), rows_f)):
+        want = ref.bitset_max_update(state0.clone().view(n, -1), plain_rows,
+                                     flat[:, None].contiguous(), upd)
+        got = [kern(state0.clone()) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.equal(got[0].view(n, -1), want), label
+        assert torch.equal(got[1], got[0]), label
+
+
 @pytest.mark.cuda
 def test_bitset_and_fm_wrappers_count_their_own_launches(dev):
     bits = torch.zeros((4, 64), dtype=torch.int32, device=dev)

@@ -324,6 +324,36 @@ def test_bitset_plain_matches_pallas_kernel():
     assert np.array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("k,seed", [(3, 21), (1, 22)])
+def test_bitset_plain_matches_pallas_kernel_on_hot_lanes(k, seed):
+    """A heavily duplicated batch, as a Zipf stream mix makes it: most
+    tuples on two rows and a few lanes (each repeating a lane within its
+    k positions where k > 1), upd in {0, 1, 2, 5} in random order, some
+    hot lanes already above every upd; the port's CPU path against the
+    reference's Pallas kernel (interpret mode)."""
+    n, m, t = 16, 256, 384
+    rng = np.random.RandomState(seed)
+    syn = rng.randint(-1, n + 1, t).astype(np.int32)
+    hot = rng.rand(t) < 0.8
+    syn[hot] = rng.choice([3, 11], int(hot.sum()))
+    lanes = np.array([[5, 200, 5], [5, 77, 131], [255, 0, 255]],
+                     np.int32)[:, :k]
+    idx = rng.randint(0, m, (t, k)).astype(np.int32)
+    idx[hot] = lanes[rng.randint(0, len(lanes), int(hot.sum()))]
+    upd = rng.choice(np.array([0, 1, 2, 5], np.int32), t)
+    bits0 = (rng.rand(n, m) > 0.9).astype(np.int32)
+    bits0[3, 77] = bits0[11, 255] = 9
+    want = np.asarray(jbitset_or.bitset_max_update(
+        jnp.asarray(bits0), jnp.asarray(syn), jnp.asarray(idx),
+        jnp.asarray(upd), s_tile=8, m_tile=128, t_tile=128, interpret=True))
+    got = bitset_or.bitset_max_update(
+        torch.from_numpy(bits0.copy()), torch.from_numpy(syn),
+        torch.from_numpy(idx), torch.from_numpy(upd))
+    assert np.array_equal(got.numpy(), want)
+    assert want[3, 77] == want[11, 255] == 9
+    assert (want[[3, 11]][:, lanes[:, 0]] == 5).any()
+
+
 @pytest.mark.parametrize("maps,bits", [(8, 16), (1, 32)])
 def test_fm_wrappers_match_pallas_and_update_in_place(maps, bits):
     """``fm_bitmap.fm_bit_update`` / ``fm_probe_bit_update`` against the

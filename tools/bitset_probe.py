@@ -1,0 +1,291 @@
+#!/usr/bin/env python3
+"""Where a bit-set call's time goes: the hot lanes, the atomics, the
+batch's loads and the probe.
+
+    python3 tools/bitset_probe.py            # needs one CUDA card and nvcc
+    python3 tools/bitset_probe.py --src build/parent --designs
+
+Builds ``csrc/bitset_or.cu`` of this checkout, of every checkout given by
+``--src`` (such as a parent unpacked by ``git archive``) and, with
+``--designs``, of this checkout's source with one step of its design
+changed at a time (``DESIGNS``: text edits of a copy), each with
+``nvcc`` into a temporary directory, and times them in one process on
+chip_smoke's phase-2 batch (65,536 Zipf(1.1) tuples, seed 0). Every
+case runs each build in the order given and then in reverse; a reading
+is the kernel's own device time a call from ``torch.profiler`` (mean of
+``RUNS`` calls; the state's restore before a call is a separate
+activity and is not counted). Every build's state must equal the plain
+version's bytes.
+
+Cases (the state is set: the batch already ran on it once, a stream seen
+before; first: restored from its initial copy before every call; zero:
+zeroed before every call, as the data-source fold's fresh sketch is):
+
+  bloom/set, bloom/first   per-stream Bloom(1024, 0.01), [131,072, 16,384]
+                           lanes, k = 11, on the batch's routed rows
+                           (``bits0``: 10% of lanes set)
+  uniform/set, /first      the same with stream ids drawn uniformly over
+                           the table: no hot lane
+  loads/set                every position set to m: the kernel reads the
+                           batch and drops every entry, no atomic
+  probe/set, probe/first   the fused-probe entry point on bloom's batch
+  bloom@fresh/zero         Bloom(2**20, 0.01): 2**24 lanes, every tuple on
+                           row 0
+  fm/set, fm/first         FM (64 maps x 32 bits) as a k = 1 bit-set on the
+                           flat [131,072, 2048] plane
+  fm-probe/set             the fused entry point at k = 1
+  fm@fresh/zero            FM's one-row fresh sketch
+
+Beside each case it prints the entries the batch keeps, their distinct
+lanes and 32-byte sectors, the most entries on one lane and the groups
+left after grouping equal lanes within each warp's 32 tuples at one hash
+index (``chip_smoke.lane_stats``). Ends with one JSON line.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import shutil
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+from repro_torch import core  # noqa: E402
+from repro_torch.kernels import bitset_or, build, probe, ref  # noqa: E402
+from repro_torch.service import routing  # noqa: E402
+
+RUNS = 10
+CSRC = Path("src/repro_torch/kernels/csrc")
+# design -> (old, new) text edits of this checkout's bitset_or.cu, each
+# found exactly once: the source with one step of its design changed
+DESIGNS = {
+    # positions read by each lane from its own tuple's slice, not staged
+    "unstaged": [("const bool staged = k <= kStagedK;",
+                  "const bool staged = false;")],
+    # staged 4 loads in flight a lane at a time
+    "stage-by-4": [("int32_t v[kChunk];                 // kChunk loads in "
+                    "flight a lane", "int32_t v[4];"),
+                   ("#pragma unroll\n"
+                    "    for (int r = 0; r < kChunk; ++r)\n"
+                    "      if (e0 + 32 * r + lane < nt * k) v[r]",
+                    "#pragma unroll 1\n"
+                    "    for (int q = 0; q < kChunk; q += 4) {\n"
+                    "#pragma unroll\n"
+                    "    for (int r = q; r < q + 4; ++r)\n"
+                    "      if (e0 + 32 * r + lane < nt * k) v[r - q]"),
+                   ("    for (int r = 0; r < kChunk; ++r)\n"
+                    "      if (e0 + 32 * r + lane < nt * k) pos",
+                    "    for (int r = q; r < q + 4; ++r)\n"
+                    "      if (e0 + 32 * r + lane < nt * k) pos"),
+                   ("pos[e0 + 32 * r + lane] = v[r];",
+                    "pos[e0 + 32 * r + lane] = v[r - q];\n    }")],
+    # the lane read through L1 as well
+    "read-l1": [("cur[i] = __ldcg(bits + key[i]);",
+                 "cur[i] = __ldca(bits + key[i]);")],
+    # no block table: every group leader that needs an update issues
+    "no-table": [("      if ((was == kEmpty", "      if (false && (was == kEmpty")],
+    # blocks of 16 warps (512 tuples)
+    "16-warps": [("constexpr int kWarps = 8;", "constexpr int kWarps = 16;"),
+                 ("constexpr int kStagedK = 35;", "constexpr int kStagedK = 11;")],
+    # no grouping: every lane that needs an update issues its atomic
+    "ungrouped": [("__match_any_sync(kFull, need ? key[i] : -1LL)",
+                   "(1u << lane)")],
+    # no read first: every entry joins its group and each leader issues
+    "unread": [("if (key[i] >= 0) cur[i] = __ldcg(bits + key[i]);", ""),
+               ("const bool need = key[i] >= 0 && cur[i] < u;",
+                "const bool need = key[i] >= 0;")],
+}
+
+
+def sources(args) -> dict:
+    """label -> (bitset_or.cu text, the directory of its headers)."""
+    out = {"tree": ((ROOT / CSRC / "bitset_or.cu").read_text(),
+                    ROOT / CSRC)}
+    for src in args.src:
+        d = src.resolve() / CSRC
+        out[src.name] = ((d / "bitset_or.cu").read_text(), d)
+    if args.designs:
+        for label, edits in DESIGNS.items():
+            text = out["tree"][0]
+            for old, new in edits:
+                cs.require(text.count(old) == 1,
+                           f"{label}: the edited text is not in "
+                           f"bitset_or.cu exactly once: {old!r}")
+                text = text.replace(old, new)
+            out[label] = (text, ROOT / CSRC)
+    return out
+
+
+def build_all(srcs: dict, tmp: Path) -> dict:
+    """label -> loaded library; all nvcc processes started together."""
+    procs = {}
+    for i, (label, (text, headers)) in enumerate(srcs.items()):
+        d = tmp / f"v{i}"
+        d.mkdir()
+        for h in headers.glob("*.cuh"):
+            shutil.copy(h, d)
+        (d / "bitset_or.cu").write_text(text)
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(d / "lib.so"),
+               str(d / "bitset_or.cu")]
+        procs[label] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True),
+                        d)
+    libs = {}
+    for label, (proc, d) in procs.items():
+        log, _ = proc.communicate()
+        cs.require(proc.returncode == 0, f"{label}: nvcc failed\n{log}")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {label}: {line.strip()}", flush=True)
+        lib = ctypes.CDLL(str(d / "lib.so"))
+        for fn, argtypes in bitset_or._SIGNATURES.items():
+            getattr(lib, fn).argtypes = list(argtypes)
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[label] = lib
+    return libs
+
+
+def call(lib, bits, c) -> None:
+    """One launch of case ``c``'s entry point from ``lib``, as the
+    wrappers make it."""
+    n, m = bits.shape
+    k, t = c["idx"].shape[1], c["idx"].shape[0]
+    stream = build.stream(bits.device)
+    if c["probe"] is None:
+        err = lib.bitset_max_update(bits.data_ptr(), n, m,
+                                    c["rows"].data_ptr(),
+                                    c["idx"].data_ptr(), k,
+                                    c["upd"].data_ptr(), t, stream)
+    else:
+        p = c["probe"]
+        err = lib.bitset_probe_max_update(
+            bits.data_ptr(), n, m, p.klo.data_ptr(), p.khi.data_ptr(),
+            p.trows.data_ptr(), p.klo.shape[0], p.slo.data_ptr(),
+            p.shi.data_ptr(), p.n_probe, c["idx"].data_ptr(), k,
+            c["upd"].data_ptr(), t, stream)
+    build.check_launch(err, "bitset_probe")
+
+
+def kernel_ms(fn, prep) -> float:
+    """The bit-set kernel's device ms a call (mean of RUNS), ``prep()``
+    before each call and not counted."""
+    spans = cs.device_events(lambda: (prep(), fn()), runs=RUNS)
+    return sum(e - s for name, s, e in spans if "bitset" in name) / RUNS / 1e3
+
+
+def cases(b, dev) -> list:
+    """Each case: name, its entry's operands, the state's initial copy
+    and how the state is prepared before a call."""
+    n = 131072
+    bloom = core.BloomFilter(n_elements=1024, fpr=0.01)
+    m = bloom.n_bits
+    idx = bloom._positions(b.items)
+    upd = b.mask.to(torch.int32)
+    bits0 = (torch.rand((n, m), generator=b.gen, device=dev) > 0.9).to(
+        torch.int32)
+    # uniform stream ids where the batch has a routed one
+    rng = np.random.RandomState(1)
+    sids = b.pop[rng.randint(0, len(b.pop), b.t)]
+    lo, hi = (torch.from_numpy(np.ascontiguousarray(h.view(np.int32))).to(dev)
+              for h in routing.split64(sids))
+    u_rows = probe.probe_rows(b.klo, b.khi, b.trows, lo, hi,
+                              n_probe=b.n_probe)
+    u_rows = torch.where(b.rows >= 0, u_rows, b.rows)
+    u_items = torch.from_numpy(routing.fold64(sids).view(np.int32)).to(dev)
+    u_idx = bloom._positions(u_items)
+    src_bloom = core.BloomFilter(n_elements=cs.SRC_BLOOM_ELEMENTS, fpr=0.01)
+    fm = core.FMSketch()
+    which, pos = fm._which_pos(b.items)
+    fm_m = fm.nmaps * fm.bitmap_size
+    fm_pos = torch.add(pos, which, alpha=fm.bitmap_size).to(
+        torch.int32)[:, None].contiguous()
+    fm0 = (torch.rand((n, fm_m), generator=b.gen, device=dev) > 0.9).to(
+        torch.int32)
+    row0 = b.to_row0
+    c = lambda name, rows, ix, state0, mode, fused=False: dict(
+        name=name, rows=rows, idx=ix, upd=upd, state0=state0, mode=mode,
+        probe=b if fused else None)
+    return [
+        c("bloom/set", b.rows, idx, bits0, "set"),
+        c("bloom/first", b.rows, idx, bits0, "first"),
+        c("uniform/set", u_rows, u_idx, bits0, "set"),
+        c("uniform/first", u_rows, u_idx, bits0, "first"),
+        c("loads/set", b.rows, torch.full_like(idx, m), bits0, "set"),
+        c("probe/set", b.rows, idx, bits0, "set", fused=True),
+        c("probe/first", b.rows, idx, bits0, "first", fused=True),
+        c("bloom@fresh/zero", row0, src_bloom._positions(b.items),
+          torch.zeros((1, src_bloom.n_bits), dtype=torch.int32, device=dev),
+          "zero"),
+        c("fm/set", b.rows, fm_pos, fm0, "set"),
+        c("fm/first", b.rows, fm_pos, fm0, "first"),
+        c("fm-probe/set", b.rows, fm_pos, fm0, "set", fused=True),
+        c("fm@fresh/zero", row0, fm_pos,
+          torch.zeros((1, fm_m), dtype=torch.int32, device=dev), "zero"),
+    ]
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--src", type=Path, action="append", default=[],
+                    help="another checkout whose bitset_or.cu is timed")
+    ap.add_argument("--designs", action="store_true",
+                    help="also this source with each design step changed")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("bitset_probe.py needs a CUDA card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    dev = torch.device("cuda", 0)
+    tmp = Path(tempfile.mkdtemp(prefix="bitset_probe_"))
+    try:
+        libs = build_all(sources(args), tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    order = list(libs) + list(libs)[::-1]
+    b = cs.phase2_batch(dev, 0, 65536, 65536)
+    results = []
+    for c in cases(b, dev):
+        state0, m = c["state0"], c["state0"].shape[1]
+        rows = c["rows"]          # the probe's rows, for a fused case
+        stats = cs.lane_stats(rows, c["idx"], c["upd"], m)
+        want = ref.bitset_max_update(state0.clone(), rows, c["idx"],
+                                     c["upd"])
+        work = state0.clone()
+        prep = {"set": lambda: None,
+                "first": lambda: work.copy_(state0),
+                "zero": lambda: work.zero_()}[c["mode"]]
+        ms: dict = {}
+        for label in order:
+            lib = libs[label]
+            if label not in ms:       # first visit: the bytes, from state0
+                work.copy_(state0)
+                call(lib, work, c)
+                torch.cuda.synchronize()
+                cs.require(cs.same_bytes(work, want),
+                           f"{label}: {c['name']} differs from the plain "
+                           f"version")
+            ms.setdefault(label, []).append(
+                kernel_ms(lambda: call(lib, work, c), prep))
+        del want, work
+        cs.free()
+        line = ", ".join(f"{lb} {v[0]:.4f} / {v[1]:.4f}"
+                         for lb, v in ms.items())
+        print(f"{c['name']}: {stats}; device ms a call (forward / "
+              f"reverse order): {line}", flush=True)
+        results.append(dict(case=c["name"], **stats, device_ms=ms))
+    print(json.dumps({"bitset_probe": results, "runs": RUNS}), flush=True)
+
+
+if __name__ == "__main__":
+    main()
