@@ -7,7 +7,7 @@ hand-written kernel against its plain PyTorch version.
 Phases (any failure raises, so the script exits non-zero without its
 last line; each phase prints its peak device memory, held under 48 GiB):
 
-  1. Card and build: ``nvidia-smi`` name and power limit, then the seven
+  1. Card and build: ``nvidia-smi`` name and power limit, then the six
      kernel sources built by ``nvcc`` in parallel.
   2. Each of the thirteen kernel entry points against its plain version at
      the main path's shapes, on a batch of 65,536 tuples with unrouted,
@@ -58,7 +58,7 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      it sets (its adds at FADD_CYCLES each at the card's top SM clock)
      beside the bound; the RHP rows must have
      walked every run of LONG_RUN+ tuples through the ring (the wrappers'
-     ``long_runs``). The bit-set rows (Bloom and FM) time the kernel on
+     ``long_runs``). The bit-set rows (Bloom, FM and HLL) time the kernel on
      the state the batch already set and on a first touch (a fresh copy
      of the state before every call, the copy not timed); their
      ``@fresh`` rows time kernel, plain and library call on a state zeroed
@@ -688,48 +688,43 @@ def phase2_countmin(b, n: int, results: dict) -> None:
 
 
 def phase2_hll(b, n: int, results: dict) -> None:
+    """HLL's three rows on the bit-set kernel at k = 1: the bucket is the
+    one position, the rank the upd."""
     from repro_torch import core
     from repro_torch.kernels import hll_max, ops, probe, ref
 
     hll = core.HyperLogLog(rse=0.03)
-    m, t, dev, rows = hll.m, b.t, b.dev, b.rows
+    m, dev, rows = hll.m, b.dev, b.rows
     bucket, raw_rank = ops._hll_prep(b.items, hll.seed, hll.p)
     rank = torch.where(b.mask, raw_rank, 0).to(torch.int32)
-    hkeep = (rows >= 0) & (rank > 0)
-    lib_flat = rows[hkeep].long() * m + bucket[hkeep].long()
-    lib_src = rank[hkeep]
-    state_b = 8 * distinct(lib_flat)
-    batch_b = t * 4 * 2                             # bucket, rank
-    slots = probed_slots(b, rank > 0)
+    pos = bucket[:, None]
     print(f"[phase2] HyperLogLog: n={n} m={m}", flush=True)
     hll0 = torch.randint(0, 4, (n, m), generator=b.gen, device=dev,
                          dtype=torch.int32)
-    lib = lambda s: s.view(-1).scatter_reduce_(0, lib_flat, lib_src,
-                                               reduce="amax")
-    record(results, "hll_max_update",
-           lambda s: hll_max.hll_max_update(s, rows, bucket, rank),
-           lambda s: ref.hll_max_update(s, rows, bucket, rank),
-           lib, hll0, t * 4 + batch_b + state_b, int(hkeep.sum()))
-    record(results, "hll_probe_max_update",
-           lambda s: hll_max.hll_probe_max_update(
-               s, b.klo, b.khi, b.trows, b.slo, b.shi, bucket, rank,
-               n_probe=b.n_probe),
-           lambda s: ref.hll_max_update(
-               s, probe.probe_rows(b.klo, b.khi, b.trows, b.slo, b.shi,
-                                   n_probe=b.n_probe), bucket, rank),
-           lib, hll0, t * 8 + TABLE_B * slots + batch_b + state_b,
-           int(hkeep.sum()))
+    record_bitset(
+        b, results, "hll_max_update",
+        lambda s: hll_max.hll_max_update(s, rows, bucket, rank),
+        lambda s: ref.hll_max_update(s, rows, bucket, rank),
+        hll0, rows, pos, rank, fused=False)
+    record_bitset(
+        b, results, "hll_probe_max_update",
+        lambda s: hll_max.hll_probe_max_update(
+            s, b.klo, b.khi, b.trows, b.slo, b.shi, bucket, rank,
+            n_probe=b.n_probe),
+        lambda s: ref.hll_max_update(
+            s, probe.probe_rows(b.klo, b.khi, b.trows, b.slo, b.shi,
+                                n_probe=b.n_probe), bucket, rank),
+        hll0, rows, pos, rank, fused=True)
     del hll0
     free()
-    fkeep = rank > 0
-    fresh_flat, fresh_src = bucket[fkeep].long(), rank[fkeep]
-    record(results, "hll_max_update@fresh",
-           lambda s: hll_max.hll_max_update(s, b.to_row0, bucket, rank),
-           lambda s: ref.hll_max_update(s, b.to_row0, bucket, rank),
-           lambda s: s.view(-1).scatter_reduce_(0, fresh_flat, fresh_src,
-                                                reduce="amax"),
-           torch.zeros((1, m), dtype=torch.int32, device=dev),
-           t * 4 + batch_b + 8 * distinct(fresh_flat), int(fkeep.sum()))
+    # the data-source fold's fresh sketch, zeroed before every call as
+    # ops._max_fold makes it
+    record_bitset(
+        b, results, "hll_max_update@fresh",
+        lambda s: hll_max.hll_max_update(s, b.to_row0, bucket, rank),
+        lambda s: ref.hll_max_update(s, b.to_row0, bucket, rank),
+        torch.zeros((1, m), dtype=torch.int32, device=dev),
+        b.to_row0, pos, rank, fused=False, zeroed=True)
 
 
 def record_bitset(b, results, name, kernel, plain, state0, rows, idx, upd,
@@ -1239,12 +1234,12 @@ ENTRY_POINTS = {
                                  "countmin_scatter.cu", "onehot_matmul.py:61"),
     "onehot_probe_scatter": ("onehot_matmul", "onehot_probe_scatter",
                              "countmin_scatter.cu", "onehot_matmul.py:139"),
-    "hll_max_update": ("hll_max", "hll_max_update", "hll_max.cu",
+    "hll_max_update": ("hll_max", "hll_max_update", "bitset_or.cu",
                        "hll_max.py:52"),
-    "hll_max_update@fresh": ("hll_max", "hll_max_update", "hll_max.cu",
+    "hll_max_update@fresh": ("hll_max", "hll_max_update", "bitset_or.cu",
                              "hll_max.py:52"),
-    "hll_probe_max_update": ("hll_max", "hll_probe_max_update", "hll_max.cu",
-                             "hll_max.py:116"),
+    "hll_probe_max_update": ("hll_max", "hll_probe_max_update",
+                             "bitset_or.cu", "hll_max.py:116"),
     "bitset_max_update": ("bitset_or", "bitset_max_update", "bitset_or.cu",
                           "bitset_or.py:66"),
     "bitset_max_update@fresh": ("bitset_or", "bitset_max_update",
@@ -1838,7 +1833,7 @@ def main() -> None:
     print(f"[phase1] torch {torch.__version__} cuda {torch.version.cuda} "
           f"on {torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
-    build.build(["countmin_scatter", "hll_max", "bitset_or", "rhp_project",
+    build.build(["countmin_scatter", "bitset_or", "rhp_project",
                  "sliding_dft", "pairwise_corr", "flash_attention"])
     print(f"[phase1] kernels built in {time.perf_counter() - t0:.2f} s",
           flush=True)

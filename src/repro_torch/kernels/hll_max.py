@@ -1,45 +1,29 @@
-"""HyperLogLog register max-scatter (port of ``repro/kernels/hll_max.py``).
+"""HyperLogLog register max-scatter on the bit-set kernel (port of
+``repro/kernels/hll_max.py``).
 
 The TPU kernels sweep a one-hot max cube per tile; on Hopper the update
-is a direct ``atomicMax`` scatter written by hand in ``csrc/hll_max.cu``
-(exact: integer max does not depend on order):
+is the k = 1 case of the bit-set kernel (``bitset_or.py``,
+``csrc/bitset_or.cu``), exact because integer max does not depend on
+order:
 
     regs[s, bucket[t]] = max(regs[s, bucket[t]], rank[t])   for syn[t] == s
 
-Both entry points update ``regs`` in place and need no padding. On a CPU
-tensor each wrapper runs the plain version (``ref.py``, with the probe
-from ``probe.py``); on a CUDA tensor it launches the kernel or raises.
-``<wrapper>.launches`` counts kernel launches, and
-``hll_max_update.one_row_launches`` those on a one-row state.
+``bucket [T]`` is passed as the ``[T, 1]`` position operand (a view):
+the kernel drops rank <= 0, buckets outside ``[0, m)`` and rows outside
+``[0, n)``, as the plain version does, and checks the operands (named
+as its own: ``bits``, ``idx``, ``upd``). Both entry points update
+``regs`` in place and need no padding. On a CPU tensor each wrapper
+runs the plain version (``ref.py``, with the probe from ``probe.py``);
+on a CUDA tensor it launches the kernel or raises. These wrappers count
+their own launches (``<wrapper>.launches``, and
+``hll_max_update.one_row_launches`` those on a one-row state), apart
+from the Bloom and FM wrappers'.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from . import build, probe, ref
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_SIGNATURES = {
-    "hll_max_update": (_P, _I, _I, _P, _P, _P, _I, _P),
-    "hll_probe_max_update": (_P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P,
-                             _P, _I, _P),
-}
-
-
-def _lib():
-    return build.load("hll_max", _SIGNATURES)
-
-
-def _check_batch(regs, bucket, rank, t):
-    dev = regs.device
-    build.check(regs, "regs", torch.int32, tuple(regs.shape), dev)
-    if regs.dim() != 2:
-        raise ValueError(f"regs must be [n, m], got {tuple(regs.shape)}")
-    build.check(bucket, "bucket", torch.int32, (t,), dev)
-    build.check(rank, "rank", torch.int32, (t,), dev)
+from . import bitset_or, probe, ref
 
 
 def hll_max_update(regs: torch.Tensor, syn_idx: torch.Tensor,
@@ -48,19 +32,9 @@ def hll_max_update(regs: torch.Tensor, syn_idx: torch.Tensor,
     is a no-op; rows outside [0, n), e.g. -1, are dropped)."""
     if regs.device.type == "cpu":
         return ref.hll_max_update(regs, syn_idx, bucket, rank)
-    build.require_cuda(regs)
-    t = syn_idx.shape[0]
-    _check_batch(regs, bucket, rank, t)
-    build.check(syn_idx, "syn_idx", torch.int32, (t,), regs.device)
-    if t == 0:
-        return regs
-    n, m = regs.shape
-    err = _lib().hll_max_update(
-        regs.data_ptr(), n, m, syn_idx.data_ptr(), bucket.data_ptr(),
-        rank.data_ptr(), t, build.stream(regs.device))
-    build.check_launch(err, "hll_max_update")
-    hll_max_update.launches += 1
-    hll_max_update.one_row_launches += n == 1
+    if bitset_or.launch(regs, syn_idx, bucket[:, None], rank):
+        hll_max_update.launches += 1
+        hll_max_update.one_row_launches += regs.shape[0] == 1
     return regs
 
 
@@ -80,21 +54,10 @@ def hll_probe_max_update(regs: torch.Tensor, keys_lo: torch.Tensor,
         rows = probe.probe_rows(keys_lo, keys_hi, table_rows, sid_lo, sid_hi,
                                 n_probe=n_probe)
         return ref.hll_max_update(regs, rows, bucket, rank)
-    build.require_cuda(regs)
-    t = sid_lo.shape[0]
-    _check_batch(regs, bucket, rank, t)
-    size = build.check_table(keys_lo, keys_hi, table_rows, sid_lo, sid_hi,
-                             t, regs.device)
-    if t == 0:
-        return regs
-    n, m = regs.shape
-    err = _lib().hll_probe_max_update(
-        regs.data_ptr(), n, m, keys_lo.data_ptr(), keys_hi.data_ptr(),
-        table_rows.data_ptr(), size, sid_lo.data_ptr(), sid_hi.data_ptr(),
-        int(n_probe), bucket.data_ptr(), rank.data_ptr(), t,
-        build.stream(regs.device))
-    build.check_launch(err, "hll_probe_max_update")
-    hll_probe_max_update.launches += 1
+    if bitset_or.launch_probe(regs, keys_lo, keys_hi, table_rows, sid_lo,
+                              sid_hi, bucket[:, None], rank,
+                              n_probe=n_probe):
+        hll_probe_max_update.launches += 1
     return regs
 
 

@@ -45,10 +45,13 @@ def onehot_scatter_add(counts: torch.Tensor, syn_idx: torch.Tensor,
 def hll_max_update(regs: torch.Tensor, syn_idx: torch.Tensor,
                    bucket: torch.Tensor, rank: torch.Tensor) -> torch.Tensor:
     """``regs[s, bucket[t]] = max(regs[s, bucket[t]], rank[t])`` for every
-    tuple t with ``syn_idx[t] = s`` in ``[0, n)``; rank 0 is a no-op.
+    tuple t with ``syn_idx[t] = s`` in ``[0, n)``, ``bucket[t]`` in
+    ``[0, m)`` and ``rank[t] > 0`` (the rows, registers and ranks the
+    reference's one-hot cube matches; rank 0 is the masked no-op).
     regs [n, m] i32; syn_idx/bucket/rank [T] i32."""
     n, m = regs.shape
-    keep = (syn_idx >= 0) & (syn_idx < n)
+    keep = ((syn_idx >= 0) & (syn_idx < n) & (bucket >= 0) & (bucket < m)
+            & (rank > 0))
     flat = syn_idx[keep].long() * m + bucket[keep].long()
     regs.view(-1).scatter_reduce_(0, flat, rank[keep], reduce="amax")
     return regs

@@ -4,7 +4,8 @@ stacks (n = 1 spreads a block over bucket slices), depths 1 to 30 (deep
 sketches stage fewer tuples per chunk in more shared memory), batches
 below, at and above one 1024-tuple chunk, count-sketch signs, float
 weights; for the bit-set kernel empty batches, k = 1, positions at
-m - 1, a probe bound of 1 and a stack past 2**31 lanes; for the RHP
+m - 1, a probe bound of 1 and a stack past 2**31 lanes, and through it
+HLL's registers (a hot register, buckets -1 and m, ranks <= 0); for the RHP
 projection ragged plane counts (b = 200 and b = 1), empty batches, rows
 out of range, runs just under, at and over the ring walk's threshold,
 runs ending on and one past a ring stage, a hot run of ~8k tuples, and
@@ -461,6 +462,83 @@ def test_fm_kernels_hot_lanes_match_plain_byte_for_byte(dev, t, state):
         torch.cuda.synchronize()
         assert torch.equal(got[0].view(n, -1), want), label
         assert torch.equal(got[1], got[0]), label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 31, 33, 4099])
+@pytest.mark.parametrize("state", ["zero", "set"])
+def test_hll_kernels_hot_registers_match_plain_byte_for_byte(dev, t, state):
+    """HLL's two wrappers (the bit-set kernel at k = 1) on a batch whose
+    tuples mostly hit one stream's one register with ranks 1 to 7 (some
+    0 and -3), buckets -1 and m, rows -1, n and n + 5; ``set``: the
+    batch's state after a first run with the hot register at 9, above
+    every rank; twice each."""
+    rng = np.random.RandomState(t + 5)
+    n, m = 40, 2048
+    pop, (klo, khi, trows, n_probe) = _table(rng, n, dev)
+    rows, slo, shi, pos, rank, lanes = _hot_batch(rng, pop, n, m, t, 1, dev)
+    bucket = pos[:, 0].contiguous()
+    regs0 = torch.zeros((n, m), dtype=torch.int32, device=dev)
+    if state == "set":
+        ref.hll_max_update(regs0, rows, bucket, rank)
+        regs0[1, int(lanes[0])] = 9
+    rows_f = probe.probe_rows(klo, khi, trows, slo, shi, n_probe=n_probe)
+    for label, kern, plain_rows in (
+            ("rows given", lambda s: hll_max.hll_max_update(
+                s, rows, bucket, rank), rows),
+            ("probe fused", lambda s: hll_max.hll_probe_max_update(
+                s, klo, khi, trows, slo, shi, bucket, rank,
+                n_probe=n_probe), rows_f)):
+        want = ref.hll_max_update(regs0.clone(), plain_rows, bucket, rank)
+        got = [kern(regs0.clone()) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want), label
+        assert torch.equal(got[1], got[0]), label
+    if state == "set":
+        assert int(want[1, int(lanes[0])]) == 9
+
+
+@pytest.mark.cuda
+def test_hll_wrappers_count_their_own_launches(dev):
+    """The HLL wrappers launch the bit-set kernel but count on their own
+    counters (the fresh sketch's one-row launches too), never on Bloom's
+    or FM's; an empty batch launches nothing, a bad operand raises before
+    any launch."""
+    rng = np.random.RandomState(12)
+    pop, (klo, khi, trows, n_probe) = _table(rng, 4, dev)
+    slo, shi = _batch(rng, pop, 3, dev)
+    regs = torch.zeros((4, 64), dtype=torch.int32, device=dev)
+    rows = torch.zeros(3, dtype=torch.int32, device=dev)
+    bucket = torch.tensor([1, 5, 63], dtype=torch.int32, device=dev)
+    rank = torch.tensor([3, 1, 2], dtype=torch.int32, device=dev)
+    hll, hllp = hll_max.hll_max_update, hll_max.hll_probe_max_update
+    others = lambda: (bitset_or.bitset_max_update.launches,
+                      bitset_or.bitset_max_update.one_row_launches,
+                      bitset_or.bitset_probe_max_update.launches,
+                      fm_bitmap.fm_bit_update.launches,
+                      fm_bitmap.fm_bit_update.one_row_launches,
+                      fm_bitmap.fm_probe_bit_update.launches)
+    h0, o0, p0, b0 = hll.launches, hll.one_row_launches, hllp.launches, \
+        others()
+    hll(regs, rows, bucket, rank)
+    hll(regs[:1], rows, bucket, rank)                     # a fresh sketch
+    hllp(regs, klo, khi, trows, slo, shi, bucket, rank, n_probe=n_probe)
+    empty = rows[:0]
+    hll(regs, empty, empty, empty)
+    hllp(regs, klo, khi, trows, empty, empty, empty, empty, n_probe=n_probe)
+    torch.cuda.synchronize()
+    assert (hll.launches, hll.one_row_launches, hllp.launches) == (
+        h0 + 2, o0 + 1, p0 + 1)
+    assert others() == b0
+    assert int(regs[0, 1]) == 3 and int(regs[0, 63]) == 2
+    with pytest.raises(ValueError, match="is on cpu"):
+        hll(regs, rows, bucket.cpu(), rank)
+    with pytest.raises(TypeError):
+        hll(regs, rows, bucket, rank.long())
+    with pytest.raises(ValueError, match="shape"):
+        hllp(regs, klo, khi, trows, slo, shi, bucket[:2], rank,
+             n_probe=n_probe)
+    assert (hll.launches, hllp.launches) == (h0 + 2, p0 + 1)
 
 
 @pytest.mark.cuda

@@ -18,6 +18,7 @@ from repro import core as jcore
 from repro.core import batched as jbatched
 from repro.kernels import bitset_or as jbitset_or
 from repro.kernels import fm_bitmap as jfm_bitmap
+from repro.kernels import hll_max as jhll_max
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.service import routing as jrouting
@@ -255,6 +256,78 @@ def test_hll_plain_matches_jax_oracle():
         jnp.asarray(regs0), jnp.asarray(syn[keep]),
         jnp.asarray(bucket[keep]), jnp.asarray(rank[keep])))
     assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("seed", [31, 32])
+def test_hll_plain_equals_bitset_plain_at_k1_and_pallas_kernel(seed):
+    """The identity the HLL kernels rest on: the register max-scatter is
+    the bit-set max-scatter at k = 1 (bucket the position, rank the upd).
+    The reference's Pallas kernel (interpret mode), the port's
+    ``ref.hll_max_update`` and its wrapper on the CPU, and
+    ``ref.bitset_max_update`` on ``bucket[:, None]`` agree byte for byte
+    on ranks 0-22, rows -1 and n, buckets -1 and m, and one register
+    taking hundreds of tuples with ranks 1-7."""
+    n, m, t = 16, 256, 768
+    rng = np.random.RandomState(seed)
+    syn = rng.randint(0, n, t).astype(np.int32)
+    bucket = rng.randint(0, m, t).astype(np.int32)
+    rank = rng.randint(0, 23, t).astype(np.int32)
+    hot = rng.rand(t) < 0.7
+    syn[hot], bucket[hot] = 3, 77
+    rank[hot] = rng.randint(1, 8, int(hot.sum()))
+    syn[::7], syn[::11] = -1, n
+    bucket[::5], bucket[::9] = -1, m
+    regs0 = rng.randint(0, 5, (n, m)).astype(np.int32)
+    regs0[3, 77] = 2
+    kept_hot = hot & (syn == 3) & (bucket == 77)
+    assert kept_hot.sum() >= 200
+    want = np.asarray(jhll_max.hll_max_update(
+        jnp.asarray(regs0), jnp.asarray(syn), jnp.asarray(bucket),
+        jnp.asarray(rank), s_tile=8, m_tile=128, t_tile=128, interpret=True))
+    args = [torch.from_numpy(a) for a in (syn, bucket, rank)]
+    got_ref = ref.hll_max_update(torch.from_numpy(regs0.copy()), *args)
+    got_wrap = hll_max.hll_max_update(torch.from_numpy(regs0.copy()), *args)
+    got_bits = ref.bitset_max_update(
+        torch.from_numpy(regs0.copy()), args[0], args[1][:, None], args[2])
+    for got in (got_ref, got_wrap, got_bits):
+        assert np.array_equal(got.numpy(), want)
+    assert want[3, 77] == rank[kept_hot].max() == 7
+
+
+def test_hll_wrappers_run_plain_on_cpu_and_launch_nothing():
+    """On CPU tensors both HLL wrappers run their plain versions in place
+    and count no launch (nor a Bloom or FM one); a tensor on a device
+    without a kernel raises."""
+    x = _inputs(8, n=8)
+    rng = np.random.RandomState(9)
+    t = len(x["sids"])
+    bucket = rng.randint(0, 32, t).astype(np.int32)
+    rank = np.where(x["msk"], rng.randint(1, 23, t), 0).astype(np.int32)
+    regs0 = rng.randint(0, 4, (x["n"], 32)).astype(np.int32)
+    ta = _torch_args(x)
+    rows = tops.route_probe(*ta[:5], n_probe=x["n_probe"])
+    tb, tr = torch.from_numpy(bucket), torch.from_numpy(rank)
+    counters = lambda: [(f.launches, getattr(f, "one_row_launches", 0))
+                        for f in (hll_max.hll_max_update,
+                                  hll_max.hll_probe_max_update,
+                                  bitset_or.bitset_max_update,
+                                  bitset_or.bitset_probe_max_update,
+                                  fm_bitmap.fm_bit_update)]
+    before = counters()
+    want = ref.hll_max_update(torch.from_numpy(regs0.copy()), rows, tb, tr)
+    regs = torch.from_numpy(regs0.copy())
+    assert hll_max.hll_max_update(regs, rows, tb, tr) is regs
+    assert torch.equal(regs, want)
+    fresh = torch.zeros((1, 32), dtype=torch.int32)
+    hll_max.hll_max_update(fresh, torch.zeros_like(rows), tb, tr)
+    regs = torch.from_numpy(regs0.copy())
+    assert hll_max.hll_probe_max_update(regs, *ta[:5], tb, tr,
+                                        n_probe=x["n_probe"]) is regs
+    assert torch.equal(regs, want)
+    assert counters() == before
+    meta = lambda shape: torch.zeros(shape, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        hll_max.hll_max_update(meta((2, 8)), meta(4), meta(4), meta(4))
 
 
 def test_operand_checks_raise_before_any_launch():

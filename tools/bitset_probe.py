@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Where a bit-set call's time goes: the hot lanes, the atomics, the
-batch's loads and the probe.
+batch's loads and the probe; for Bloom, FM and HyperLogLog, which all
+run on the bit-set kernel.
 
     python3 tools/bitset_probe.py            # needs one CUDA card and nvcc
     python3 tools/bitset_probe.py --src build/parent --designs
@@ -8,8 +9,11 @@ batch's loads and the probe.
 Builds ``csrc/bitset_or.cu`` of this checkout, of every checkout given by
 ``--src`` (such as a parent unpacked by ``git archive``) and, with
 ``--designs``, of this checkout's source with one step of its design
-changed at a time (``DESIGNS``: text edits of a copy), each with
-``nvcc`` into a temporary directory, and times them in one process on
+changed at a time (``DESIGNS``: text edits of a copy); where a ``--src``
+checkout still has the one-thread-per-tuple ``csrc/hll_max.cu``, that
+source too (``<name>:hll_max``, timed in the HLL cases only). Each is
+built with ``nvcc`` into a temporary directory, and all are timed in one
+process on
 chip_smoke's phase-2 batch (65,536 Zipf(1.1) tuples, seed 0). Every
 case runs each build in the order given and then in reverse; a reading
 is the kernel's own device time a call from ``torch.profiler`` (mean of
@@ -35,6 +39,12 @@ zeroed before every call, as the data-source fold's fresh sketch is):
                            flat [131,072, 2048] plane
   fm-probe/set             the fused entry point at k = 1
   fm@fresh/zero            FM's one-row fresh sketch
+  hll/set, hll/first       per-stream HyperLogLog(rse=0.03) as a k = 1
+                           bit-set on [131,072, 2048] registers (``regs0``:
+                           ranks 0-3), the bucket the position, the rank
+                           (0 where masked) the upd
+  hll-probe/set            the fused entry point
+  hll@fresh/zero           HLL's one-row fresh sketch
 
 Beside each case it prints the entries the batch keeps, their distinct
 lanes and 32-byte sectors, the most entries on one lane and the groups
@@ -60,7 +70,7 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from repro_torch import core  # noqa: E402
-from repro_torch.kernels import bitset_or, build, probe, ref  # noqa: E402
+from repro_torch.kernels import bitset_or, build, ops, probe, ref  # noqa: E402
 from repro_torch.service import routing  # noqa: E402
 
 RUNS = 10
@@ -106,52 +116,88 @@ DESIGNS = {
 }
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# the C interface of an earlier checkout's csrc/hll_max.cu
+HLL_SIGNATURES = {
+    "hll_max_update": (_P, _I, _I, _P, _P, _P, _I, _P),
+    "hll_probe_max_update": (_P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P,
+                             _P, _I, _P),
+}
+
+
 def sources(args) -> dict:
-    """label -> (bitset_or.cu text, the directory of its headers)."""
-    out = {"tree": ((ROOT / CSRC / "bitset_or.cu").read_text(),
+    """label -> (source name, its text, the directory of its headers)."""
+    out = {"tree": ("bitset_or", (ROOT / CSRC / "bitset_or.cu").read_text(),
                     ROOT / CSRC)}
     for src in args.src:
         d = src.resolve() / CSRC
-        out[src.name] = ((d / "bitset_or.cu").read_text(), d)
+        out[src.name] = ("bitset_or", (d / "bitset_or.cu").read_text(), d)
+        if (d / "hll_max.cu").exists():
+            out[f"{src.name}:hll_max"] = (
+                "hll_max", (d / "hll_max.cu").read_text(), d)
     if args.designs:
         for label, edits in DESIGNS.items():
-            text = out["tree"][0]
+            text = out["tree"][1]
             for old, new in edits:
                 cs.require(text.count(old) == 1,
                            f"{label}: the edited text is not in "
                            f"bitset_or.cu exactly once: {old!r}")
                 text = text.replace(old, new)
-            out[label] = (text, ROOT / CSRC)
+            out[label] = ("bitset_or", text, ROOT / CSRC)
     return out
 
 
 def build_all(srcs: dict, tmp: Path) -> dict:
-    """label -> loaded library; all nvcc processes started together."""
+    """label -> (loaded library, source name); all nvcc processes started
+    together."""
     procs = {}
-    for i, (label, (text, headers)) in enumerate(srcs.items()):
+    for i, (label, (name, text, headers)) in enumerate(srcs.items()):
         d = tmp / f"v{i}"
         d.mkdir()
         for h in headers.glob("*.cuh"):
             shutil.copy(h, d)
-        (d / "bitset_or.cu").write_text(text)
+        (d / f"{name}.cu").write_text(text)
         cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(d / "lib.so"),
-               str(d / "bitset_or.cu")]
+               str(d / f"{name}.cu")]
         procs[label] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                          stderr=subprocess.STDOUT, text=True),
-                        d)
+                        d, name)
     libs = {}
-    for label, (proc, d) in procs.items():
+    for label, (proc, d, name) in procs.items():
         log, _ = proc.communicate()
         cs.require(proc.returncode == 0, f"{label}: nvcc failed\n{log}")
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {label}: {line.strip()}", flush=True)
         lib = ctypes.CDLL(str(d / "lib.so"))
-        for fn, argtypes in bitset_or._SIGNATURES.items():
+        sigs = (HLL_SIGNATURES if name == "hll_max"
+                else bitset_or._SIGNATURES)
+        for fn, argtypes in sigs.items():
             getattr(lib, fn).argtypes = list(argtypes)
             getattr(lib, fn).restype = ctypes.c_int
-        libs[label] = lib
+        libs[label] = (lib, name)
     return libs
+
+
+def call_hll(lib, regs, c) -> None:
+    """One launch of case ``c``'s entry point from an earlier
+    ``hll_max.cu``: the [T] bucket and rank, as its wrappers made it."""
+    n, m = regs.shape
+    t = c["idx"].shape[0]
+    bucket = c["idx"][:, 0].contiguous()
+    stream = build.stream(regs.device)
+    if c["probe"] is None:
+        err = lib.hll_max_update(regs.data_ptr(), n, m, c["rows"].data_ptr(),
+                                 bucket.data_ptr(), c["upd"].data_ptr(), t,
+                                 stream)
+    else:
+        p = c["probe"]
+        err = lib.hll_probe_max_update(
+            regs.data_ptr(), n, m, p.klo.data_ptr(), p.khi.data_ptr(),
+            p.trows.data_ptr(), p.klo.shape[0], p.slo.data_ptr(),
+            p.shi.data_ptr(), p.n_probe, bucket.data_ptr(),
+            c["upd"].data_ptr(), t, stream)
+    build.check_launch(err, "hll_probe")
 
 
 def call(lib, bits, c) -> None:
@@ -175,11 +221,11 @@ def call(lib, bits, c) -> None:
     build.check_launch(err, "bitset_probe")
 
 
-def kernel_ms(fn, prep) -> float:
-    """The bit-set kernel's device ms a call (mean of RUNS), ``prep()``
-    before each call and not counted."""
+def kernel_ms(fn, prep, kernel: str) -> float:
+    """The device ms a call (mean of RUNS) of the kernels whose name holds
+    ``kernel``, ``prep()`` before each call and not counted."""
     spans = cs.device_events(lambda: (prep(), fn()), runs=RUNS)
-    return sum(e - s for name, s, e in spans if "bitset" in name) / RUNS / 1e3
+    return sum(e - s for name, s, e in spans if kernel in name) / RUNS / 1e3
 
 
 def cases(b, dev) -> list:
@@ -210,10 +256,16 @@ def cases(b, dev) -> list:
         torch.int32)[:, None].contiguous()
     fm0 = (torch.rand((n, fm_m), generator=b.gen, device=dev) > 0.9).to(
         torch.int32)
+    hll = core.HyperLogLog(rse=0.03)
+    bucket, raw_rank = ops._hll_prep(b.items, hll.seed, hll.p)
+    rank = torch.where(b.mask, raw_rank, 0).to(torch.int32)
+    h_pos = bucket[:, None]
+    regs0 = torch.randint(0, 4, (n, hll.m), generator=b.gen, device=dev,
+                          dtype=torch.int32)
     row0 = b.to_row0
-    c = lambda name, rows, ix, state0, mode, fused=False: dict(
-        name=name, rows=rows, idx=ix, upd=upd, state0=state0, mode=mode,
-        probe=b if fused else None)
+    c = lambda name, rows, ix, state0, mode, fused=False, u=upd: dict(
+        name=name, rows=rows, idx=ix, upd=u, state0=state0, mode=mode,
+        probe=b if fused else None, hll=name.startswith("hll"))
     return [
         c("bloom/set", b.rows, idx, bits0, "set"),
         c("bloom/first", b.rows, idx, bits0, "first"),
@@ -230,13 +282,20 @@ def cases(b, dev) -> list:
         c("fm-probe/set", b.rows, fm_pos, fm0, "set", fused=True),
         c("fm@fresh/zero", row0, fm_pos,
           torch.zeros((1, fm_m), dtype=torch.int32, device=dev), "zero"),
+        c("hll/set", b.rows, h_pos, regs0, "set", u=rank),
+        c("hll/first", b.rows, h_pos, regs0, "first", u=rank),
+        c("hll-probe/set", b.rows, h_pos, regs0, "set", fused=True, u=rank),
+        c("hll@fresh/zero", row0, h_pos,
+          torch.zeros((1, hll.m), dtype=torch.int32, device=dev), "zero",
+          u=rank),
     ]
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", type=Path, action="append", default=[],
-                    help="another checkout whose bitset_or.cu is timed")
+                    help="another checkout whose bitset_or.cu (and "
+                         "hll_max.cu, where it has one) is timed")
     ap.add_argument("--designs", action="store_true",
                     help="also this source with each design step changed")
     args = ap.parse_args()
@@ -252,31 +311,38 @@ def main() -> None:
         libs = build_all(sources(args), tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    order = list(libs) + list(libs)[::-1]
     b = cs.phase2_batch(dev, 0, 65536, 65536)
     results = []
     for c in cases(b, dev):
+        # the earlier hll_max.cu builds take the HLL cases only
+        labels = [lb for lb, (_, name) in libs.items()
+                  if c["hll"] or name == "bitset_or"]
+        order = labels + labels[::-1]
         state0, m = c["state0"], c["state0"].shape[1]
         rows = c["rows"]          # the probe's rows, for a fused case
         stats = cs.lane_stats(rows, c["idx"], c["upd"], m)
-        want = ref.bitset_max_update(state0.clone(), rows, c["idx"],
-                                     c["upd"])
+        want = (ref.hll_max_update(state0.clone(), rows, c["idx"][:, 0],
+                                   c["upd"]) if c["hll"] else
+                ref.bitset_max_update(state0.clone(), rows, c["idx"],
+                                      c["upd"]))
         work = state0.clone()
         prep = {"set": lambda: None,
                 "first": lambda: work.copy_(state0),
                 "zero": lambda: work.zero_()}[c["mode"]]
         ms: dict = {}
         for label in order:
-            lib = libs[label]
+            lib, name = libs[label]
+            launch, kernel = ((call_hll, "hll_kernel") if name == "hll_max"
+                              else (call, "bitset"))
             if label not in ms:       # first visit: the bytes, from state0
                 work.copy_(state0)
-                call(lib, work, c)
+                launch(lib, work, c)
                 torch.cuda.synchronize()
                 cs.require(cs.same_bytes(work, want),
                            f"{label}: {c['name']} differs from the plain "
                            f"version")
             ms.setdefault(label, []).append(
-                kernel_ms(lambda: call(lib, work, c), prep))
+                kernel_ms(lambda: launch(lib, work, c), prep, kernel))
         del want, work
         cs.free()
         line = ", ".join(f"{lb} {v[0]:.4f} / {v[1]:.4f}"
