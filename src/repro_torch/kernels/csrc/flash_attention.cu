@@ -83,8 +83,8 @@
 // and out, 0.080 ms at 3.35 TB/s. The two-part P makes P.V run twice, so
 // this design's own tensor-core floor is 6 D operations a kept pair,
 // 0.417 ms. The tensor maps are encoded on the host at every call, with
-// cuTensorMapEncodeTiled found through cudaGetDriverEntryPoint, so the
-// library links against the CUDA runtime alone.
+// cuTensorMapEncodeTiled found through cudaGetDriverEntryPoint
+// (launch.cuh), so the library links against the CUDA runtime alone.
 #include <cuda.h>                       // CUtensorMap and its enums only
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,6 +92,8 @@
 #include <climits>
 #include <cmath>
 #include <cstdint>
+
+#include "launch.cuh"
 
 namespace {
 
@@ -809,38 +811,11 @@ attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-cudaError_t encoder(EncodeTiled* fn) {
-  static EncodeTiled found = nullptr;
-  if (found == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
-#endif
-    if (err != cudaSuccess) return err;
-    if (status != cudaDriverEntryPointSuccess || p == nullptr)
-      return cudaErrorNotSupported;
-    found = reinterpret_cast<EncodeTiled>(p);
-  }
-  *fn = found;
-  return cudaSuccess;
-}
-
 // [BH, S, D] bf16 as a 3-D map, D innermost; boxes of 64 columns x ``rows``
 // rows x 1 head with the 128-byte swizzle; what lies past D or S reads as 0
-cudaError_t tensor_map(CUtensorMap* map, EncodeTiled encode, const void* x,
-                       long long BH, long long S, int D, int rows) {
+cudaError_t tensor_map(CUtensorMap* map, sde::EncodeTiled encode,
+                       const void* x, long long BH, long long S, int D,
+                       int rows) {
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
   const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
   const cuuint32_t box[3] = {(cuuint32_t)kBox, (cuuint32_t)rows, 1};
@@ -863,8 +838,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                            n_qt;
   if (blocks > INT_MAX || Sk > INT_MAX)   // a TMA coordinate is 32-bit
     return cudaErrorInvalidValue;
-  EncodeTiled encode;
-  cudaError_t err = encoder(&encode);
+  sde::EncodeTiled encode;
+  cudaError_t err = sde::encoder(&encode);
   if (err != cudaSuccess) return err;
   CUtensorMap tq, tk, tv;
   if ((err = tensor_map(&tq, encode, q, BH, Sq, D, kBq)) != cudaSuccess ||

@@ -8,8 +8,9 @@ Over the flattened normalized DFT coefficients x [N, K] f32:
 The TPU kernel computes the Gram as an MXU product per 256 x 256 VMEM
 block, over inputs padded to its tiles, with ``sq`` computed outside it.
 On Hopper the whole formula is one hand-written kernel,
-``csrc/pairwise_corr.cu``: 64 x 64 output tiles that mask their own
-ragged edge, ``sq`` fused, every output summed in one thread in a fixed
+``csrc/pairwise_corr.cu``: a persistent grid over 128 x 64 output tiles
+that mask their own ragged edge, each tile staged in shared memory and
+stored asynchronously, every output summed in one thread in a fixed
 order in float32, so two runs give the same bytes.
 
 On a CPU tensor it runs the plain version (``ref.pairwise_corr``); on a

@@ -6,10 +6,11 @@ One tick per stream, on the first F DFT coefficients in (re, im) planes:
     X_F <- (X_F + delta) * e^{2 pi i F / n}    where mask > 0
 
 The TPU kernel fuses the six-op complex multiply and the mask into one
-VMEM pass; on Hopper the same elementwise pass is written by hand in
-``csrc/sliding_dft.cu``, with explicit round-to-nearest intrinsics so
-that no multiply-add is contracted and the result equals the plain
-version (``ref.sliding_dft_step``) byte for byte.
+VMEM pass; on Hopper ``csrc/sliding_dft.cu`` walks rows instead: a warp
+votes on 128 rows' masks and ticks only the rows masked in, with
+explicit round-to-nearest intrinsics so that no multiply-add is
+contracted and the result equals the plain version
+(``ref.sliding_dft_step``) byte for byte.
 
 The tick is in place, on re/im planes at any strides the two share, so
 the engine hands it the interleaved ``[S, F, 2]`` coefficient leaf's

@@ -18,11 +18,14 @@ byte-equal to a serial batch-order loop even for float weights; for its
 main path (the row sort, then a walk of each run) runs of 1 to ~8k tuples across chunk boundaries,
 interleaved buckets, d = 1 and 30, stacks of 2**17 + 1 and 2**18 + 1 rows,
 byte-equal to a serial batch-order loop, and the sort itself against
-``torch.sort(stable=True)``; for the sliding-DFT tick odd S, F = 1,
-all or no rows masked, and the interleaved in-place planes the engine
-passes, byte for byte; for the pairwise correlation N = 1 to 5,000 with
-ragged tiles and K from 1 to 40, the same bytes in two runs, and an N
-past 46,341 where N * N passes 2**31; for the attention forward S = 1,
+``torch.sort(stable=True)``; for the sliding-DFT tick S off the
+multiples of 4 and 128 up to 2**20 + 7, F = 1 to 33, masks at every
+offset from a 16-byte boundary with all, none or only the last row in,
+the interleaved in-place planes the engine passes and other shared
+strides, byte for byte; for the pairwise correlation N = 1 to 5,001 with
+ragged tiles and K from 0 to 64, an ``out`` off its 16-byte alignment,
+the same bytes in every run, and an N past 46,341 where N * N passes
+2**31; for the attention forward S = 1,
 S = 200, Sq != Sk both ways, D = 16 to 256, float32 and bfloat16,
 causal and not, the same bytes in two runs, one launch a call, heads
 kept apart at a ragged Sk (a neighbour head's K and V all inf), and a
@@ -185,44 +188,76 @@ def test_countmin_small_stack_launch_sums_in_batch_order(dev, n, d, w, t,
         (5 if n == 1 else 0)
 
 
+DFT_SHAPES = sorted({(1, 1), (37, 1), (1001, 8), (4097, 16), (131073, 8),
+                     (2**20 + 7, 8), (2**20 + 7, 33)}
+                    | {(s, f) for s in (1, 5, 127, 129)
+                       for f in (1, 3, 8, 16, 33)})
+
+
+def _dft_layouts(vals, dev):
+    """Planes [S, F] holding ``vals`` [S, F, 2] at each pair of shared
+    strides the tick takes: contiguous planes; the interleaved leaf (im =
+    re + 1, element stride 2: the kernel's float2 route), also 4 bytes off
+    its 8-byte alignment; element stride 3; transposed planes."""
+    s, f, _ = vals.shape
+    c = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    re0, im0 = c(vals[..., 0]), c(vals[..., 1])
+    leaf = c(vals)
+    odd = torch.empty(s * f * 2 + 1, device=dev)[1:].view(s, f, 2)
+    odd.copy_(leaf)
+    wide = torch.zeros((s, 3 * f + 1), device=dev)
+    tr = torch.empty((2, f, s), device=dev)
+    out = {"planes": (re0, im0), "interleaved": (leaf[..., 0], leaf[..., 1]),
+           "interleaved+4B": (odd[..., 0], odd[..., 1]),
+           "stride3": (wide[:, 0:3 * f:3], wide[:, 1:3 * f:3]),
+           "transposed": (tr[0].t(), tr[1].t())}
+    for name in ("stride3", "transposed"):
+        out[name][0].copy_(re0)
+        out[name][1].copy_(im0)
+    return out
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("mask_kind", ["random", "all", "none"])
-@pytest.mark.parametrize("s,f", [(1, 1), (37, 1), (1001, 8), (4097, 16),
-                                 (131073, 8)])
+@pytest.mark.parametrize("mask_kind", ["random", "all", "none", "last"])
+@pytest.mark.parametrize("s,f", DFT_SHAPES)
 def test_sliding_dft_kernel_matches_plain_byte_for_byte(dev, s, f,
                                                         mask_kind):
-    """In place on contiguous planes, and on the interleaved [S, F, 2]
-    coefficient leaf's views, as the engine calls it: the kernel rounds
-    every product on its own, so it equals the plain version's bytes."""
+    """In place on contiguous planes, on the interleaved [S, F, 2]
+    coefficient leaf's views, as the engine calls it (and 4 bytes off its
+    alignment), at element stride 3 and on transposed planes; S off the
+    multiples of 4 and of the 128 rows a warp votes on, F up to 33 (> 32:
+    the lanes loop over f); the mask a view 0-3 floats past a 16-byte
+    boundary; rows masked in at random, all, none, or only the last. The
+    kernel rounds every product on its own, so it equals the plain
+    version's bytes."""
     rng = np.random.RandomState(s + f)
     c = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    coeff = c((rng.randn(s, f, 2) * 40).astype(np.float32))
-    coeff0 = coeff.clone()
+    vals = (rng.randn(s, f, 2) * 40).astype(np.float32)
     delta = c((rng.randn(s) * 9).astype(np.float32))
-    mask = c({"random": rng.rand(s) > 0.4, "all": np.ones(s, bool),
-              "none": np.zeros(s, bool)}[mask_kind].astype(np.float32))
+    m = {"random": rng.rand(s) > 0.4, "all": np.ones(s, bool),
+         "none": np.zeros(s, bool),
+         "last": np.arange(s) == s - 1}[mask_kind].astype(np.float32)
+    at = {"random": 0, "all": 1, "none": 2, "last": 3}[mask_kind]
+    mask = torch.zeros(s + 4, device=dev)[at:at + s]
+    mask.copy_(c(m))
     ang = 2 * np.pi * np.arange(1, f + 1) / 128.0
     twr, twi = c(np.cos(ang).astype(np.float32)), c(np.sin(ang).astype(
         np.float32))
-    # contiguous copies (at S = F = 1 ``.contiguous()`` would return the
-    # leaf's own view)
-    re, im = (coeff[..., i].clone(memory_format=torch.contiguous_format)
-              for i in (0, 1))
-    want = ref.sliding_dft_step(re.clone(), im.clone(), delta, mask, twr,
-                                twi)
+    want = ref.sliding_dft_step(c(vals[..., 0]), c(vals[..., 1]), delta,
+                                mask, twr, twi)
+    layouts = _dft_layouts(vals, dev)
     before = sliding_dft.sliding_dft_step.launches
-    got = sliding_dft.sliding_dft_step(re, im, delta, mask, twr, twi)
-    planes = (coeff[..., 0], coeff[..., 1])
-    inplace = sliding_dft.sliding_dft_step(*planes, delta, mask, twr, twi)
+    for name, (re, im) in layouts.items():
+        got = sliding_dft.sliding_dft_step(re, im, delta, mask, twr, twi)
+        assert got[0] is re and got[1] is im, name
     torch.cuda.synchronize()
-    assert sliding_dft.sliding_dft_step.launches - before == 2
-    assert got[0] is re and inplace[0].data_ptr() == coeff.data_ptr()
-    for g, i, w in zip(got, inplace, want):
-        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
-        assert torch.equal(i.contiguous().view(torch.int32),
-                           w.view(torch.int32))
+    assert sliding_dft.sliding_dft_step.launches - before == len(layouts)
+    for name, (re, im) in layouts.items():
+        for g, w in zip((re, im), want):
+            assert torch.equal(g.contiguous().view(torch.int32),
+                               w.view(torch.int32)), name
     if mask_kind == "none":
-        assert torch.equal(coeff, coeff0)
+        assert torch.equal(want[0], c(vals[..., 0]))
 
 
 @pytest.mark.cuda
@@ -814,21 +849,33 @@ def test_countmin_row_sort_matches_torch_stable_sort(dev, n, t):
 CORR_ATOL = 1e-5
 
 
+CORR_SHAPES = sorted({(1, 1), (37, 3), (64, 16), (300, 16), (512, 40),
+                      (5000, 16)}
+                     | {(n, k) for n in (1, 3, 63, 65, 127, 4097, 5000, 5001)
+                        for k in (0, 1, 3, 16, 33, 64)})
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,k", [(1, 1), (37, 3), (64, 16), (300, 16),
-                                 (512, 40), (5000, 16)])
+@pytest.mark.parametrize("n,k", CORR_SHAPES)
 def test_pairwise_corr_kernel_matches_plain(dev, n, k):
-    """Against the plain version to CORR_ATOL; the same bytes in two runs;
-    the diagonal 1 and the matrix symmetric, bit for bit (sq is summed
-    with the products' own order)."""
+    """Against the plain version to CORR_ATOL; the same bytes in two runs
+    and in a third into an ``out`` 4 bytes past a 16-byte boundary (the
+    streaming stores, where the aligned run of an N % 4 == 0 takes the 2-D
+    TMA store); the diagonal 1 and the matrix symmetric, bit for bit (sq is
+    summed with the products' own order). N off the 128 x 64 tiles, K = 0
+    and K past one 16-wide chunk of K."""
     rng = np.random.RandomState(n + k)
     x = torch.from_numpy((rng.randn(n, k) * 0.1).astype(np.float32)).to(dev)
     want = ref.pairwise_corr(x)
     got = pairwise_corr.pairwise_corr(x)
     again = pairwise_corr.pairwise_corr(x)
+    off = torch.full((n * n + 1,), float("nan"), device=dev)[1:].view(n, n)
+    assert off.data_ptr() % 16 == 4
+    assert pairwise_corr.pairwise_corr(x, off) is off
     torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= CORR_ATOL
     assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    assert torch.equal(got.view(torch.int32), off.view(torch.int32))
     assert torch.equal(got.diagonal(), torch.ones(n, device=dev))
     assert torch.equal(got.view(torch.int32), got.T.view(torch.int32))
 

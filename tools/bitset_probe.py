@@ -56,10 +56,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import shutil
-import subprocess
 import sys
-import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -69,6 +66,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+import probe_build as pb  # noqa: E402
 from repro_torch import core  # noqa: E402
 from repro_torch.kernels import bitset_or, build, ops, probe, ref  # noqa: E402
 from repro_torch.service import routing  # noqa: E402
@@ -137,46 +135,10 @@ def sources(args) -> dict:
                 "hll_max", (d / "hll_max.cu").read_text(), d)
     if args.designs:
         for label, edits in DESIGNS.items():
-            text = out["tree"][1]
-            for old, new in edits:
-                cs.require(text.count(old) == 1,
-                           f"{label}: the edited text is not in "
-                           f"bitset_or.cu exactly once: {old!r}")
-                text = text.replace(old, new)
-            out[label] = ("bitset_or", text, ROOT / CSRC)
+            out[label] = ("bitset_or", pb.edited(label, "bitset_or",
+                                                 out["tree"][1], edits),
+                          ROOT / CSRC)
     return out
-
-
-def build_all(srcs: dict, tmp: Path) -> dict:
-    """label -> (loaded library, source name); all nvcc processes started
-    together."""
-    procs = {}
-    for i, (label, (name, text, headers)) in enumerate(srcs.items()):
-        d = tmp / f"v{i}"
-        d.mkdir()
-        for h in headers.glob("*.cuh"):
-            shutil.copy(h, d)
-        (d / f"{name}.cu").write_text(text)
-        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(d / "lib.so"),
-               str(d / f"{name}.cu")]
-        procs[label] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                         stderr=subprocess.STDOUT, text=True),
-                        d, name)
-    libs = {}
-    for label, (proc, d, name) in procs.items():
-        log, _ = proc.communicate()
-        cs.require(proc.returncode == 0, f"{label}: nvcc failed\n{log}")
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {label}: {line.strip()}", flush=True)
-        lib = ctypes.CDLL(str(d / "lib.so"))
-        sigs = (HLL_SIGNATURES if name == "hll_max"
-                else bitset_or._SIGNATURES)
-        for fn, argtypes in sigs.items():
-            getattr(lib, fn).argtypes = list(argtypes)
-            getattr(lib, fn).restype = ctypes.c_int
-        libs[label] = (lib, name)
-    return libs
 
 
 def call_hll(lib, regs, c) -> None:
@@ -219,13 +181,6 @@ def call(lib, bits, c) -> None:
             p.shi.data_ptr(), p.n_probe, c["idx"].data_ptr(), k,
             c["upd"].data_ptr(), t, stream)
     build.check_launch(err, "bitset_probe")
-
-
-def kernel_ms(fn, prep, kernel: str) -> float:
-    """The device ms a call (mean of RUNS) of the kernels whose name holds
-    ``kernel``, ``prep()`` before each call and not counted."""
-    spans = cs.device_events(lambda: (prep(), fn()), runs=RUNS)
-    return sum(e - s for name, s, e in spans if kernel in name) / RUNS / 1e3
 
 
 def cases(b, dev) -> list:
@@ -301,16 +256,11 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("bitset_probe.py needs a CUDA card")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    pb.card_line()
     dev = torch.device("cuda", 0)
-    tmp = Path(tempfile.mkdtemp(prefix="bitset_probe_"))
-    try:
-        libs = build_all(sources(args), tmp)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    libs = pb.build_all(sources(args), {"bitset_or": bitset_or._SIGNATURES,
+                                        "hll_max": HLL_SIGNATURES},
+                        "bitset_probe_")
     b = cs.phase2_batch(dev, 0, 65536, 65536)
     results = []
     for c in cases(b, dev):
@@ -342,7 +292,8 @@ def main() -> None:
                            f"{label}: {c['name']} differs from the plain "
                            f"version")
             ms.setdefault(label, []).append(
-                kernel_ms(lambda: launch(lib, work, c), prep, kernel))
+                pb.kernel_ms(lambda: launch(lib, work, c), kernel, RUNS,
+                             prep))
         del want, work
         cs.free()
         line = ", ".join(f"{lb} {v[0]:.4f} / {v[1]:.4f}"
