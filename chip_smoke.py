@@ -13,7 +13,9 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      the main path's shapes, on a batch of 65,536 tuples with unrouted,
      -1 and masked (upd 0 / rank 0 / weight 0) lanes: CountMin
      eps=0.002, delta=0.01 (the paper's parameters,
-     ``benchmarks/fig5_scalability.py``) -> rows [5, 2048] f32;
+     ``benchmarks/fig5_scalability.py``) -> rows [5, 2048] f32; CountMin's
+     two entry points again as AMS runs them (``@ams``: AMS()'s [12,
+     2048] rows, +-1 signs from ``sign_hash``, integer weights, 12 GiB);
      HyperLogLog rse=0.03 -> 2048 registers; n = 131,072 rows (the
      capacity of phase 3's stacks); Bloom(1024, 0.01) -> 16,384 lanes,
      k = 11, n = 131,072 (8 GiB); FM defaults -> [131,072, 64, 32]; RHP
@@ -36,15 +38,16 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      causal S = 4000, a non-causal S = 4096 and a causal Sq = 200,
      Sk = 100. Plus the
      one-row fresh-sketch launch each CM, HLL, Bloom and FM data-source
-     fold makes (``<name>@fresh``; RHP's fold is a torch reduction and
-     launches none), an untimed exactness run of both bit-set entry
+     fold makes (``<name>@fresh``; AMS's, [1, 12, 2048] with signs, is
+     ``onehot_scatter_add@fresh@ams``; RHP's fold is a torch reduction
+     and launches none), an untimed exactness run of both bit-set entry
      points on a 262,144 x 16,384 stack (2**32 lanes) with tuples routed
      to its last rows, and an untimed RHP run at b = 200 with rows -1 and
      n and a batch of no multiple of 32. Integer results must match
      exactly; the two float-sum kernels (CM and RHP) under float weights
      to a stated tolerance and byte for byte across two kernel runs, CM's
      also to a serial float32 loop's bytes on every touched element (CM's
-     fresh sketch too, and at AMS's depth 12 with +-1 signs). The
+     fresh sketch too, and AMS's with its +-1 signs). The
      CountMin kernels' own row sort must equal ``torch.sort(stable=True)``.
      Times are CUDA-event medians of one call (host enqueue included),
      each with its ``torch.profiler`` device time per call beside it (its
@@ -65,17 +68,22 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      before every call, as the fold runs them (the fill not timed); each
      prints the distinct lanes, 32-byte sectors and the hottest lane's
      entries beside the bound. One entry's tensors are held at a time.
-  3. The main path through ``SDE(device="cuda").handle``: per-stream CM,
-     HLL, Bloom, FM, RHP and Figure-6 DFT over 65,536 hashed 63-bit ids;
-     a data-source CM, HLL, Bloom(1,048,576, 0.01) (own stack: 64 x 2**24
-     lanes), FM, RHP and DFT; continuous HLL, FM and DFT (window 64, on
-     the hottest stream); 16 ingest batches of 65,536 Zipf(1.1) tuples
-     (half with SDE_FUSED_PROBE=0), then 2 more under ``torch.profiler``
-     (device-busy share and top kernels); 1,024 CM, 1,024 Bloom, 1,025
-     RHP and 1,025 DFT queries in query_many, Bloom false positives, HLL,
-     FM and DFT adhoc queries. Every stack must equal a replay of the
-     same batches through the plain versions on the card (RHP and DFT
-     byte for byte, with their answers equal to the replay's; the DFT
+  3. The main path through ``SDE(device="cuda").handle``: per-stream AMS
+     (the reference's defaults, [12, 2048]), CM, HLL, Bloom, FM, RHP and
+     Figure-6 DFT over 65,536 hashed 63-bit ids; a data-source AMS, CM,
+     HLL, Bloom(1,048,576, 0.01) (own stack: 64 x 2**24 lanes), FM, RHP
+     and DFT; continuous AMS, HLL and FM (data-source rows) and DFT
+     (window 64, on the hottest stream); 16 ingest batches of 65,536
+     Zipf(1.1) tuples (half with SDE_FUSED_PROBE=0), then 2 more under
+     ``torch.profiler`` (device-busy share and top kernels); 1,024 CM,
+     1,024 Bloom, 1,025 RHP, 1,025 DFT and 1,024 AMS queries in
+     query_many, Bloom false positives, HLL, FM, AMS and DFT adhoc
+     queries. Each per-stream AMS answer must be float32(total)**2 of its
+     stream's exact total weight, the data-source AMS within 0.15 of the
+     exact F2 of the items it was fed, the continuous AMS equal to it and
+     emitted once a batch. Every stack must equal a replay of the
+     same batches through the plain versions on the card (AMS, RHP and
+     DFT byte for byte, RHP's and DFT's answers equal to the replay's; the DFT
      replay finds each row's last routed value in numpy and ticks with
      ``DFT.step``), the data-source DFT must stay at init, no ingested id
      may be missing from its Bloom, every entry point must launch, the
@@ -110,8 +118,10 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      ``library_device_ms`` by ``torch.profiler``; the sliding-DFT row
      adds its S = 2**20 numbers, the CM and RHP rows their split, longest
      run, chain floor, and CM's runs (the fresh sketch's: elements) or
-     RHP's phase-3 long runs), then the
-     device line.
+     RHP's phase-3 long runs; an ``@ams`` row's launches are the
+     wrapper's signed ones on the AMS stack, and ``@fresh@ams``'s its
+     signed one-row ones, which phase 3 requires to be one a batch on
+     the stack and one fold a batch), then the device line.
 """
 from __future__ import annotations
 
@@ -137,7 +147,6 @@ FLOAT_RTOL, FLOAT_ATOL = 1e-4, 1e-3   # float sums of up to ~10^4 terms
                                       # taken in another order
 PEAK_LIMIT_GIB = 48.0
 FADD_CYCLES = 4         # a dependent float32 add's latency on the card
-AMS_DEPTH = 12          # AMS(delta=0.05), the reference's default depth
 SRC_BLOOM_ELEMENTS = 1 << 20          # phase 3's data-source Bloom
 # the paper's Figure-6 DFT (benchmarks/fig6_dft_workflow.py)
 FIG6_DFT = {"window": 128, "n_coeffs": 8, "threshold": 0.9,
@@ -559,10 +568,141 @@ def serial_countmin(state0, rows, idx, v, signs=None):
     return check
 
 
+def countmin_split(b, results: dict, tag: str, state0, idx, v,
+                   signs=None) -> None:
+    """The add chains and the device time by kernel of the rows
+    ``onehot_scatter_add<tag>`` and ``onehot_probe_scatter<tag>`` (already
+    recorded) on a copy of ``state0``, as for RHP."""
+    from repro_torch.kernels import onehot_matmul
+    n = state0.shape[0]
+    n_runs, longest = onehot_matmul.runs_of(b.rows, n)
+    floor_ms, mhz = chain_floor_ms(longest)
+    groups = {"probe_kernel": "probe", "sort_": "sort", "Memset": "sort",
+              "gather_kernel": "gather", "walk_kernel": "walk"}
+    for name, fn in ((f"onehot_scatter_add{tag}",
+                      lambda s: onehot_matmul.onehot_scatter_add(
+                          s, b.rows, idx, v, signs)),
+                     (f"onehot_probe_scatter{tag}",
+                      lambda s: onehot_matmul.onehot_probe_scatter(
+                          s, b.klo, b.khi, b.trows, b.slo, b.shi, idx, v,
+                          signs, n_probe=b.n_probe))):
+        k = state0.clone()
+        split = device_split(lambda: fn(k), groups, "other")
+        del k
+        r = results[name]
+        r.update(longest_run=longest, runs=n_runs, chain_floor_ms=floor_ms,
+                 split_device_ms=split)
+        print(f"[phase2] {name}: {n_runs} runs, longest {longest} tuples, "
+              f"chain floor {floor_ms:.5f} ms ({FADD_CYCLES} cycles an add "
+              f"at {mhz:.0f} MHz) beside the bound {r['bound_ms']:.5f} ms; "
+              f"device ms by kernel: " + ", ".join(
+                  f"{g} {ms:.4f}" for g, ms in sorted(
+                      split.items(), key=lambda kv: -kv[1])), flush=True)
+    free()
+
+
+def record_scatter(b, results: dict, tag: str, state0, idx, v, signs=None,
+                   floats=None) -> None:
+    """The rows ``onehot_scatter_add<tag>`` and ``onehot_probe_scatter<tag>``
+    on ``state0`` [n, d, w] and phase 2's batch, each held against its plain
+    version beside ``index_put_`` on the (signed) weights, then their split
+    by kernel. Signs add T·d·4 bytes to the bound."""
+    from repro_torch.kernels import onehot_matmul, probe, ref
+    n, d, w = state0.shape
+    t, dev, rows = b.t, b.dev, b.rows
+    keep = rows >= 0
+    kept_rows = rows[keep].long()
+    ix = idx[keep].long()
+    js = torch.arange(d, device=dev)[None, :].expand(ix.shape)
+    lib_index = (kept_rows[:, None].expand(ix.shape), js, ix)
+    x = v[keep][:, None]
+    lib_vals = (x.expand(ix.shape) if signs is None
+                else x * signs[keep]).contiguous()
+    nz = v[keep] != 0
+    state_b = 8 * distinct(((kept_rows[:, None] * d + js) * w + ix)[nz])
+    # idx, signs where given, values
+    batch_b = t * d * 4 * (1 if signs is None else 2) + t * 4
+    n_upd = int(keep.sum()) * d
+    slots = probed_slots(b, torch.ones_like(b.mask))
+    lib = lambda s: s.index_put_(lib_index, lib_vals, accumulate=True)
+    record(results, f"onehot_scatter_add{tag}",
+           lambda s: onehot_matmul.onehot_scatter_add(s, rows, idx, v, signs),
+           lambda s: ref.onehot_scatter_add(s, rows, idx, v, signs), lib,
+           state0, t * 4 + batch_b + state_b, n_upd, floats=floats)
+    record(results, f"onehot_probe_scatter{tag}",
+           lambda s: onehot_matmul.onehot_probe_scatter(
+               s, b.klo, b.khi, b.trows, b.slo, b.shi, idx, v, signs,
+               n_probe=b.n_probe),
+           lambda s: ref.onehot_scatter_add(
+               s, probe.probe_rows(b.klo, b.khi, b.trows, b.slo, b.shi,
+                                   n_probe=b.n_probe), idx, v, signs), lib,
+           state0, t * 8 + TABLE_B * slots + batch_b + state_b, n_upd)
+    countmin_split(b, results, tag, state0, idx, v, signs)
+
+
+def record_fresh(b, results: dict, name: str, d: int, w: int, idx, v,
+                 signs=None, floats=None) -> None:
+    """A data-source fold's fresh sketch [1, d, w] (n = 1, every tuple to
+    row 0, each entry keyed by its element as d * n < 1024) on phase 2's
+    batch, held against its plain version beside ``index_put_`` on the
+    (signed) weights; then its elements, longest run and split."""
+    from repro_torch.kernels import onehot_matmul, ref
+    t, dev = b.t, b.dev
+    js = torch.arange(d, device=dev)[None, :].expand(idx.shape)
+    lib_index = (torch.zeros_like(idx, dtype=torch.long), js, idx.long())
+    x = v[:, None]
+    lib_vals = (x.expand(idx.shape) if signs is None
+                else x * signs).contiguous()
+    fresh_b = 8 * distinct((js * w + idx.long())[v != 0])
+    batch_b = t * d * 4 * (1 if signs is None else 2) + t * 4
+    kern = lambda s: onehot_matmul.onehot_scatter_add(s, b.to_row0, idx, v,
+                                                      signs)
+    fresh0 = torch.zeros((1, d, w), device=dev)
+    record(results, name, kern,
+           lambda s: ref.onehot_scatter_add(s, b.to_row0, idx, v, signs),
+           lambda s: s.index_put_(lib_index, lib_vals, accumulate=True),
+           fresh0, t * 4 + batch_b + fresh_b, t * d, floats=floats)
+    # its runs are elements: how many, the longest chain, and the split
+    n_el, longest = onehot_matmul.element_runs_of(b.to_row0, idx, v, 1, w,
+                                                  signs)
+    floor_ms, mhz = chain_floor_ms(longest)
+    k = fresh0.clone()
+    split = device_split(lambda: kern(k),
+                         {"key_kernel": "key", "sort_": "sort",
+                          "Memset": "sort", "gather_kernel": "gather",
+                          "walk_kernel": "walk"}, "other")
+    del k
+    r = results[name]
+    r.update(longest_run=longest, runs=n_el, chain_floor_ms=floor_ms,
+             split_device_ms=split)
+    print(f"[phase2] {name}: {n_el} elements, the longest run {longest} "
+          f"entries, chain floor {floor_ms:.5f} ms ({FADD_CYCLES} cycles an "
+          f"add at {mhz:.0f} MHz) beside the bound {r['bound_ms']:.5f} ms; "
+          f"device ms by kernel: " + ", ".join(
+              f"{g} {ms:.4f}" for g, ms in sorted(
+                  split.items(), key=lambda kv: -kv[1])), flush=True)
+
+
+def fresh_float_check(b, label: str, d: int, w: int, idx, v, signs=None):
+    """The ``floats`` hook of a fresh-sketch row: float weights ``v`` on a
+    zero [1, d, w] sketch, held to a serial loop."""
+    from repro_torch.kernels import onehot_matmul, ref
+
+    def check(state0):
+        zero = torch.zeros((1, d, w), device=b.dev)
+        float_runs(label,
+                   lambda s: onehot_matmul.onehot_scatter_add(
+                       s, b.to_row0, idx, v, signs),
+                   lambda s: ref.onehot_scatter_add(s, b.to_row0, idx, v,
+                                                    signs),
+                   zero, serial_countmin(zero, b.to_row0, idx, v, signs))
+    return check
+
+
 def phase2_countmin(b, n: int, results: dict) -> None:
     from repro_torch import core
     from repro_torch.core import hashing
-    from repro_torch.kernels import onehot_matmul, probe, ref
+    from repro_torch.kernels import onehot_matmul, ref
 
     cm = core.CountMin(eps=0.002, delta=0.01)
     d, w, t, dev = cm.depth, cm.width, b.t, b.dev
@@ -571,15 +711,6 @@ def phase2_countmin(b, n: int, results: dict) -> None:
     v_flt = torch.rand(t, generator=b.gen, device=dev) * 4 * b.mask.float()
     rows, keep = b.rows, b.rows >= 0
     kept_rows = rows[keep].long()
-    ix = idx[keep].long()
-    js = torch.arange(d, device=dev)[None, :].expand(ix.shape)
-    lib_index = (kept_rows[:, None].expand(ix.shape), js, ix)
-    lib_vals = v_int[keep][:, None].expand(ix.shape).contiguous()
-    nz = v_int[keep] != 0
-    state_b = 8 * distinct(((kept_rows[:, None] * d + js) * w + ix)[nz])
-    batch_b = t * d * 4 + t * 4                     # idx, values
-    n_upd = int(keep.sum()) * d
-    slots = probed_slots(b, torch.ones_like(b.mask))
     print(f"[phase2] CountMin: n={n} d={d} w={w}", flush=True)
     # the kernels' own row sort against torch.sort(stable=True) (the
     # yardstick, here only)
@@ -608,98 +739,36 @@ def phase2_countmin(b, n: int, results: dict) -> None:
 
     cm0 = torch.randint(0, 8, (n, d, w), generator=b.gen, device=dev,
                         dtype=torch.int32).to(torch.float32)
-    record(results, "onehot_scatter_add",
-           lambda s: onehot_matmul.onehot_scatter_add(s, rows, idx, v_int),
-           lambda s: ref.onehot_scatter_add(s, rows, idx, v_int),
-           lambda s: s.index_put_(lib_index, lib_vals, accumulate=True),
-           cm0, t * 4 + batch_b + state_b, n_upd, floats=float_checks)
-    record(results, "onehot_probe_scatter",
-           lambda s: onehot_matmul.onehot_probe_scatter(
-               s, b.klo, b.khi, b.trows, b.slo, b.shi, idx, v_int,
-               n_probe=b.n_probe),
-           lambda s: ref.onehot_scatter_add(
-               s, probe.probe_rows(b.klo, b.khi, b.trows, b.slo, b.shi,
-                                   n_probe=b.n_probe), idx, v_int),
-           lambda s: s.index_put_(lib_index, lib_vals, accumulate=True),
-           cm0, t * 8 + TABLE_B * slots + batch_b + state_b, n_upd)
-    # the add chains and the split by kernel, as for RHP
-    n_runs, longest = onehot_matmul.runs_of(rows, n)
-    floor_ms, mhz = chain_floor_ms(longest)
-    groups = {"probe_kernel": "probe", "sort_": "sort", "Memset": "sort",
-              "gather_kernel": "gather", "walk_kernel": "walk"}
-    for name, fn in (("onehot_scatter_add",
-                      lambda s: onehot_matmul.onehot_scatter_add(
-                          s, rows, idx, v_int)),
-                     ("onehot_probe_scatter",
-                      lambda s: onehot_matmul.onehot_probe_scatter(
-                          s, b.klo, b.khi, b.trows, b.slo, b.shi, idx, v_int,
-                          n_probe=b.n_probe))):
-        k = cm0.clone()
-        split = device_split(lambda: fn(k), groups, "other")
-        del k
-        r = results[name]
-        r.update(longest_run=longest, runs=n_runs, chain_floor_ms=floor_ms,
-                 split_device_ms=split)
-        print(f"[phase2] {name}: {n_runs} runs, longest {longest} tuples, "
-              f"chain floor {floor_ms:.5f} ms ({FADD_CYCLES} cycles an add "
-              f"at {mhz:.0f} MHz) beside the bound {r['bound_ms']:.5f} ms; "
-              f"device ms by kernel: " + ", ".join(
-                  f"{g} {ms:.4f}" for g, ms in sorted(
-                      split.items(), key=lambda kv: -kv[1])), flush=True)
+    record_scatter(b, results, "", cm0, idx, v_int, floats=float_checks)
     del cm0
     free()
+    record_fresh(b, results, "onehot_scatter_add@fresh", d, w, idx, v_int,
+                 floats=fresh_float_check(b, "onehot_scatter_add@fresh", d,
+                                          w, idx, v_flt))
 
-    # the data-source fold's fresh sketch: n = 1, every tuple to row 0,
-    # each entry keyed by its element (d * n < 1024)
-    fresh = lambda v, ix=idx, sg=None: (
-        lambda s: onehot_matmul.onehot_scatter_add(s, b.to_row0, ix, v, sg))
-    fresh_plain = lambda v, ix=idx, sg=None: (
-        lambda s: ref.onehot_scatter_add(s, b.to_row0, ix, v, sg))
 
-    def fresh_float_checks(state0):
-        float_runs("onehot_scatter_add@fresh", fresh(v_flt),
-                   fresh_plain(v_flt), state0,
-                   serial_countmin(state0, b.to_row0, idx, v_flt))
-        # AMS's depth with its +-1 signs: AMS(eps=0.05, delta=0.05), the
-        # reference's defaults, is [12, 2048] with seed 13
-        seeds = hashing.as_u32(hashing.row_seeds(13, AMS_DEPTH))
-        ix12 = hashing.bucket_hash(b.items, seeds, cm.log2_width)
-        sg12 = hashing.sign_hash(b.items, seeds)
-        ams0 = torch.zeros((1, AMS_DEPTH, w), device=dev)
-        float_runs(f"onehot_scatter_add@fresh d={AMS_DEPTH} signed",
-                   fresh(v_flt, ix12, sg12), fresh_plain(v_flt, ix12, sg12),
-                   ams0, serial_countmin(ams0, b.to_row0, ix12, v_flt, sg12))
+def phase2_ams(b, n: int, results: dict) -> None:
+    """Kernels #1 and #2 as AMS runs them: AMS()'s [12, 2048] rows with +-1
+    signs (seed 13), phase 2's batch and integer weights, on n rows; then
+    AMS's data-source fold, [1, 12, 2048]."""
+    from repro_torch import core
 
-    js_all = torch.arange(d, device=dev)[None, :].expand(idx.shape)
-    fresh_index = (torch.zeros_like(idx, dtype=torch.long), js_all,
-                   idx.long())
-    fresh_vals = v_int[:, None].expand(idx.shape).contiguous()
-    fresh_b = 8 * distinct((js_all * w + idx.long())[v_int != 0])
-    fresh0 = torch.zeros((1, d, w), device=dev)
-    record(results, "onehot_scatter_add@fresh", fresh(v_int),
-           fresh_plain(v_int),
-           lambda s: s.index_put_(fresh_index, fresh_vals, accumulate=True),
-           fresh0, t * 4 + batch_b + fresh_b, t * d,
-           floats=fresh_float_checks)
-    # its runs are elements: how many, the longest chain, and the split
-    n_el, longest = onehot_matmul.element_runs_of(b.to_row0, idx, v_int, 1,
-                                                  w)
-    floor_ms, mhz = chain_floor_ms(longest)
-    k = fresh0.clone()
-    split = device_split(lambda: fresh(v_int)(k),
-                         {"key_kernel": "key", "sort_": "sort",
-                          "Memset": "sort", "gather_kernel": "gather",
-                          "walk_kernel": "walk"}, "other")
-    del k
-    r = results["onehot_scatter_add@fresh"]
-    r.update(longest_run=longest, runs=n_el, chain_floor_ms=floor_ms,
-             split_device_ms=split)
-    print(f"[phase2] onehot_scatter_add@fresh: {n_el} elements, the longest "
-          f"run {longest} entries, chain floor {floor_ms:.5f} ms "
-          f"({FADD_CYCLES} cycles an add at {mhz:.0f} MHz) beside the bound "
-          f"{r['bound_ms']:.5f} ms; device ms by kernel: " + ", ".join(
-              f"{g} {ms:.4f}" for g, ms in sorted(
-                  split.items(), key=lambda kv: -kv[1])), flush=True)
+    ams = core.AMS()
+    d, w, t, dev = ams.depth, ams.width, b.t, b.dev
+    idx, sg = ams._hash(b.items)
+    v_int = b.vals * b.mask.float()
+    v_flt = torch.rand(t, generator=b.gen, device=dev) * 4 * b.mask.float()
+    print(f"[phase2] AMS: n={n} d={d} w={w} ({n * d * w * 4 / GIB:.3f} GiB), "
+          f"+-1 signs from sign_hash, integer weights", flush=True)
+    ams0 = torch.randint(-4, 5, (n, d, w), generator=b.gen, device=dev,
+                         dtype=torch.int32).to(torch.float32)
+    record_scatter(b, results, "@ams", ams0, idx, v_int, sg)
+    del ams0
+    free()
+    name = "onehot_scatter_add@fresh@ams"
+    record_fresh(b, results, name, d, w, idx, v_int, sg,
+                 floats=fresh_float_check(b, f"{name} signed", d, w, idx,
+                                          v_flt, sg))
 
 
 def phase2_hll(b, n: int, results: dict) -> None:
@@ -1243,8 +1312,9 @@ def phase2(dev, seed: int, n: int, n_streams: int, t: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     b = phase2_batch(dev, seed, n_streams, t)
     results: dict = {}
-    for part in (phase2_countmin, phase2_hll, phase2_bloom, phase2_fm,
-                 phase2_rhp, phase2_dft, phase2_corr, phase2_flash):
+    for part in (phase2_countmin, phase2_ams, phase2_hll, phase2_bloom,
+                 phase2_fm, phase2_rhp, phase2_dft, phase2_corr,
+                 phase2_flash):
         part(b, n, results)
         free()
     peak_gib("phase2")
@@ -1255,14 +1325,24 @@ def phase2(dev, seed: int, n: int, n_streams: int, t: int) -> dict:
 # phase 3: the main path through SDE.handle, held against a plain replay
 # ---------------------------------------------------------------------------
 # JSON name -> (wrapper module, wrapper, source, TPU kernel it replaces);
-# a "@fresh" row reads the wrapper's one-row launches (data-source folds)
+# a "@fresh" row reads the wrapper's one-row launches given no signs
+# (data-source folds), an "@ams" row its signed launches on a stack
+# (AMS's), and "@fresh@ams" its signed one-row launches (AMS's folds)
 ENTRY_POINTS = {
     "onehot_scatter_add": ("onehot_matmul", "onehot_scatter_add",
                            "countmin_scatter.cu", "onehot_matmul.py:61"),
     "onehot_scatter_add@fresh": ("onehot_matmul", "onehot_scatter_add",
                                  "countmin_scatter.cu", "onehot_matmul.py:61"),
+    "onehot_scatter_add@ams": ("onehot_matmul", "onehot_scatter_add",
+                               "countmin_scatter.cu", "onehot_matmul.py:61"),
+    "onehot_scatter_add@fresh@ams": ("onehot_matmul", "onehot_scatter_add",
+                                     "countmin_scatter.cu",
+                                     "onehot_matmul.py:61"),
     "onehot_probe_scatter": ("onehot_matmul", "onehot_probe_scatter",
                              "countmin_scatter.cu", "onehot_matmul.py:139"),
+    "onehot_probe_scatter@ams": ("onehot_matmul", "onehot_probe_scatter",
+                                 "countmin_scatter.cu",
+                                 "onehot_matmul.py:139"),
     "hll_max_update": ("hll_max", "hll_max_update", "bitset_or.cu",
                        "hll_max.py:52"),
     "hll_max_update@fresh": ("hll_max", "hll_max_update", "bitset_or.cu",
@@ -1308,15 +1388,27 @@ def wrappers() -> dict:
 def reset_launches() -> None:
     for fn in wrappers().values():
         fn.launches = 0
-        if hasattr(fn, "one_row_launches"):
-            fn.one_row_launches = 0
+        for count in ("one_row_launches", "signed_launches",
+                      "signed_one_row_launches"):
+            if hasattr(fn, count):
+                setattr(fn, count, 0)
         if hasattr(fn, "long_runs"):
             fn.long_runs.reset()
 
 
+def launches_of(name: str, fn) -> int:
+    ams_folds = getattr(fn, "signed_one_row_launches", 0)
+    if name.endswith("@fresh@ams"):
+        return ams_folds
+    if name.endswith("@fresh"):
+        return fn.one_row_launches - ams_folds
+    if name.endswith("@ams"):
+        return fn.signed_launches - ams_folds
+    return fn.launches
+
+
 def read_launches() -> dict:
-    return {name: (fn.one_row_launches if name.endswith("@fresh")
-                   else fn.launches) for name, fn in wrappers().items()}
+    return {name: launches_of(name, fn) for name, fn in wrappers().items()}
 
 
 def last_writer(rows: np.ndarray, sids: np.ndarray, vals: np.ndarray,
@@ -1454,7 +1546,12 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
     sde = SDE(device=dev)
     ids = [int(s) for s in pop]
     per_stream = dict(per_stream_of_source=True, stream_ids=ids)
+    # AMS's 12 GiB stack first: its growth to 131,072 rows (old + fresh +
+    # new, 24 GiB) then meets no other stack
     for sid, kind, params, extra in (
+            ("ams", "ams", {}, per_stream),
+            ("src-ams", "ams", {}, {}),
+            ("cq-ams", "ams", {}, {"continuous": True}),
             ("cm", "countmin", cm_params, per_stream),
             ("hll", "hyperloglog", hll_params, per_stream),
             ("bloom", "bloom", bloom_params, per_stream),
@@ -1496,8 +1593,10 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
     os.environ.pop("SDE_FUSED_PROBE", None)
 
     # exact answers: each per-stream CM row only ever sees its own item,
-    # so its point estimate is the stream's exact total weight; each
-    # per-stream Bloom holds its own id once that stream was ingested
+    # so its point estimate is the stream's exact total weight, and each
+    # per-stream AMS row holds +-total at one counter a depth row, so its
+    # L2 estimate is total * total in float32; each per-stream Bloom
+    # holds its own id once that stream was ingested
     all_s = np.concatenate([s for s, _ in batches])
     all_v = np.concatenate([v for _, v in batches])
     uniq, inverse = np.unique(all_s, return_inverse=True)
@@ -1509,43 +1608,54 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
     fresh_ids = rng.randint(0, 2**62, size=4 * n_queries, dtype=np.int64)
     fresh_ids = fresh_ids[~np.isin(routing.fold64(fresh_ids), items)]
     fresh_ids = fresh_ids[:n_queries]
-    queries = ([{"synopsis_id": f"cm/{int(s)}", "query": {"items": [int(s)]}}
-                for s in q_streams]
-               + [{"synopsis_id": f"bloom/{int(s)}",
-                   "query": {"items": [int(s)]}} for s in b_streams]
-               + [{"synopsis_id": "src-bloom",
-                   "query": {"items": items.tolist()}},
-                  {"synopsis_id": "src-bloom",
-                   "query": {"items": fresh_ids.tolist()}},
-                  {"synopsis_id": f"bloom/{int(b_streams[0])}",
-                   "query": {"items": fresh_ids.tolist()}}]
-               + [{"synopsis_id": f"rhp/{int(s)}"} for s in q_streams]
-               + [{"synopsis_id": "src-rhp"}]
-               + [{"synopsis_id": f"dft/{int(s)}"} for s in q_streams]
-               + [{"synopsis_id": "src-dft"}])
-    n_rhp = n_dft = n_queries + 1            # the last entries of query_many
+    # query_many's queries by kind, in order
+    parts = {
+        "cm": [{"synopsis_id": f"cm/{int(s)}", "query": {"items": [int(s)]}}
+               for s in q_streams],
+        "bloom": ([{"synopsis_id": f"bloom/{int(s)}",
+                    "query": {"items": [int(s)]}} for s in b_streams]
+                  + [{"synopsis_id": "src-bloom",
+                      "query": {"items": items.tolist()}},
+                     {"synopsis_id": "src-bloom",
+                      "query": {"items": fresh_ids.tolist()}},
+                     {"synopsis_id": f"bloom/{int(b_streams[0])}",
+                      "query": {"items": fresh_ids.tolist()}}]),
+        "rhp": ([{"synopsis_id": f"rhp/{int(s)}"} for s in q_streams]
+                + [{"synopsis_id": "src-rhp"}]),
+        "dft": ([{"synopsis_id": f"dft/{int(s)}"} for s in q_streams]
+                + [{"synopsis_id": "src-dft"}]),
+        "ams": [{"synopsis_id": f"ams/{int(s)}"} for s in q_streams]}
+    queries = [q for part in parts.values() for q in part]
     t0 = time.perf_counter()
     r = sde.handle({"type": "query_many", "request_id": "qm",
                     "queries": queries})
     adhoc = {sid: sde.handle({"type": "adhoc", "request_id": f"a-{sid}",
                               "synopsis_id": sid})
              for sid in ("src-hll", f"hll/{ids[0]}", "cq-hll", "src-fm",
-                         f"fm/{ids[0]}", "cq-fm", "cq-dft")}
+                         f"fm/{ids[0]}", "cq-fm", "cq-dft", "src-ams",
+                         "cq-ams")}
     torch.cuda.synchronize()
     query_s = time.perf_counter() - t0
     n_answered = len(queries) + len(adhoc)
     require(r.ok, f"query_many failed: {r.error}")
-    vals = [q["value"] for q in r.value]
-    got = np.asarray([float(v[0]) for v in vals[:n_queries]])
+    answers, at = {}, 0
+    for key, part in parts.items():
+        answers[key] = [q["value"] for q in r.value[at:at + len(part)]]
+        at += len(part)
+    got = np.asarray([float(v[0]) for v in answers["cm"]])
     pos = np.minimum(np.searchsorted(uniq, q_streams), len(uniq) - 1)
     want = np.where(uniq[pos] == q_streams, totals[pos], 0.0)
     require(np.array_equal(got, want), "CM answers differ from exact sums")
-    own = np.concatenate(vals[n_queries:2 * n_queries])
+    ams_got = [np.asarray(v) for v in answers["ams"]]
+    want32 = want.astype(np.float32)
+    require(all(v.dtype == np.float32 and v.shape == () for v in ams_got)
+            and np.stack(ams_got).tobytes() == (want32 * want32).tobytes(),
+            "per-stream AMS answers differ from float32(total)**2")
+    own = np.concatenate(answers["bloom"][:n_queries])
     require(own.dtype == bool and own.all(),
             "a per-stream Bloom misses its own ingested id")
-    src_all, src_fp, own_fp = vals[2 * n_queries:len(vals) - n_rhp - n_dft]
-    rhp_answers = vals[len(vals) - n_rhp - n_dft:len(vals) - n_dft]
-    dft_answers = vals[len(vals) - n_dft:]
+    src_all, src_fp, own_fp = answers["bloom"][n_queries:]
+    rhp_answers, dft_answers = answers["rhp"], answers["dft"]
     require(len(src_all) == len(items) and src_all.all(),
             "the data-source Bloom misses an ingested id")
     for sid, h in adhoc.items():
@@ -1567,10 +1677,40 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
                                         f"{rel['src-hll']:.3f}")
     require(abs(rel["src-fm"]) < 0.35, f"data-source FM off by "
                                        f"{rel['src-fm']:.3f}")
-    require(len(sde.continuous_out) == 3 * (n_batches + n_profiled),
+    require(len(sde.continuous_out) == 4 * (n_batches + n_profiled),
             "one continuous response per continuous query and batch "
             "expected")
+    # the data-source AMS against the exact F2 of the items it was fed
+    # (every tuple with an id >= 0, routed or not, folded as ingest folds)
+    fed = all_s >= 0
+    _, by_item = np.unique(routing.fold64(all_s[fed]), return_inverse=True)
+    fed_totals = np.bincount(by_item, weights=all_v[fed])
+    f2 = float((fed_totals ** 2).sum())
+    src_ams = np.asarray(adhoc["src-ams"].value)
+    cq_ams = [c.value for c in sde.continuous_out
+              if c.synopsis_id == "cq-ams"]
+    rel_f2 = float(src_ams) / f2 - 1.0
+    print(f"[phase3] exact: {n_queries} per-stream AMS answers equal "
+          f"float32(total)**2; src-ams {float(src_ams)} against the exact "
+          f"F2 {f2} of {len(fed_totals)} items: relative error "
+          f"{rel_f2:+.4f}; cq-ams emitted {len(cq_ams)} times", flush=True)
+    require(abs(rel_f2) < 0.15, f"data-source AMS off by {rel_f2:.3f}")
+    require(len(cq_ams) == n_batches + n_profiled,
+            "the continuous AMS did not emit once per batch")
+    require(all(np.asarray(x).tobytes() == src_ams.tobytes()
+                for x in (adhoc["cq-ams"].value, cq_ams[-1])),
+            "the continuous AMS (a data-source row too) differs from "
+            "src-ams")
     launches = read_launches()
+    n_fused = len(range(0, n_batches, 2)) + len(range(0, n_profiled, 2))
+    n_all = n_batches + n_profiled
+    want_ams = {"onehot_probe_scatter@ams": n_fused,
+                "onehot_scatter_add@ams": n_all - n_fused,
+                "onehot_scatter_add@fresh@ams": n_all}
+    require(all(launches[k] == v for k, v in want_ams.items()),
+            f"AMS's signed launches {[launches[k] for k in want_ams]}, not "
+            f"{list(want_ams.values())} (a launch a batch and a fold a "
+            f"batch)")
     walked = {name: int(getattr(rhp_project, name).long_runs)
               for name in ("rhp_probe_update", "rhp_project_update")}
     launches.update({f"{k}.long_runs": v for k, v in walked.items()})
@@ -1585,7 +1725,7 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
     # and its emission after the last batch, all read after every batch
     last_cq = [c for c in sde.continuous_out if c.synopsis_id == "cq-dft"]
     dft_checks = ([(q["synopsis_id"], a)
-                   for q, a in zip(queries[-n_dft:], dft_answers)]
+                   for q, a in zip(parts["dft"], dft_answers)]
                   + [("cq-dft", adhoc["cq-dft"].value),
                      ("cq-dft", last_cq[-1].value)])
     for kind, stack in sde.stacks.items():
@@ -1612,11 +1752,16 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
         equal, err, _ = compare(stack.state, replay)
         require(equal, f"{type(kind).__name__} engine state differs from "
                        f"the plain replay (max abs err {err})")
+        if kind.update_kernel == "ams_scatter":
+            require(same_bytes(stack.state, replay),
+                    "AMS engine state differs byte-wise from the replay")
+            print("[phase3] AMS stack equals the plain replay byte for "
+                  "byte", flush=True)
         if kind.update_kernel == "rhp_project":
             require(same_bytes(stack.state, replay),
                     "RHP engine state differs byte-wise from the replay")
             q_rows = [sde.entries[q["synopsis_id"]].row
-                      for q in queries[len(queries) - n_rhp:]]
+                      for q in parts["rhp"]]
             want = batched.stacked_estimate(
                 kind, replay, dt(np.asarray(q_rows, np.int32)))
             for i, got in enumerate(rhp_answers):
@@ -1625,8 +1770,9 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
                                            want[key][i].cpu().numpy()),
                             f"RHP answer {i} ({key}) differs from the "
                             f"plain replay's")
-            print(f"[phase3] {n_rhp} RHP signatures, Hamming weights and "
-                  f"buckets equal the plain replay's", flush=True)
+            print(f"[phase3] {len(rhp_answers)} RHP signatures, Hamming "
+                  f"weights and buckets equal the plain replay's",
+                  flush=True)
             want = dict(zip(("rhp_probe_update", "rhp_project_update"),
                             long_runs))
             require(walked == want and min(long_runs) > 0,

@@ -15,8 +15,8 @@ how) and hands them to :func:`engine_from_contents`::
                   "continuous": bool}, ...]}
 
 Every stack's state keeps the reference's dtype and layout (float32
-``[n, d, w]`` CountMin, ``[n, b]`` RHP; int32 HLL, Bloom and FM lanes;
-DFT's six leaves, with int32 ``pos`` and ``count``).
+``[n, d, w]`` CountMin and AMS, ``[n, b]`` RHP; int32 HLL, Bloom and FM
+lanes; DFT's six leaves, with int32 ``pos`` and ``count``).
 The route table is taken slot for slot, so the port probes exactly the
 reference's layout.
 """

@@ -1,7 +1,8 @@
 """Synopsis kinds (port of ``repro/core/__init__.py``).
 
-The port registers CountMin, HyperLogLog, Bloom, FM, RHP and DFT so far,
-under the reference's names; building any other kind (AMS among them)
+The port registers CountMin, AMS, HyperLogLog, Bloom, FM, RHP and DFT
+so far, under the reference's names; building any other kind (the
+scan-path kinds among them: Lossy Counting, Sticky Sampling, ...)
 answers ok=False through the registry's KeyError
 (``synopsis.make_kind``).
 """
@@ -9,6 +10,7 @@ from . import hashing  # noqa: F401
 from .synopsis import (Synopsis, register_kind, make_kind, known_kinds,
                        kind_params)  # noqa: F401
 from .countmin import CountMin
+from .ams import AMS
 from .hll import HyperLogLog
 from .bloom import BloomFilter
 from .fm import FMSketch
@@ -18,6 +20,7 @@ from . import batched  # noqa: F401
 
 for _name, _factory in {
     "countmin": CountMin,
+    "ams": AMS,
     "hyperloglog": HyperLogLog,
     "bloom": BloomFilter,
     "fm": FMSketch,
@@ -27,5 +30,5 @@ for _name, _factory in {
     register_kind(_name, _factory)
 
 __all__ = ["Synopsis", "register_kind", "make_kind", "known_kinds",
-           "kind_params", "CountMin", "HyperLogLog", "BloomFilter", "FMSketch",
-           "RHP", "DFT", "batched"]
+           "kind_params", "CountMin", "AMS", "HyperLogLog", "BloomFilter",
+           "FMSketch", "RHP", "DFT", "batched"]

@@ -25,8 +25,10 @@ padding: the kernels mask their own ragged edge.
 
 On a CPU tensor each wrapper runs the plain version (``ref.py``, with the
 probe from ``probe.py``). On a CUDA tensor it launches the kernels or
-raises. ``<wrapper>.launches`` counts calls that launched them, and
-``onehot_scatter_add.one_row_launches`` those on a one-row state.
+raises. ``<wrapper>.launches`` counts calls that launched them,
+``<wrapper>.signed_launches`` those given signs (AMS),
+``onehot_scatter_add.one_row_launches`` those on a one-row state, and
+``onehot_scatter_add.signed_one_row_launches`` those both.
 """
 from __future__ import annotations
 
@@ -149,12 +151,19 @@ def onehot_scatter_add(counts: torch.Tensor, syn_idx: torch.Tensor,
     build.check_launch(err, "cm_scatter")
     onehot_scatter_add.launches += 1
     onehot_scatter_add.one_row_launches += n == 1
+    onehot_scatter_add.signed_launches += signs is not None
+    onehot_scatter_add.signed_one_row_launches += (
+        n == 1 and signs is not None)
     return counts
 
 
 onehot_scatter_add.launches = 0
 # of those, launches on a one-row state: the data-source fresh sketch
 onehot_scatter_add.one_row_launches = 0
+# launches given signs: AMS's
+onehot_scatter_add.signed_launches = 0
+# and launches both: AMS's data-source folds
+onehot_scatter_add.signed_one_row_launches = 0
 
 
 def onehot_probe_scatter(counts: torch.Tensor, keys_lo: torch.Tensor,
@@ -188,7 +197,9 @@ def onehot_probe_scatter(counts: torch.Tensor, keys_lo: torch.Tensor,
         build.ptr(signs), t, scratch.data_ptr(), build.stream(counts.device))
     build.check_launch(err, "cm_probe_scatter")
     onehot_probe_scatter.launches += 1
+    onehot_probe_scatter.signed_launches += signs is not None
     return counts
 
 
 onehot_probe_scatter.launches = 0
+onehot_probe_scatter.signed_launches = 0

@@ -14,10 +14,10 @@ Differences from the reference:
   * No interpret-mode switch and no jit caches: PyTorch runs eagerly, and
     the wrappers pick the kernel or the plain version from the device of
     the tensors they are given.
-  * The data-source fold of CountMin, HLL, Bloom and FM builds the
+  * The data-source fold of CountMin, AMS, HLL, Bloom and FM builds the
     batch's fresh single sketch with the SAME kernel (n = 1, every tuple
     routed to row 0) and then applies it to the distinct source rows with
-    ``index_add_`` (CM) or ``torch.maximum`` (HLL, Bloom, FM). The
+    ``index_add_`` (CM, AMS) or ``torch.maximum`` (HLL, Bloom, FM). The
     reference computes it with a plain scatter, which on the card would
     sum floats in no fixed order. RHP's fresh sketch is a dense sum over
     the batch, which the reference computes outside its kernel too
@@ -51,7 +51,7 @@ Differences from the reference:
     within one ulp plus 1e-3 of the largest.
 
 Not yet ported: the sharded, collective, merged and subpopulation
-estimate paths and the AMS kernel.
+estimate paths.
 """
 from __future__ import annotations
 
@@ -244,21 +244,40 @@ def resolve_update_kernel(kind, fuse_probe: bool | None = None):
     return builder(kind, fuse_probe)
 
 
+def _scatter_update(fuse, state, klo, khi, trows, slo, shi, idx, v, signs,
+                    src_rows, n_probe):
+    """CountMin's and AMS's update (``signs`` None: +1): routed rows
+    through kernel #2, or the plain probe and kernel #1, then the
+    data-source fold's fresh sketch."""
+    if fuse:
+        onehot_matmul.onehot_probe_scatter(state, klo, khi, trows, slo, shi,
+                                           idx, v, signs, n_probe=n_probe)
+    else:
+        syn = route_probe(klo, khi, trows, slo, shi, n_probe=n_probe)
+        onehot_matmul.onehot_scatter_add(state, syn, idx, v, signs)
+    if src_rows is not None:
+        _source_fold(state, idx, v, signs, src_rows)
+    return state
+
+
 def _countmin_kernel(kind, fuse):
     def fn(state, klo, khi, trows, slo, shi, items, vals, msk, src_rows, *,
            n_probe):
         idx = hashing.bucket_hash(items, kind._seeds(), kind.log2_width)
         v = vals if kind.weighted else torch.ones_like(vals)
-        vm = v * msk.to(torch.float32)
-        if fuse:
-            onehot_matmul.onehot_probe_scatter(state, klo, khi, trows, slo,
-                                               shi, idx, vm, n_probe=n_probe)
-        else:
-            syn = route_probe(klo, khi, trows, slo, shi, n_probe=n_probe)
-            onehot_matmul.onehot_scatter_add(state, syn, idx, vm)
-        if src_rows is not None:
-            _source_fold(state, idx, vm, None, src_rows)
-        return state
+        return _scatter_update(fuse, state, klo, khi, trows, slo, shi, idx,
+                               v * msk.to(torch.float32), None, src_rows,
+                               n_probe)
+    return fn
+
+
+def _ams_kernel(kind, fuse):
+    def fn(state, klo, khi, trows, slo, shi, items, vals, msk, src_rows, *,
+           n_probe):
+        idx, sgn = kind._hash(items)
+        return _scatter_update(fuse, state, klo, khi, trows, slo, shi, idx,
+                               vals * msk.to(torch.float32), sgn, src_rows,
+                               n_probe)
     return fn
 
 
@@ -333,6 +352,7 @@ def _rhp_kernel(kind, fuse):
 
 
 register_update_kernel("countmin_scatter", _countmin_kernel)
+register_update_kernel("ams_scatter", _ams_kernel)
 register_update_kernel("hll_max", _hll_kernel)
 register_update_kernel("bloom_bitset", _bloom_kernel)
 register_update_kernel("fm_bitmap", _fm_kernel)

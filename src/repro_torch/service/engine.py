@@ -9,7 +9,7 @@ service maintaining thousands of synopses for thousands of streams.
   * red path: ``handle(request)`` adhoc queries and ``query_many`` --
     one stacked-estimate call per kind answers every query of that kind.
 
-The port serves CountMin, HyperLogLog, Bloom, FM, RHP and DFT so far:
+The port serves CountMin, AMS, HyperLogLog, Bloom, FM, RHP and DFT so far:
 build (per stream, per stream of a source, data source), ingest, adhoc,
 query_many, stop, status, flush and shutdown, with continuous queries
 emitted eagerly. DFT is a time-series kind: each ingest batch ticks every
@@ -607,9 +607,9 @@ def _step_all(kind, n_probe, state, klo, khi, trows, sid_lo, sid_hi, vals,
 # red-path query planning: normalize N query dicts for one kind into padded
 # batched device args + a per-query result slicer. CountMin and Bloom take
 # per-query ``items`` as ONE [N, L] arg (L = padded max arg length);
-# HyperLogLog, FM, RHP and DFT are arg-free and return their estimate per
-# row (RHP's a dict: signature, hamming_weight, bucket; DFT's a dict:
-# bucket, coeffs, coords).
+# AMS, HyperLogLog, FM, RHP and DFT are arg-free and return their estimate
+# per row (AMS's the L2-norm^2; RHP's a dict: signature, hamming_weight,
+# bucket; DFT's a dict: bucket, coeffs, coords).
 # ---------------------------------------------------------------------------
 
 _ITEM_KINDS = (core.CountMin, core.BloomFilter)

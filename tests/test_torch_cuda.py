@@ -14,7 +14,9 @@ small-stack route (d * n < 1024, the data-source fresh sketch; each
 entry keyed by its element) n = 1 to 3 at depths 1, 5 and 12, the fresh
 sketch's own shape with an element past 8,190 adds, d * n = 1023 and
 1020, T = 1 and 33, all weights zero and buckets outside [0, w),
-byte-equal to a serial batch-order loop even for float weights; for its
+byte-equal to a serial batch-order loop even for float weights; AMS's
+registry update at its default depth 12 with +-1 signs, fused and not,
+on stacks on both sides of that route, with data-source rows; for its
 main path (the row sort, then a walk of each run) runs of 1 to ~8k tuples across chunk boundaries,
 interleaved buckets, d = 1 and 30, stacks of 2**17 + 1 and 2**18 + 1 rows,
 byte-equal to a serial batch-order loop, and the sort itself against
@@ -186,6 +188,70 @@ def test_countmin_small_stack_launch_sums_in_batch_order(dev, n, d, w, t,
         assert a.cpu().numpy().tobytes() == serial.tobytes()
     assert onehot_matmul.onehot_scatter_add.one_row_launches - before == \
         (5 if n == 1 else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t", [(1, 5000), (50, 20000), (86, 20000),
+                                 (3000, 65536)])
+@pytest.mark.parametrize("fuse", [True, False], ids=["fused", "unfused"])
+def test_ams_registry_update_matches_plain(dev, n, t, fuse):
+    """AMS's registry update (``ams_scatter``: AMS() at d = 12, w = 2048,
+    +-1 signs from ``sign_hash``) against the plain
+    ``batched.stacked_update`` on the card, on stacks with d * n below
+    1024 (n = 1 and 50: the element-keyed route) and above (86 and 3,000:
+    the row sort and walk), a Zipf batch with unrouted and masked tuples,
+    and data-source rows fed by the fresh sketch's one-row launch: integer
+    weights byte for byte, float weights the same bytes on two runs and
+    close to the plain version (whose ``index_put_`` adds in no fixed
+    order)."""
+    from repro_torch import core
+    from repro_torch.core import batched
+    kind = core.AMS()
+    rng = np.random.RandomState(n + t)
+    c = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    pop, (klo, khi, trows, n_probe) = _table(rng, n, dev)
+    p = 1.0 / np.arange(1, n + 1) ** 1.1
+    sids = pop[rng.choice(n, t, p=p / p.sum())]
+    sids[::5] = (1 << 62) + 12345                    # unrouted
+    lo, hi = routing.split64(sids)
+    slo, shi = c(lo.view(np.int32)), c(hi.view(np.int32))
+    items = c(routing.fold64(sids).view(np.int32))
+    msk = c(rng.rand(t) > 0.1)
+    src = c(np.unique([0, n - 1])).long()
+    state0 = c(rng.randint(-3, 4, (n, kind.depth, kind.width)).astype(
+        np.float32))
+    rows = probe.probe_rows(klo, khi, trows, slo, shi, n_probe=n_probe)
+    fn = ops.resolve_update_kernel(kind, fuse)
+    wrapper = (onehot_matmul.onehot_probe_scatter if fuse
+               else onehot_matmul.onehot_scatter_add)
+    signed = lambda: (onehot_matmul.onehot_scatter_add.signed_launches
+                      + onehot_matmul.onehot_probe_scatter.signed_launches)
+    one_row = lambda: (
+        onehot_matmul.onehot_scatter_add.one_row_launches,
+        onehot_matmul.onehot_scatter_add.signed_one_row_launches)
+    before = (wrapper.launches, one_row(), signed())
+    args = (klo, khi, trows, slo, shi, items)
+    ints = c(rng.randint(1, 5, t).astype(np.float32))
+    got = fn(state0.clone(), *args, ints, msk, src, n_probe=n_probe)
+    want = batched.stacked_update(kind, state0.clone(), rows, items, ints,
+                                  msk, src)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert not torch.equal(got, state0)
+    floats = c((rng.rand(t) * 3).astype(np.float32))
+    a = fn(state0.clone(), *args, floats, msk, src, n_probe=n_probe)
+    b = fn(state0.clone(), *args, floats, msk, src, n_probe=n_probe)
+    want = batched.stacked_update(kind, state0.clone(), rows, items, floats,
+                                  msk, src)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    torch.testing.assert_close(a, want, rtol=1e-5, atol=1e-4)
+    # three calls: the routed rows' launches and the folds' one-row ones,
+    # every one of them signed
+    assert wrapper.launches - before[0] == (3 if fuse else 6)
+    folds = 6 if n == 1 and not fuse else 3
+    assert [x - y for x, y in zip(one_row(), before[1])] == [folds, folds]
+    assert signed() - before[2] == 6
 
 
 DFT_SHAPES = sorted({(1, 1), (37, 1), (1001, 8), (4097, 16), (131073, 8),

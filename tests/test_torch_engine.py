@@ -219,7 +219,7 @@ def test_rebuilt_synopsis_reads_zero_and_later_slices_answer_not_ok(
                    "synopsis_id": f"cm/{ids[2]}", "query": {"items": [ids[2]]}})
     assert r.ok and float(r.value[0]) == 0.0
     r = te.handle({"type": "build", "request_id": "b", "synopsis_id": "x",
-                   "kind": "ams"})
+                   "kind": "lossy_counting"})
     assert not r.ok and "unknown synopsis kind" in r.error
     for req, slice_name in (
             ({"type": "build_multidim", "request_id": "md",
@@ -277,7 +277,8 @@ def test_plan_queries_pads_and_reports_bad_items():
     assert take(out, 0).tolist() == [0, 1, 2]
 
 
-@pytest.mark.parametrize("name", ["countmin", "hyperloglog", "bloom", "fm"])
+@pytest.mark.parametrize("name", ["countmin", "ams", "hyperloglog", "bloom",
+                                  "fm"])
 def test_init_and_stacked_init_need_a_device(name):
     kind = tcore.make_kind(name)
     with pytest.raises(TypeError):

@@ -5,9 +5,9 @@ and the pure-jnp oracles of ``repro/kernels/ref.py``, at the sizes of
 ``tests/test_kernel_registry.py``.
 
 Integer weights, and every Bloom and FM state, must agree byte for byte.
-Float CountMin weights agree to ``rtol=1e-6, atol=1e-5``: the reference's
-one-hot matmul and the port's sequential scatter add the same terms in
-another order.
+Float CountMin and AMS weights agree to ``rtol=1e-6, atol=1e-5``: the
+reference's one-hot matmul and the port's sequential scatter add the same
+terms in another order.
 """
 import numpy as np
 import pytest
@@ -31,6 +31,8 @@ _KINDS = {
     "cm_unweighted": ({"eps": 0.1, "delta": 0.1, "weighted": False},
                       "countmin"),
     "cm_weighted": ({"eps": 0.05, "delta": 0.05}, "countmin"),
+    "ams": ({"eps": 0.1, "delta": 0.2}, "ams"),           # d = 7, w = 512
+    "ams_default": ({}, "ams"),                           # d = 12, w = 2048
     "hll": ({"rse": 0.1}, "hyperloglog"),
     "bloom": ({"n_elements": 64, "fpr": 0.05}, "bloom"),
     "fm": ({"nmaps": 8, "bitmap_size": 16}, "fm"),
