@@ -2,12 +2,12 @@
 """Drive the PyTorch port's main path on one CUDA card and hold every
 hand-written kernel against its plain PyTorch version.
 
-    python3 chip_smoke.py            # needs one CUDA card; ~2 minutes
+    python3 chip_smoke.py            # needs one CUDA card; ~6 minutes
 
 Phases (any failure raises, so the script exits non-zero without its
 last line; each phase prints its peak device memory, held under 48 GiB):
 
-  1. Card and build: ``nvidia-smi`` name and power limit, then the six
+  1. Card and build: ``nvidia-smi`` name and power limit, then the seven
      kernel sources built by ``nvcc`` in parallel.
   2. Each of the thirteen kernel entry points against its plain version at
      the main path's shapes, on a batch of 65,536 tuples with unrouted,
@@ -67,23 +67,44 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      ``@fresh`` rows time kernel, plain and library call on a state zeroed
      before every call, as the fold runs them (the fill not timed); each
      prints the distinct lanes, 32-byte sectors and the hottest lane's
-     entries beside the bound. One entry's tensors are held at a time.
+     entries beside the bound. Then Lossy Counting's scan (``lossy_scan``,
+     no TPU counterpart) at the reference's default eps = 0.01 (k = 100)
+     and at eps = 0.001 (``lossy_scan@k1000``) on n rows routed as the
+     batch's probe gives them plus one data-source row: keys, counts and
+     error byte-equal to the plain version on the card and across two
+     kernel runs; the plain version timed from its one checked call (tens
+     of seconds: a torch launch an op of every step); the bound the larger
+     of the bytes and the chain floor (the data-source row's walk of every
+     masked-in tuple at LOSSY_STEP_CYCLES a step). One entry's tensors are
+     held at a time.
   3. The main path through ``SDE(device="cuda").handle``: per-stream AMS
      (the reference's defaults, [12, 2048]), CM, HLL, Bloom, FM, RHP and
      Figure-6 DFT over 65,536 hashed 63-bit ids; a data-source AMS, CM,
      HLL, Bloom(1,048,576, 0.01) (own stack: 64 x 2**24 lanes), FM, RHP
      and DFT; continuous AMS, HLL and FM (data-source rows) and DFT
-     (window 64, on the hottest stream); 16 ingest batches of 65,536
+     (window 64, on the hottest stream); per-stream and data-source Lossy
+     Counting at eps 0.01 (one stack) and a data-source one at eps 0.001
+     (its own stack); 16 ingest batches of 65,536
      Zipf(1.1) tuples (half with SDE_FUSED_PROBE=0), then 2 more under
      ``torch.profiler`` (device-busy share and top kernels); 1,024 CM,
-     1,024 Bloom, 1,025 RHP, 1,025 DFT and 1,024 AMS queries in
-     query_many, Bloom false positives, HLL, FM, AMS and DFT adhoc
-     queries. Each per-stream AMS answer must be float32(total)**2 of its
+     1,024 Bloom, 1,025 RHP, 1,025 DFT, 1,024 AMS and 1,024 per-stream
+     Lossy queries (with ``items``; the two data-source Lossy tables'
+     heavy items too) in query_many, Bloom false positives, HLL, FM, AMS
+     and DFT adhoc queries. Each per-stream Lossy answer for its own
+     folded id must equal its stream's exact total weight, each
+     data-source Lossy table's counts must sum to the exact weight W it
+     was fed, every folded id heavier than W / k must be tracked with an
+     estimate in [true, true + W / k], and the scan must launch once a
+     batch on each Lossy stack. Each per-stream AMS answer must be
+     float32(total)**2 of its
      stream's exact total weight, the data-source AMS within 0.15 of the
      exact F2 of the items it was fed, the continuous AMS equal to it and
      emitted once a batch. Every stack must equal a replay of the
      same batches through the plain versions on the card (AMS, RHP and
-     DFT byte for byte, RHP's and DFT's answers equal to the replay's; the DFT
+     DFT byte for byte, RHP's and DFT's answers equal to the replay's; the
+     Lossy stacks as they stood after the first LOSSY_REPLAY_BATCHES
+     batches, copied there, byte for byte against a replay of those
+     batches, since the plain scan takes tens of seconds a batch; the DFT
      replay finds each row's last routed value in numpy and ticks with
      ``DFT.step``), the data-source DFT must stay at init, no ingested id
      may be missing from its Bloom, every entry point must launch, the
@@ -121,7 +142,10 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      RHP's phase-3 long runs; an ``@ams`` row's launches are the
      wrapper's signed ones on the AMS stack, and ``@fresh@ams``'s its
      signed one-row ones, which phase 3 requires to be one a batch on
-     the stack and one fold a batch), then the device line.
+     the stack and one fold a batch; the Lossy rows' ``launches`` are all
+     the scan's and those on tables of 1,000 slots, their ``replaces``
+     the JAX counterpart, ``src/repro/core/lossy.py:65``, with
+     ``tpu_kernel`` null), then the device line.
 """
 from __future__ import annotations
 
@@ -147,7 +171,17 @@ FLOAT_RTOL, FLOAT_ATOL = 1e-4, 1e-3   # float sums of up to ~10^4 terms
                                       # taken in another order
 PEAK_LIMIT_GIB = 48.0
 FADD_CYCLES = 4         # a dependent float32 add's latency on the card
+# a Lossy Counting step's dependent chain in csrc/lossy_scan.cu, counted
+# low: the item's compare with the keys, the warp's minimum over the lanes
+# (redux.sync) and the count's add, each at least a dependent add's
+# latency; the lanes' tree, the branch and an eviction's second minimum
+# are not counted
+LOSSY_STEP_CYCLES = 3 * FADD_CYCLES
 SRC_BLOOM_ELEMENTS = 1 << 20          # phase 3's data-source Bloom
+# phase 3's Lossy Counting: the reference's default eps (k = 100) per
+# stream and as a data source, and a data source at k = 1000
+LOSSY_PARAMS, LOSSY_K1000_PARAMS = {"eps": 0.01}, {"eps": 0.001}
+LOSSY_REPLAY_BATCHES = 2    # the batches the plain replay takes (phase 3)
 # the paper's Figure-6 DFT (benchmarks/fig6_dft_workflow.py)
 FIG6_DFT = {"window": 128, "n_coeffs": 8, "threshold": 0.9,
             "grid_coeffs": 2}
@@ -280,15 +314,15 @@ def device_split(fn, groups: dict, rest: str, runs: int = 5) -> dict:
     return split
 
 
-def chain_floor_ms(longest: int) -> tuple:
-    """(ms, MHz): the least time of ``longest`` dependent float32 adds,
-    FADD_CYCLES each at the card's top SM clock. Under the byte contract
-    the hottest run's adds at one element are such a chain."""
+def chain_floor_ms(longest: int, cycles: int = FADD_CYCLES) -> tuple:
+    """(ms, MHz): the least time of ``longest`` dependent steps, ``cycles``
+    each at the card's top SM clock: by default float32 adds, as the
+    hottest run's adds at one element are under the byte contract."""
     mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         check=True).stdout.split()[0])
-    return longest * FADD_CYCLES / (mhz * 1e6) * 1e3, mhz
+    return longest * cycles / (mhz * 1e6) * 1e3, mhz
 
 
 def bound_ms(n_bytes: int, n_ops: int, rate: str = "float32"):
@@ -1308,13 +1342,95 @@ def phase2_flash(b, n: int, results: dict) -> None:
         free()
 
 
+def phase2_lossy(b, n: int, results: dict) -> None:
+    """The Lossy Counting scan at the reference's default eps = 0.01
+    (k = 100, row ``lossy_scan``) and at eps = 0.001 (k = 1000,
+    ``lossy_scan@k1000``) on phase 2's batch: n rows, routed as the
+    batch's probe gives them, plus one data-source row (row n_streams, as
+    the engine allocates it). Kernel against its plain version on the
+    card from an empty stack, byte for byte, and byte-equal across two
+    kernel runs; the kernel timed on the state it left (25 CUDA-event
+    calls, 5 profiler calls, and its split by kernel), the plain version
+    from its one checked call (it takes seconds: one launch a torch op of
+    every step). No one PyTorch call computes the scan: no library time.
+    The bound is the larger of the bytes (the batch read once, each walked
+    row's table read and written once) and the chain floor (the longest
+    walk, the data-source row's, at LOSSY_STEP_CYCLES a step)."""
+    from repro_torch import core
+    from repro_torch.core import batched
+    from repro_torch.kernels import lossy_scan, ref
+
+    t, dev = b.t, b.dev
+    src = torch.tensor([n // 2], dtype=torch.int64, device=dev)
+    batch = (b.rows, b.items, b.vals, b.mask, src)
+    walks, longest = lossy_scan.walks_of(b.rows, b.mask, n, src)
+    floor_ms, mhz = chain_floor_ms(longest, LOSSY_STEP_CYCLES)
+    for name, eps in (("lossy_scan", 0.01), ("lossy_scan@k1000", 0.001)):
+        kind = core.LossyCounting(eps=eps)
+        k = kind.k
+        state0 = batched.stacked_init(kind, n, dev)
+        leaves = lambda st: (st["keys"], st["counts"], st["error"])
+        runs = []
+        for _ in range(2):
+            st = batched.tree_map(torch.clone, state0)
+            lossy_scan.lossy_scan_update(*leaves(st), *batch)
+            runs.append(st)
+        torch.cuda.synchronize()
+        require(same_leaves(runs[0], runs[1]),
+                f"{name}: two kernel runs differ byte-wise")
+        plain = batched.tree_map(torch.clone, state0)
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        a.record()
+        ref.lossy_scan_update(*leaves(plain), *batch)
+        z.record()
+        z.synchronize()
+        pms = a.elapsed_time(z)
+        require(same_leaves(runs[0], plain),
+                f"{name}: kernel differs byte-wise from its plain version")
+        _, err, _ = compare(runs[0]["counts"], plain["counts"])
+        del plain, runs[1]
+        k_state = runs.pop()
+        kern = lambda: lossy_scan.lossy_scan_update(*leaves(k_state), *batch)
+        kms = cuda_ms(kern)
+        kdev = device_ms(kern, label=name)
+        split = device_split(kern, {"walk_kernel": "walk", "sort_": "sort",
+                                    "Memset": "sort", "key_kernel": "key",
+                                    "flag_kernel": "flag"}, "other")
+        n_bytes = t * (4 + 4 + 4 + 1) + 4 * src.numel() + walks * k * 12 * 2
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        bms = max(t_bytes, floor_ms)
+        by = "bytes" if t_bytes >= floor_ms else "operations"
+        results[name] = dict(
+            max_abs_err=err, ms=kms, plain_ms=pms, library_ms=None,
+            bound_ms=bms, bound_by=by, device_ms=kdev, plain_device_ms=None,
+            library_device_ms=None, runs=walks, longest_run=longest,
+            chain_floor_ms=floor_ms, split_device_ms=split, k=k,
+            plain_timing="one call (CUDA events); its device time not "
+                         "measured",
+            library="none: no one PyTorch call computes it")
+        print(f"[phase2] {name}: k={k}, n={n} rows + data-source row "
+              f"{int(src[0])}, exact match (keys, counts, error byte for "
+              f"byte; two kernel runs byte-identical), kernel {kms:.4f} ms "
+              f"(device {kdev:.4f} ms), plain {pms:.1f} ms (one call), no "
+              f"library call; {walks} walks, the longest {longest} steps "
+              f"(the data-source row), chain floor {floor_ms:.5f} ms "
+              f"({LOSSY_STEP_CYCLES} cycles a step at {mhz:.0f} MHz), bytes "
+              f"{t_bytes:.5f} ms ({n_bytes} B): bound {bms:.5f} ms ({by}); "
+              f"device ms by kernel: " + ", ".join(
+                  f"{g} {ms:.4f}" for g, ms in sorted(
+                      split.items(), key=lambda kv: -kv[1])), flush=True)
+        del k_state, state0, kern
+        free()
+
+
 def phase2(dev, seed: int, n: int, n_streams: int, t: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     b = phase2_batch(dev, seed, n_streams, t)
     results: dict = {}
     for part in (phase2_countmin, phase2_ams, phase2_hll, phase2_bloom,
                  phase2_fm, phase2_rhp, phase2_dft, phase2_corr,
-                 phase2_flash):
+                 phase2_flash, phase2_lossy):
         part(b, n, results)
         free()
     peak_gib("phase2")
@@ -1327,7 +1443,9 @@ def phase2(dev, seed: int, n: int, n_streams: int, t: int) -> dict:
 # JSON name -> (wrapper module, wrapper, source, TPU kernel it replaces);
 # a "@fresh" row reads the wrapper's one-row launches given no signs
 # (data-source folds), an "@ams" row its signed launches on a stack
-# (AMS's), and "@fresh@ams" its signed one-row launches (AMS's folds)
+# (AMS's), "@fresh@ams" its signed one-row launches (AMS's folds), and
+# "@k1000" the launches on tables of 1,000 slots; a main row counts all
+LOSSY_COUNTERPART = "src/repro/core/lossy.py:65"
 ENTRY_POINTS = {
     "onehot_scatter_add": ("onehot_matmul", "onehot_scatter_add",
                            "countmin_scatter.cu", "onehot_matmul.py:61"),
@@ -1375,6 +1493,12 @@ ENTRY_POINTS = {
                             "flash_attention.cu", "flash_attention.py:68"),
     "flash_attention@d256": ("flash_attention", "flash_attention",
                              "flash_attention.cu", "flash_attention.py:68"),
+    # no TPU kernel: its JAX counterpart is LossyCounting.add_batch under
+    # the vmap of batched.stacked_update (src/repro/core/batched.py:92)
+    "lossy_scan": ("lossy_scan", "lossy_scan_update", "lossy_scan.cu",
+                   LOSSY_COUNTERPART),
+    "lossy_scan@k1000": ("lossy_scan", "lossy_scan_update", "lossy_scan.cu",
+                         LOSSY_COUNTERPART),
 }
 
 
@@ -1394,9 +1518,13 @@ def reset_launches() -> None:
                 setattr(fn, count, 0)
         if hasattr(fn, "long_runs"):
             fn.long_runs.reset()
+        if hasattr(fn, "launches_by_k"):
+            fn.launches_by_k.clear()
 
 
 def launches_of(name: str, fn) -> int:
+    if name.endswith("@k1000"):
+        return fn.launches_by_k[1000]
     ams_folds = getattr(fn, "signed_one_row_launches", 0)
     if name.endswith("@fresh@ams"):
         return ams_folds
@@ -1526,10 +1654,75 @@ def check_dft_stack(sde, stack, batches, answers, dev) -> None:
           flush=True)
 
 
+def check_lossy_answers(sde, answers, q_streams, totals, heavy, fed_items,
+                        fed_totals, fed_w, dev) -> None:
+    """Lossy Counting after every batch: each per-stream answer for its
+    own folded id equals its stream's exact total (a per-stream row only
+    ever sees its own item); each data-source table's counts sum to the
+    exact weight W it was fed; every item heavier than W / k is tracked
+    with an estimate in [true, true + W / k] (Space-Saving's guarantee)."""
+    got = np.asarray([float(v[0]) for v in answers["lossy"]])
+    require(np.array_equal(got, totals),
+            "per-stream Lossy answers differ from the exact stream totals")
+    for (sid, items), est in zip(heavy.items(), answers["lossy-src"]):
+        state = sde.state_of(sid)
+        k = state["keys"].shape[0]
+        total = float(state["counts"].double().sum())
+        require(total == fed_w, f"{sid}: counts sum to {total}, not the "
+                                f"{fed_w} it was fed")
+        true = fed_totals[np.searchsorted(fed_items, items)]
+        est = np.asarray(est, np.float64)
+        slack = est - true
+        require(len(items) > 0 and bool((slack >= 0).all())
+                and bool((slack <= fed_w / k).all()),
+                f"{sid}: an item above W/k is untracked or off by more than "
+                f"W/k (slack {slack.min()}..{slack.max()}, W/k {fed_w / k})")
+        print(f"[phase3] {sid} (k={k}): counts sum to the exact W={fed_w:.0f};"
+              f" all {len(items)} items above W/k={fed_w / k:.1f} tracked, "
+              f"over-count {slack.min():.0f}..{slack.max():.0f}", flush=True)
+    print(f"[phase3] exact: {len(got)} per-stream Lossy answers equal their "
+          f"streams' totals", flush=True)
+
+
+def check_lossy_stack(stack, snap, prefix, dev) -> None:
+    """A Lossy stack, as it stood after the first ``len(prefix)`` batches
+    (``snap``), equals a replay of those batches through the plain
+    version on the card (the plain probe, then ``ref.lossy_scan_update``:
+    a torch op a launch for every step, so only a prefix fits the run's
+    time) byte for byte in keys, counts and error."""
+    from repro_torch.core import batched
+    from repro_torch.kernels import probe, ref
+    from repro_torch.service import routing
+    dt = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    replay = batched.stacked_init(stack.kind, stack.capacity, dev)
+    klo, khi, trows = stack.device_table()
+    t0 = time.perf_counter()
+    for sids, vals in prefix:
+        sid64 = sids.astype(np.int64)
+        lo, hi = routing.split64(sid64)
+        rows = probe.probe_rows(klo, khi, trows, dt(lo.view(np.int32)),
+                                dt(hi.view(np.int32)), n_probe=stack.n_probe)
+        ref.lossy_scan_update(
+            replay["keys"], replay["counts"], replay["error"], rows,
+            dt(routing.fold64(sid64).view(np.int32)), dt(vals),
+            dt(sid64 >= 0), stack.source_rows_idx())
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    name = f"LossyCounting(eps={stack.kind.eps})"
+    require(same_leaves(snap, replay),
+            f"{name} engine state differs byte-wise from the plain replay "
+            f"of its first {len(prefix)} batches")
+    print(f"[phase3] {name} stack {stack.capacity} x {stack.row_bytes()} B "
+          f"after the first {len(prefix)} batches equals their plain replay "
+          f"byte for byte in keys, counts and error ({replay_s:.1f} s of "
+          f"replay)", flush=True)
+
+
 def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
            n_queries: int, n_profiled: int = 2) -> dict:
+    from repro_torch import core
     from repro_torch.core import batched
-    from repro_torch.kernels import probe, rhp_project
+    from repro_torch.kernels import lossy_scan, probe, rhp_project
     from repro_torch.service import SDE, routing
 
     torch.cuda.reset_peak_memory_stats()
@@ -1567,7 +1760,10 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
             ("dft", "dft", dft_params, per_stream),
             ("src-dft", "dft", dft_params, {}),
             ("cq-dft", "dft", {"window": 64, "n_coeffs": 8},
-             {"stream_id": ids[0], "continuous": True})):
+             {"stream_id": ids[0], "continuous": True}),
+            ("lossy", "lossy_counting", LOSSY_PARAMS, per_stream),
+            ("src-lossy", "lossy_counting", LOSSY_PARAMS, {}),
+            ("src-lossy-k1000", "lossy_counting", LOSSY_K1000_PARAMS, {})):
         r = sde.handle({"type": "build", "request_id": f"b-{sid}",
                         "synopsis_id": sid, "kind": kind, "params": params,
                         **extra})
@@ -1581,12 +1777,17 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    lossy_snap = {}
     for b, (sids, vals) in enumerate(batches[:n_batches]):
         os.environ["SDE_FUSED_PROBE"] = "1" if b % 2 == 0 else "0"
         r = sde.handle({"type": "ingest", "request_id": f"i{b}",
                         "stream_ids": sids.tolist(),
                         "values": vals.tolist()})
         require(r.ok, f"ingest {b} failed: {r.error}")
+        if b + 1 == LOSSY_REPLAY_BATCHES:   # the Lossy replay's prefix
+            lossy_snap = {kind: batched.tree_map(torch.clone, st.state)
+                          for kind, st in sde.stacks.items()
+                          if isinstance(kind, core.LossyCounting)}
     torch.cuda.synchronize()
     ingest_s = time.perf_counter() - t0
     profile_batches(sde, batches[n_batches:], n_batches)
@@ -1608,6 +1809,17 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
     fresh_ids = rng.randint(0, 2**62, size=4 * n_queries, dtype=np.int64)
     fresh_ids = fresh_ids[~np.isin(routing.fold64(fresh_ids), items)]
     fresh_ids = fresh_ids[:n_queries]
+    # the data-source Lossy tables were fed every tuple with an id >= 0,
+    # routed or not; the items heavier than W / k of each table
+    fed = all_s >= 0
+    fed_items, by_item = np.unique(routing.fold64(all_s[fed]),
+                                   return_inverse=True)
+    fed_totals = np.bincount(by_item, weights=all_v[fed])
+    fed_w = float(fed_totals.sum())
+    heavy = {sid: fed_items[fed_totals > fed_w / core.make_kind(
+        "lossy_counting", **params).k]
+        for sid, params in (("src-lossy", LOSSY_PARAMS),
+                            ("src-lossy-k1000", LOSSY_K1000_PARAMS))}
     # query_many's queries by kind, in order
     parts = {
         "cm": [{"synopsis_id": f"cm/{int(s)}", "query": {"items": [int(s)]}}
@@ -1624,7 +1836,12 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
                 + [{"synopsis_id": "src-rhp"}]),
         "dft": ([{"synopsis_id": f"dft/{int(s)}"} for s in q_streams]
                 + [{"synopsis_id": "src-dft"}]),
-        "ams": [{"synopsis_id": f"ams/{int(s)}"} for s in q_streams]}
+        "ams": [{"synopsis_id": f"ams/{int(s)}"} for s in q_streams],
+        "lossy": [{"synopsis_id": f"lossy/{int(s)}",
+                   "query": {"items": [int(s)]}} for s in q_streams],
+        "lossy-src": [{"synopsis_id": sid,
+                       "query": {"items": [int(x) for x in heavy[sid]]}}
+                      for sid in heavy]}
     queries = [q for part in parts.values() for q in part]
     t0 = time.perf_counter()
     r = sde.handle({"type": "query_many", "request_id": "qm",
@@ -1682,9 +1899,6 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
             "expected")
     # the data-source AMS against the exact F2 of the items it was fed
     # (every tuple with an id >= 0, routed or not, folded as ingest folds)
-    fed = all_s >= 0
-    _, by_item = np.unique(routing.fold64(all_s[fed]), return_inverse=True)
-    fed_totals = np.bincount(by_item, weights=all_v[fed])
     f2 = float((fed_totals ** 2).sum())
     src_ams = np.asarray(adhoc["src-ams"].value)
     cq_ams = [c.value for c in sde.continuous_out
@@ -1701,9 +1915,16 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
                 for x in (adhoc["cq-ams"].value, cq_ams[-1])),
             "the continuous AMS (a data-source row too) differs from "
             "src-ams")
+    check_lossy_answers(sde, answers, q_streams, want, heavy, fed_items,
+                        fed_totals, fed_w, dev)
     launches = read_launches()
     n_fused = len(range(0, n_batches, 2)) + len(range(0, n_profiled, 2))
     n_all = n_batches + n_profiled
+    want_lossy = {"lossy_scan": 2 * n_all, "lossy_scan@k1000": n_all}
+    require(all(launches[k] == v for k, v in want_lossy.items()),
+            f"the Lossy scan's launches {[launches[k] for k in want_lossy]}, "
+            f"not {list(want_lossy.values())} (one a batch on each of the "
+            f"two Lossy stacks)")
     want_ams = {"onehot_probe_scatter@ams": n_fused,
                 "onehot_scatter_add@ams": n_all - n_fused,
                 "onehot_scatter_add@fresh@ams": n_all}
@@ -1731,6 +1952,10 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
     for kind, stack in sde.stacks.items():
         if stack.is_timeseries:
             check_dft_stack(sde, stack, batches, dft_checks, dev)
+            continue
+        if isinstance(kind, core.LossyCounting):
+            check_lossy_stack(stack, lossy_snap[kind],
+                              batches[:LOSSY_REPLAY_BATCHES], dev)
             continue
         replay = batched.stacked_init(kind, stack.capacity, dev)
         klo, khi, trows = stack.device_table()
@@ -2009,7 +2234,8 @@ def main() -> None:
           f"on {torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
     build.build(["countmin_scatter", "bitset_or", "rhp_project",
-                 "sliding_dft", "pairwise_corr", "flash_attention"])
+                 "sliding_dft", "pairwise_corr", "flash_attention",
+                 "lossy_scan"])
     print(f"[phase1] kernels built in {time.perf_counter() - t0:.2f} s",
           flush=True)
     for name, log in build.BUILD_LOG.items():
@@ -2050,7 +2276,8 @@ def main() -> None:
         kernels.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{src}",
-            replaces=f"src/repro/kernels/{replaced}",
+            replaces=(replaced if replaced.startswith("src/")
+                      else f"src/repro/kernels/{replaced}"),
             launches=launches[name], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
@@ -2060,7 +2287,10 @@ def main() -> None:
         kernels[-1].update({k: r[k] for k in (
             "longest_run", "runs", "long_runs", "chain_floor_ms",
             "split_device_ms", "first_touch_ms", "first_touch_device_ms",
-            "lanes", "sectors", "hottest_lane") if k in r})
+            "lanes", "sectors", "hottest_lane", "k", "plain_timing",
+            "library") if k in r})
+        if replaced == LOSSY_COUNTERPART:
+            kernels[-1]["tpu_kernel"] = None    # none: see ENTRY_POINTS
         if f"{name}.long_runs" in launches:
             kernels[-1]["long_runs_phase3"] = launches[f"{name}.long_runs"]
         large = timings.get(f"{name}@{1 << 20}")

@@ -16,7 +16,10 @@ how) and hands them to :func:`engine_from_contents`::
 
 Every stack's state keeps the reference's dtype and layout (float32
 ``[n, d, w]`` CountMin and AMS, ``[n, b]`` RHP; int32 HLL, Bloom and FM
-lanes; DFT's six leaves, with int32 ``pos`` and ``count``).
+lanes; DFT's six leaves, with int32 ``pos`` and ``count``; Lossy
+Counting's ``counts`` and ``error`` float32 ``[n, k]``), except that a
+uint32 leaf (Lossy Counting's ``keys``, whose empty sentinel is
+0xFFFFFFFF) is viewed as int32, bit for bit, as the port holds it.
 The route table is taken slot for slot, so the port probes exactly the
 reference's layout.
 """
@@ -32,6 +35,12 @@ from repro_torch.core import batched
 from repro_torch.service import engine, routing
 
 
+def _as_port(x: np.ndarray) -> np.ndarray:
+    """A state leaf in the port's dtype: uint32 identities as int32 bit
+    patterns."""
+    return x.view(np.int32) if x.dtype == np.uint32 else x
+
+
 def engine_from_contents(contents: Dict[str, Any],
                          device="cuda") -> engine.SDE:
     """A port ``SDE`` on ``device`` holding the given engine contents."""
@@ -42,7 +51,7 @@ def engine_from_contents(contents: Dict[str, Any],
     for st in contents["stacks"]:
         kind = core.make_kind(st["kind"], **st["params"])
         state = batched.tree_map(
-            lambda x: torch.from_numpy(np.array(x)).to(sde.device),
+            lambda x: torch.from_numpy(_as_port(np.array(x))).to(sde.device),
             st["state"])
         capacity = batched.tree_leaves(state)[0].shape[0]
         stack = engine._KindStack(kind, capacity, sde.device)

@@ -1,10 +1,10 @@
 """Synopsis kinds (port of ``repro/core/__init__.py``).
 
-The port registers CountMin, AMS, HyperLogLog, Bloom, FM, RHP and DFT
-so far, under the reference's names; building any other kind (the
-scan-path kinds among them: Lossy Counting, Sticky Sampling, ...)
-answers ok=False through the registry's KeyError
-(``synopsis.make_kind``).
+The port registers CountMin, AMS, HyperLogLog, Bloom, FM, RHP, DFT and
+Lossy Counting so far, under the reference's names; building any other
+kind (the other scan-path kinds among them: Sticky Sampling, the
+sampler, GK, CoreSetTree) answers ok=False through the registry's
+KeyError (``synopsis.make_kind``).
 """
 from . import hashing  # noqa: F401
 from .synopsis import (Synopsis, register_kind, make_kind, known_kinds,
@@ -16,6 +16,7 @@ from .bloom import BloomFilter
 from .fm import FMSketch
 from .rhp import RHP
 from .dft import DFT
+from .lossy import LossyCounting
 from . import batched  # noqa: F401
 
 for _name, _factory in {
@@ -26,9 +27,10 @@ for _name, _factory in {
     "fm": FMSketch,
     "rhp": RHP,
     "dft": DFT,
+    "lossy_counting": LossyCounting,
 }.items():
     register_kind(_name, _factory)
 
 __all__ = ["Synopsis", "register_kind", "make_kind", "known_kinds",
            "kind_params", "CountMin", "AMS", "HyperLogLog", "BloomFilter",
-           "FMSketch", "RHP", "DFT", "batched"]
+           "FMSketch", "RHP", "DFT", "LossyCounting", "batched"]

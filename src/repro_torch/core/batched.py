@@ -13,8 +13,11 @@ Differences from the reference:
   * ``stacked_step`` calls the kind's ``tick`` over the whole stack (the
     reference vmaps the one-row ``step``), with the sliding-DFT kernel as
     its coefficient update.
-  * Only the scatter branch of ``stacked_update`` is ported; the vmap
-    fallback for scan-path kinds waits for those kinds.
+  * The scan branch of ``stacked_update`` hands the batch to the kind's
+    ``scan_update``, which groups it by row and scans each row's own
+    tuples once (Lossy Counting: the hand-written scan kernel), where the
+    reference vmaps ``add_batch`` over every row with the whole batch
+    masked to that row's tuples. The rows' results are the same.
 """
 from __future__ import annotations
 
@@ -67,14 +70,21 @@ def stacked_update(kind: Synopsis, stacked: Any, syn_idx: torch.Tensor,
     """Routed + data-source update of a whole kind stack, in place.
 
     ``syn_idx`` may hold -1 for unrouted tuples; ``source_rows`` is an
-    index vector of rows fed by ALL tuples (data-source synopses). The
-    source contribution goes through mergeability: the batch is
-    summarized ONCE into a fresh synopsis and merged into just the source
-    rows."""
+    index vector of rows fed by ALL tuples (data-source synopses).
+    Scatter-path kinds (``stacked_add_batch``) get the source
+    contribution through mergeability: the batch is summarized ONCE into
+    a fresh synopsis and merged into just the source rows. Scan-path
+    kinds (``scan_update``) take the batch grouped by row: row r scans the
+    tuples with ``mask & (syn_idx == r)``, a source row every tuple with
+    ``mask``, each in batch order, as the reference's per-row masks give
+    them."""
     if not hasattr(kind, "stacked_add_batch"):
-        raise NotImplementedError(
-            f"{type(kind).__name__} has no scatter update; the vmap "
-            "fallback waits for the scan-path kinds")
+        if not hasattr(kind, "scan_update"):
+            raise NotImplementedError(
+                f"{type(kind).__name__} has neither a scatter update "
+                "(stacked_add_batch) nor a scan update (scan_update)")
+        return kind.scan_update(stacked, syn_idx, items, values, mask,
+                                source_rows)
     routed = mask & (syn_idx >= 0)
     rows = torch.clamp(syn_idx, min=0)
     out = kind.stacked_add_batch(stacked, rows, items, values, routed)

@@ -9,18 +9,23 @@ service maintaining thousands of synopses for thousands of streams.
   * red path: ``handle(request)`` adhoc queries and ``query_many`` --
     one stacked-estimate call per kind answers every query of that kind.
 
-The port serves CountMin, AMS, HyperLogLog, Bloom, FM, RHP and DFT so far:
-build (per stream, per stream of a source, data source), ingest, adhoc,
-query_many, stop, status, flush and shutdown, with continuous queries
-emitted eagerly. DFT is a time-series kind: each ingest batch ticks every
-stream once with its last routed value (``_step_all``).
+The port serves CountMin, AMS, HyperLogLog, Bloom, FM, RHP, DFT and Lossy
+Counting so far: build (per stream, per stream of a source, data source),
+ingest, adhoc, query_many, stop, status, flush and shutdown, with
+continuous queries emitted eagerly. DFT is a time-series kind: each
+ingest batch ticks every stream once with its last routed value
+(``_step_all``). Lossy Counting is a scan-path kind: it declares no
+registry kernel, so ingest probes the rows and hands the batch to
+``batched.stacked_update``'s scan branch (the hand-written scan kernel).
 
 Differences from the reference:
 
   * ``device`` is explicit and defaults to ``"cuda"``; without a card the
     constructor raises. Nothing falls back to the CPU on its own.
   * State is updated in place (the reference donates the state buffer).
-  * The update ALWAYS goes through the kernel registry: there is no
+  * The update ALWAYS goes through a hand-written kernel: the registry's
+    for a kind that declares one, the scan kernel behind
+    ``batched.stacked_update`` for a scan-path kind. There is no
     ``backend="xla"`` counterpart, which would run the plain version on
     the card. On the CPU the wrappers run their plain versions.
   * No mesh, sharding, pipelining, durability or migration yet. Requests
@@ -565,19 +570,22 @@ class SDE:
 # ---------------------------------------------------------------------------
 # blue-path update: the kind's registry kernel (probe fused unless
 # SDE_FUSED_PROBE is off), routed rows and data-source rows in one call,
-# state updated in place. There is no plain fallback for kinds without a
-# kernel: every scatter kind ported so far declares one, and time-series
-# kinds take the step path (``_step_all``) instead.
+# state updated in place. A kind without a registry kernel (the scan-path
+# kinds) takes the probe, then ``batched.stacked_update``, as in the
+# reference; SDE_FUSED_PROBE does not touch it. Time-series kinds take
+# the step path (``_step_all``) instead.
 # ---------------------------------------------------------------------------
 def _update(kind, n_probe, state, klo, khi, trows, sid_lo, sid_hi, items,
             vals, msk, src_rows=None):
     kops.DISPATCH_COUNT[f"update:{type(kind).__name__}"] += 1
     kernel = kops.resolve_update_kernel(kind)
-    if kernel is None:
-        raise NotImplementedError(
-            f"{type(kind).__name__} declares no update kernel")
-    return kernel(state, klo, khi, trows, sid_lo, sid_hi, items, vals, msk,
-                  src_rows, n_probe=n_probe)
+    if kernel is not None:
+        return kernel(state, klo, khi, trows, sid_lo, sid_hi, items, vals,
+                      msk, src_rows, n_probe=n_probe)
+    syn_idx = kops.route_probe(klo, khi, trows, sid_lo, sid_hi,
+                               n_probe=n_probe)          # -1 => unrouted
+    return batched.stacked_update(kind, state, syn_idx, items, vals, msk,
+                                  src_rows)
 
 
 def _step_all(kind, n_probe, state, klo, khi, trows, sid_lo, sid_hi, vals,
@@ -605,14 +613,15 @@ def _step_all(kind, n_probe, state, klo, khi, trows, sid_lo, sid_hi, vals,
 
 # ---------------------------------------------------------------------------
 # red-path query planning: normalize N query dicts for one kind into padded
-# batched device args + a per-query result slicer. CountMin and Bloom take
-# per-query ``items`` as ONE [N, L] arg (L = padded max arg length);
-# AMS, HyperLogLog, FM, RHP and DFT are arg-free and return their estimate
-# per row (AMS's the L2-norm^2; RHP's a dict: signature, hamming_weight,
-# bucket; DFT's a dict: bucket, coeffs, coords).
+# batched device args + a per-query result slicer. CountMin, Bloom and
+# Lossy Counting take per-query ``items`` (default ``[0]``) as ONE [N, L]
+# arg (L = padded max arg length); AMS, HyperLogLog, FM, RHP and DFT are
+# arg-free and return their estimate per row (AMS's the L2-norm^2; RHP's a
+# dict: signature, hamming_weight, bucket; DFT's a dict: bucket, coeffs,
+# coords).
 # ---------------------------------------------------------------------------
 
-_ITEM_KINDS = (core.CountMin, core.BloomFilter)
+_ITEM_KINDS = (core.CountMin, core.BloomFilter, core.LossyCounting)
 
 _next_pow2 = routing.next_pow2
 

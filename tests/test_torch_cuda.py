@@ -45,8 +45,9 @@ import pytest
 import torch
 
 from repro_torch.kernels import (bitset_or, flash_attention, fm_bitmap,
-                                 hll_max, onehot_matmul, ops, pairwise_corr,
-                                 probe, ref, rhp_project, sliding_dft)
+                                 hll_max, lossy_scan, onehot_matmul, ops,
+                                 pairwise_corr, probe, ref, rhp_project,
+                                 sliding_dft)
 from repro_torch.service import routing
 
 
@@ -1113,6 +1114,137 @@ def test_flash_attention_64_bit_offsets(dev):
         assert _attn_within(out[heads], want)
     del q, k, v, out
     torch.cuda.empty_cache()
+
+
+def _lossy_case(rng, n, k, t, sources, float_weights, dev):
+    """A Lossy Counting stack [n, k] part filled (empty slots among full
+    ones, some keys repeated in a row, ties of counts) and a batch over it:
+    Zipf items with the sentinel 0xFFFFFFFF and ids near 2**32, rows -1
+    and n, masked tuples, a row holding a third of the batch, the first
+    source row also routed to and listed twice."""
+    keys = rng.randint(0, 40, (n, k)).astype(np.int32)
+    keys[rng.rand(n, k) < 0.3] = -1
+    counts = rng.randint(0, 6, (n, k)).astype(np.float32)
+    error = (counts * (rng.rand(n, k) < 0.3)).astype(np.float32)
+    items = (rng.zipf(1.3, t) % 60).astype(np.int64)
+    items[::23] = 0xFFFFFFFF
+    items[7::31] = 0xFFFFFFF0
+    rows = rng.randint(0, n, t).astype(np.int32)
+    rows[::3] = n // 2
+    rows[::11] = -1
+    rows[5::13] = n
+    if sources:
+        rows[1::17] = sources[0]
+    vals = (rng.randn(t) * 3 if float_weights
+            else rng.randint(1, 5, t)).astype(np.float32)
+    mask = rng.rand(t) > 0.1
+    c = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    src = (c(np.asarray(sources + sources[:1], np.int64)) if sources
+           else None)
+    state = (c(keys), c(counts), c(error))
+    batch = (c(rows), c(items.astype(np.uint32).view(np.int32)), c(vals),
+             c(mask), src)
+    return state, batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("float_weights", [False, True],
+                         ids=["int_weights", "float_weights"])
+@pytest.mark.parametrize("n,k,t,sources", [
+    (7, 20, 300, []), (7, 34, 300, [2]), (5, 20, 2000, [0, 4]),
+    (3, 100, 1000, [1]), (1, 4, 700, [0]), (4099, 34, 6000, [4098]),
+    (4, 33, 1, []), (3, 300, 800, [0]), (2, 1000, 1200, [1]),
+    (3, 2000, 900, [2]), (3, 20000, 1500, [2])])
+def test_lossy_scan_matches_plain_byte_for_byte(dev, n, k, t, sources,
+                                                float_weights):
+    """The scan kernel against its plain version: tables in registers at
+    k = 4 (fewer slots than lanes), 20, 33 and 34 (not multiples of 32),
+    100, 300 and 1,000 (1, 2, 4, 16 and 32 slots a lane), in shared memory
+    at k = 2,000 and in device memory at k = 20,000 (past a block's shared
+    memory); runs of one tuple to a third of the batch; no source row, one
+    routed to as well, two; the sentinel item. Keys, counts and error
+    byte-equal to the plain version and across two kernel runs, one
+    launch a call."""
+    rng = np.random.RandomState(n + k + t)
+    state, batch = _lossy_case(rng, n, k, t, sources, float_weights, dev)
+    if k == 20000:
+        assert k > lossy_scan.max_shared_k()
+    outs = []
+    before = lossy_scan.lossy_scan_update.launches
+    for _ in range(2):
+        s = [x.clone() for x in state]
+        lossy_scan.lossy_scan_update(*s, *batch)
+        outs.append(s)
+    assert lossy_scan.lossy_scan_update.launches == before + 2
+    torch.cuda.synchronize()
+    want = [x.clone() for x in state]
+    ref.lossy_scan_update(*want, *batch)
+    for a, b, w in zip(*outs, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert torch.equal(a.view(torch.int32), w.view(torch.int32))
+    if t > 300:                       # a run longer than one load group
+        assert lossy_scan.walks_of(batch[0], batch[3], n, batch[4])[1] > 32
+
+
+@pytest.mark.cuda
+def test_lossy_scan_rejects_bad_operands_and_skips_empty_batches(dev):
+    state, batch = _lossy_case(np.random.RandomState(1), 5, 20, 64, [1],
+                               False, dev)
+    keys, counts, error = state
+    rows, items, vals, mask, src = batch
+    before = lossy_scan.lossy_scan_update.launches
+    with pytest.raises(TypeError):
+        lossy_scan.lossy_scan_update(keys, counts, error, rows, items, vals,
+                                     mask.to(torch.int32), src)
+    with pytest.raises(ValueError):
+        lossy_scan.lossy_scan_update(keys, counts, error, rows[:-1], items,
+                                     vals, mask, src)
+    with pytest.raises(ValueError):
+        lossy_scan.lossy_scan_update(keys, counts.cpu(), error, rows, items,
+                                     vals, mask, src)
+    empty = [x[:0] for x in batch[:4]]
+    snapshot = [x.clone() for x in state]
+    lossy_scan.lossy_scan_update(*state, *empty, src)
+    assert lossy_scan.lossy_scan_update.launches == before
+    assert all(torch.equal(a, b) for a, b in zip(state, snapshot))
+
+
+def test_lossy_plain_matches_a_python_loop():
+    """On the CPU: the plain scan the card tests compare against, held to
+    a pure-Python loop over the batch (first hit, else first empty, else
+    first least count; the sentinel hits empty slots), with the rows,
+    sources and masks of the card cases, so a kernel is never held to a
+    plain version that shares its mistake."""
+    for n, k, t, sources in ((7, 20, 300, [2]), (3, 5, 400, [0, 2]),
+                             (6, 34, 500, [])):
+        rng = np.random.RandomState(k)
+        state, batch = _lossy_case(rng, n, k, t, sources, True, "cpu")
+        keys, counts, error = (x.numpy().copy() for x in state)
+        rows, items, vals, mask, src = (
+            None if x is None else x.numpy() for x in batch)
+        src_set = set() if src is None else set(src.tolist())
+        for r in range(n):
+            for i in range(t):
+                if not mask[i] or (r not in src_set and rows[i] != r):
+                    continue
+                kr, cr, er = keys[r], counts[r], error[r]
+                x, v = items[i], vals[i]
+                hits = np.nonzero(kr == x)[0]
+                empties = np.nonzero(kr == -1)[0]
+                if hits.size:
+                    j = hits[0]
+                    cr[j] = np.float32(cr[j] + v)
+                elif empties.size:
+                    j = empties[0]
+                    kr[j], cr[j] = x, np.float32(np.float32(0) + v)
+                else:
+                    j = int(np.argmin(cr))
+                    kr[j], er[j] = x, cr[j]
+                    cr[j] = np.float32(cr[j] + v)
+        got = [x.clone() for x in state]
+        lossy_scan.lossy_scan_update(*got, *batch)
+        for g, w in zip(got, (keys, counts, error)):
+            assert g.numpy().tobytes() == w.tobytes()
 
 
 @pytest.mark.smoke
