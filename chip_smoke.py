@@ -73,10 +73,16 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      batch's probe gives them plus one data-source row: keys, counts and
      error byte-equal to the plain version on the card and across two
      kernel runs; the plain version timed from its one checked call (tens
-     of seconds: a torch launch an op of every step); the bound the larger
-     of the bytes and the chain floor (the data-source row's walk of every
-     masked-in tuple at LOSSY_STEP_CYCLES a step). One entry's tensors are
-     held at a time.
+     of seconds: a torch launch an op of every step); the data-source
+     walk's misses (empty slots taken and evictions), levels (the least
+     count taken again from every count) and hottest slot's adds counted
+     by a host replay (``lossy_replay``, held to the plain version's keys)
+     and printed; the bound the larger of the bytes and the chain these
+     inputs need (the levels at LOSSY_LEVEL_CYCLES each, or the hottest
+     slot's adds, or the longest routed run's, at FADD_CYCLES each,
+     whichever is longer), with every miss at LOSSY_LEVEL_CYCLES and the
+     earlier floor (every step of the walk at LOSSY_STEP_CYCLES) beside
+     it, neither a bound. One entry's tensors are held at a time.
   3. The main path through ``SDE(device="cuda").handle``: per-stream AMS
      (the reference's defaults, [12, 2048]), CM, HLL, Bloom, FM, RHP and
      Figure-6 DFT over 65,536 hashed 63-bit ids; a data-source AMS, CM,
@@ -171,17 +177,28 @@ FLOAT_RTOL, FLOAT_ATOL = 1e-4, 1e-3   # float sums of up to ~10^4 terms
                                       # taken in another order
 PEAK_LIMIT_GIB = 48.0
 FADD_CYCLES = 4         # a dependent float32 add's latency on the card
-# a Lossy Counting step's dependent chain in csrc/lossy_scan.cu, counted
-# low: the item's compare with the keys, the warp's minimum over the lanes
-# (redux.sync) and the count's add, each at least a dependent add's
-# latency; the lanes' tree, the branch and an eviction's second minimum
-# are not counted
+# the earlier floor on a Lossy Counting walk: every step a dependent
+# chain of the item's compare with the keys, the warp's minimum over the
+# lanes (redux.sync) and the count's add, each at least a dependent add's
+# latency; kept beside the bound for comparison
 LOSSY_STEP_CYCLES = 3 * FADD_CYCLES
+# a level of a Lossy walk: the least count taken again from every count
+# once the slots that held the last one have all been evicted or raised,
+# a warp minimum (redux.sync, 47.1 cycles a step of a dependent chain on
+# an H100: tools/lossy_probe.py --latency) and a select. Each level reads
+# the counts the one before left; the evictions within a level take its
+# slots in slot order, which the counts already fix, so they need not
+# wait on one another
+REDUX_CYCLES = 47
+LOSSY_LEVEL_CYCLES = REDUX_CYCLES + FADD_CYCLES
 SRC_BLOOM_ELEMENTS = 1 << 20          # phase 3's data-source Bloom
 # phase 3's Lossy Counting: the reference's default eps (k = 100) per
 # stream and as a data source, and a data source at k = 1000
 LOSSY_PARAMS, LOSSY_K1000_PARAMS = {"eps": 0.01}, {"eps": 0.001}
 LOSSY_REPLAY_BATCHES = 2    # the batches the plain replay takes (phase 3)
+# a Lossy scan's device time is 0.95-0.98 of its CUDA-event time on an
+# H100; a profiler window that lost activities read 0.78 of it
+LOSSY_DEVICE_SHARE = 0.9
 # the paper's Figure-6 DFT (benchmarks/fig6_dft_workflow.py)
 FIG6_DFT = {"window": 128, "n_coeffs": 8, "threshold": 0.9,
             "grid_coeffs": 2}
@@ -274,44 +291,60 @@ def busy_us(spans) -> float:
 
 
 def device_ms(fn, runs: int = 5, union: bool = False, prep=None,
-              label: str = "") -> float:
+              label: str = "", floor_ms: float = 0.0) -> float:
     """Mean device time of ``fn()`` per run (``device_events``): its
     activities' summed durations, or, for a call whose kernels run on two
     streams at once (``union``), the union of their intervals. ``prep()``,
     when given, runs before each run as one device activity (a copy or a
-    fill), which is not counted; a window whose activities do not split
-    evenly into the runs (the profiler lost one of them, seen once in a
-    Bloom first-touch window) is taken again, up to ``WINDOW_TRIES``
-    windows, and each retake is printed with ``label`` and its count."""
-    if prep is None:
-        spans = [(s, e) for _, s, e in device_events(fn, runs)]
-    else:
-        for attempt in range(1, WINDOW_TRIES + 1):
+    fill), which is not counted. The profiler now and then loses some of a
+    window's activities (seen in a Bloom first-touch window and in a Lossy
+    scan's, which then read 0.78 of its event time): a prepared window
+    whose activities do not split evenly into the runs, or a window whose
+    time falls under ``floor_ms``, is taken again, up to ``WINDOW_TRIES``
+    windows, each retake printed with ``label``; then it fails."""
+    for attempt in range(1, WINDOW_TRIES + 1):
+        if prep is None:
+            events = device_events(fn, runs)
+            spans = [(s, e) for _, s, e in events]
+            even = True
+        else:
             events = sorted(device_events(lambda: (prep(), fn()), runs),
                             key=lambda ev: ev[1])
             per = len(events) // runs
-            if per > 1 and per * runs == len(events):
-                break
-            print(f"[timing] {label}: window {attempt} of {WINDOW_TRIES} "
-                  f"held {len(events)} device activities in {runs} prepared "
-                  f"runs; taken again", flush=True)
-        require(per > 1 and per * runs == len(events),
-                f"{label}: {len(events)} device activities in {runs} "
-                f"prepared runs, {WINDOW_TRIES} windows")
-        spans = [(s, e) for i, (_, s, e) in enumerate(events) if i % per]
-    total = busy_us(spans) if union else sum(e - s for s, e in spans)
-    return total / runs / 1e3
+            even = per > 1 and per * runs == len(events)
+            spans = [(s, e) for i, (_, s, e) in enumerate(events)
+                     if even and i % per]
+        total = busy_us(spans) if union else sum(e - s for s, e in spans)
+        ms = total / runs / 1e3
+        if even and ms >= floor_ms:
+            return ms
+        print(f"[timing] {label}: window {attempt} of {WINDOW_TRIES} held "
+              f"{len(events)} device activities in {runs} runs, "
+              f"{ms:.4f} ms a run (floor {floor_ms:.4f}); taken again",
+              flush=True)
+    raise RuntimeError(f"{label}: {len(events)} device activities in "
+                       f"{runs} runs, {ms:.4f} ms a run against a floor of "
+                       f"{floor_ms:.4f}, {WINDOW_TRIES} windows")
 
 
-def device_split(fn, groups: dict, rest: str, runs: int = 5) -> dict:
+def device_split(fn, groups: dict, rest: str, runs: int = 5,
+                 label: str = "", floor_ms: float = 0.0) -> dict:
     """Device ms of ``fn()`` per run by kernel: each activity whose name
     holds a key of ``groups`` under that key's value, every other one
-    under ``rest``."""
-    split: dict = {}
-    for name, start, end in device_events(fn, runs):
-        key = next((g for k, g in groups.items() if k in name), rest)
-        split[key] = split.get(key, 0.0) + (end - start) / runs / 1e3
-    return split
+    under ``rest``; a window whose sum falls under ``floor_ms`` is taken
+    again, as in ``device_ms``."""
+    for attempt in range(1, WINDOW_TRIES + 1):
+        split: dict = {}
+        for name, start, end in device_events(fn, runs):
+            key = next((g for k, g in groups.items() if k in name), rest)
+            split[key] = split.get(key, 0.0) + (end - start) / runs / 1e3
+        if sum(split.values()) >= floor_ms:
+            return split
+        print(f"[timing] {label}: split window {attempt} of {WINDOW_TRIES} "
+              f"summed {sum(split.values()):.4f} ms a run (floor "
+              f"{floor_ms:.4f}); taken again", flush=True)
+    raise RuntimeError(f"{label}: the split summed under {floor_ms:.4f} ms "
+                       f"a run in {WINDOW_TRIES} windows")
 
 
 def chain_floor_ms(longest: int, cycles: int = FADD_CYCLES) -> tuple:
@@ -1342,6 +1375,57 @@ def phase2_flash(b, n: int, results: dict) -> None:
         free()
 
 
+def order_keys(counts: np.ndarray) -> np.ndarray:
+    """csrc/lossy_scan.cu's order key of each float32 count, as uint32:
+    -0 as +0, NaN least."""
+    u = counts.astype(np.float32).view(np.uint32).copy()
+    u[u == 0x80000000] = 0
+    o = np.where(u & 0x80000000, ~u, u | 0x80000000).astype(np.uint32)
+    o[np.isnan(counts)] = 0
+    return o
+
+
+def lossy_replay(keys, counts, items, values) -> dict:
+    """A host replay of one Lossy table's scan (keys [k] i32, counts [k]
+    f32) over ``items`` / ``values`` in order, with the reference's step,
+    counting the work its dependences need: ``misses`` (empty slots taken
+    and evictions), ``levels`` (evictions that find no slot left of the
+    least count a level before found: the least count taken again from
+    every count), ``hottest`` (the most adds into one slot, hits and
+    takes, which stay in batch order) and the ``keys`` after, which a
+    caller holds to the plain version's. Synchronises; for checks."""
+    keys = keys.cpu().numpy().copy()
+    counts = counts.cpu().numpy().copy()
+    adds = np.zeros(keys.shape[0], np.int64)
+    level: set = set()
+    misses = levels = 0
+    for x, v in zip(items.cpu().numpy().tolist(),
+                    values.cpu().numpy().astype(np.float32)):
+        hit = np.flatnonzero(keys == x)     # the sentinel: the first empty
+        if hit.size:
+            j = int(hit[0])
+            counts[j] = counts[j] + v
+        else:
+            misses += 1
+            empty = np.flatnonzero(keys == -1)
+            if empty.size:
+                j = int(empty[0])
+                counts[j] = np.float32(0.0) + v
+                level = set()
+            else:
+                o = order_keys(counts)
+                j = int(np.argmin(o))
+                if j not in level:
+                    levels += 1
+                    level = set(np.flatnonzero(o == o[j]).tolist())
+                counts[j] = counts[j] + v
+            keys[j] = x
+        level.discard(j)
+        adds[j] += 1
+    return dict(misses=misses, levels=levels,
+                hottest=int(adds.max()) if adds.size else 0, keys=keys)
+
+
 def phase2_lossy(b, n: int, results: dict) -> None:
     """The Lossy Counting scan at the reference's default eps = 0.01
     (k = 100, row ``lossy_scan``) and at eps = 0.001 (k = 1000,
@@ -1353,9 +1437,16 @@ def phase2_lossy(b, n: int, results: dict) -> None:
     calls, 5 profiler calls, and its split by kernel), the plain version
     from its one checked call (it takes seconds: one launch a torch op of
     every step). No one PyTorch call computes the scan: no library time.
-    The bound is the larger of the bytes (the batch read once, each walked
-    row's table read and written once) and the chain floor (the longest
-    walk, the data-source row's, at LOSSY_STEP_CYCLES a step)."""
+    The data-source walk's misses, levels and hottest slot's adds come
+    from a host replay of its tuples (``lossy_replay``), whose keys must
+    equal the plain version's. The bound is the larger of the bytes (the
+    batch read once, each walked row's table read and written once) and
+    the chain (the levels at LOSSY_LEVEL_CYCLES, or the most adds into one
+    slot, a walk's hottest or the longest routed run's, at FADD_CYCLES);
+    the misses at LOSSY_LEVEL_CYCLES each and the earlier floor, every
+    step of the longest walk at LOSSY_STEP_CYCLES, are printed beside it:
+    neither is a bound, as a phase of the kernel takes many misses at
+    once and a group many steps."""
     from repro_torch import core
     from repro_torch.core import batched
     from repro_torch.kernels import lossy_scan, ref
@@ -1364,7 +1455,9 @@ def phase2_lossy(b, n: int, results: dict) -> None:
     src = torch.tensor([n // 2], dtype=torch.int64, device=dev)
     batch = (b.rows, b.items, b.vals, b.mask, src)
     walks, longest = lossy_scan.walks_of(b.rows, b.mask, n, src)
-    floor_ms, mhz = chain_floor_ms(longest, LOSSY_STEP_CYCLES)
+    longest_run = lossy_scan.walks_of(b.rows, b.mask & (b.rows != src[0]),
+                                      n)[1]
+    step_floor_ms, mhz = chain_floor_ms(longest, LOSSY_STEP_CYCLES)
     for name, eps in (("lossy_scan", 0.01), ("lossy_scan@k1000", 0.001)):
         kind = core.LossyCounting(eps=eps)
         k = kind.k
@@ -1389,37 +1482,60 @@ def phase2_lossy(b, n: int, results: dict) -> None:
         require(same_leaves(runs[0], plain),
                 f"{name}: kernel differs byte-wise from its plain version")
         _, err, _ = compare(runs[0]["counts"], plain["counts"])
+        r0 = int(src[0])
+        rp = lossy_replay(state0["keys"][r0], state0["counts"][r0],
+                          b.items[b.mask], b.vals[b.mask])
+        misses, levels, hottest = rp["misses"], rp["levels"], rp["hottest"]
+        require(np.array_equal(rp["keys"], plain["keys"][r0].cpu().numpy()),
+                f"{name}: the miss count's host replay differs from the "
+                f"plain version's keys")
         del plain, runs[1]
         k_state = runs.pop()
         kern = lambda: lossy_scan.lossy_scan_update(*leaves(k_state), *batch)
         kms = cuda_ms(kern)
-        kdev = device_ms(kern, label=name)
+        # the scan's few launches hide behind its ms of device time, so a
+        # window reading under LOSSY_DEVICE_SHARE of the event time lost
+        # activities
+        kdev = device_ms(kern, label=name, floor_ms=LOSSY_DEVICE_SHARE * kms)
         split = device_split(kern, {"walk_kernel": "walk", "sort_": "sort",
                                     "Memset": "sort", "key_kernel": "key",
-                                    "flag_kernel": "flag"}, "other")
+                                    "flag_kernel": "flag"}, "other",
+                             label=name, floor_ms=LOSSY_DEVICE_SHARE * kms)
         n_bytes = t * (4 + 4 + 4 + 1) + 4 * src.numel() + walks * k * 12 * 2
         t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        level_ms = chain_floor_ms(levels, LOSSY_LEVEL_CYCLES)[0]
+        miss_ms = chain_floor_ms(misses, LOSSY_LEVEL_CYCLES)[0]
+        adds_ms = chain_floor_ms(max(hottest, longest_run))[0]
+        floor_ms = max(level_ms, adds_ms)
         bms = max(t_bytes, floor_ms)
         by = "bytes" if t_bytes >= floor_ms else "operations"
         results[name] = dict(
             max_abs_err=err, ms=kms, plain_ms=pms, library_ms=None,
             bound_ms=bms, bound_by=by, device_ms=kdev, plain_device_ms=None,
             library_device_ms=None, runs=walks, longest_run=longest,
-            chain_floor_ms=floor_ms, split_device_ms=split, k=k,
+            chain_floor_ms=floor_ms, step_floor_ms=step_floor_ms,
+            miss_floor_ms=miss_ms, misses=misses, levels=levels,
+            hottest_adds=hottest, split_device_ms=split, k=k,
             plain_timing="one call (CUDA events); its device time not "
                          "measured",
             library="none: no one PyTorch call computes it")
         print(f"[phase2] {name}: k={k}, n={n} rows + data-source row "
-              f"{int(src[0])}, exact match (keys, counts, error byte for "
-              f"byte; two kernel runs byte-identical), kernel {kms:.4f} ms "
-              f"(device {kdev:.4f} ms), plain {pms:.1f} ms (one call), no "
-              f"library call; {walks} walks, the longest {longest} steps "
-              f"(the data-source row), chain floor {floor_ms:.5f} ms "
-              f"({LOSSY_STEP_CYCLES} cycles a step at {mhz:.0f} MHz), bytes "
-              f"{t_bytes:.5f} ms ({n_bytes} B): bound {bms:.5f} ms ({by}); "
-              f"device ms by kernel: " + ", ".join(
-                  f"{g} {ms:.4f}" for g, ms in sorted(
-                      split.items(), key=lambda kv: -kv[1])), flush=True)
+              f"{r0}, exact match (keys, counts, error byte for byte; two "
+              f"kernel runs byte-identical), kernel {kms:.4f} ms (device "
+              f"{kdev:.4f} ms), plain {pms:.1f} ms (one call), no library "
+              f"call; {walks} walks, the longest {longest} steps (the "
+              f"data-source row: {misses} misses, {levels} levels, the "
+              f"hottest slot {hottest} adds; the longest routed run "
+              f"{longest_run}); chain {floor_ms:.5f} ms (levels at "
+              f"{LOSSY_LEVEL_CYCLES} cycles {level_ms:.5f}, adds at "
+              f"{FADD_CYCLES} cycles {adds_ms:.5f}, at {mhz:.0f} MHz), "
+              f"bytes {t_bytes:.5f} ms ({n_bytes} B): bound {bms:.5f} ms "
+              f"({by}); not bounds, for comparison: every miss at "
+              f"{LOSSY_LEVEL_CYCLES} cycles {miss_ms:.5f} ms, every step "
+              f"at {LOSSY_STEP_CYCLES} cycles {step_floor_ms:.5f} ms; "
+              f"device ms by kernel: " +
+              ", ".join(f"{g} {ms:.4f}" for g, ms in sorted(
+                  split.items(), key=lambda kv: -kv[1])), flush=True)
         del k_state, state0, kern
         free()
 
@@ -2286,7 +2402,9 @@ def main() -> None:
         # CountMin and RHP: their add chains and the split by kernel
         kernels[-1].update({k: r[k] for k in (
             "longest_run", "runs", "long_runs", "chain_floor_ms",
-            "split_device_ms", "first_touch_ms", "first_touch_device_ms",
+            "step_floor_ms", "miss_floor_ms", "misses", "levels",
+            "hottest_adds", "split_device_ms",
+            "first_touch_ms", "first_touch_device_ms",
             "lanes", "sectors", "hottest_lane", "k", "plain_timing",
             "library") if k in r})
         if replaced == LOSSY_COUNTERPART:

@@ -11,9 +11,17 @@ each in batch order, with the reference's one-slot step. The reference's
 vmap has every row scan the whole batch masked to its own tuples
 (capacity x T steps); ``csrc/lossy_scan.cu`` groups the batch by row with
 the stable sort of ``csrc/row_sort.cuh`` and walks each row's own tuples
-once, one warp a row, the table in shared memory. A table larger than a
-block's shared memory (k above ``max_shared_k()``, 19,370 on an H100) is
-walked in place in device memory by the same code, not refused.
+once, one warp a row, the table in shared memory. A table of up to
+``group_k()[0]`` slots (1,024) is walked 32 tuples at a time: the lanes
+find their items' slots at once (by comparing with every key up to
+``group_k()[1]`` slots, 128, through a hash index above); on a full
+table the misses of a prefix take the slots of least count (a bitmask
+of them) in slot order all at once, with the prefix's hits on other
+slots, each slot's adds in batch order; else the hits before a miss,
+then that miss.
+Larger tables take one step a tuple; one larger than a block's shared
+memory (k above ``max_shared_k()``, 19,370 on an H100) is walked in place
+in device memory, not refused.
 
 The update is in place on the state's three leaves; it needs no padding.
 On CPU tensors the wrapper runs the plain version (``ref.py``: the
@@ -37,6 +45,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "lossy_words": (_I, _I, _P),
     "lossy_max_shared_k": (_P,),
+    "lossy_group_k": (_P, _P),
     "lossy_scan": (_P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _P, _P),
 }
 
@@ -53,6 +62,17 @@ def max_shared_k() -> int:
     build.check_launch(_lib().lossy_max_shared_k(ctypes.addressof(k)),
                        "lossy_max_shared_k")
     return k.value
+
+
+def group_k() -> tuple:
+    """(the most slots a table may have for its walk to take 32 tuples at
+    a time, larger tables taking one step a tuple; the most whose lookups
+    compare with every key, larger ones going through a hash index)."""
+    group, broadcast = ctypes.c_int(0), ctypes.c_int(0)
+    build.check_launch(_lib().lossy_group_k(ctypes.addressof(group),
+                                            ctypes.addressof(broadcast)),
+                       "lossy_group_k")
+    return group.value, broadcast.value
 
 
 def walks_of(syn_idx: torch.Tensor, mask: torch.Tensor, n: int,

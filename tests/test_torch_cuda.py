@@ -1147,26 +1147,130 @@ def _lossy_case(rng, n, k, t, sources, float_weights, dev):
     return state, batch
 
 
+LOSSY_PATTERNS = ("reinsert", "evict_return", "all_miss_ties",
+                  "special_weights", "sentinel_bursts")
+
+
+def _lossy_pattern(rng, pattern, n, k, t, float_weights, dev):
+    """A stack of n rows holding one table (distinct keys) and a batch that
+    row 0 takes as a routed run and row n - 1 as a data-source row, or,
+    for ``phase3``, one empty data-source row over chip_smoke's phase-3
+    traffic (Zipf(1.1) over 65,536 ids, 10% unique ids, weights 1-4):
+
+      reinsert         new items taken and hit again within 32 tuples
+      evict_return     every count tied; evicted items come back within
+                       a few tuples
+      all_miss_ties    every tuple a new item on a full table of tied
+                       counts, weight 1
+      special_weights  counts and weights -0.0, +0.0, NaN and negative
+      sentinel_bursts  empty slots and runs of 1-40 sentinel items
+    """
+    fresh = (1 << 20) + np.arange(4 * t)          # never in the table
+    keys = (rng.permutation(1 << 19)[:k] + 7).astype(np.int64)
+    counts = rng.randint(1, 4, k).astype(np.float32)
+    error = np.zeros(k, np.float32)
+    vals = (rng.rand(t) * 4 + 0.5 if float_weights
+            else rng.randint(1, 5, t)).astype(np.float32)
+    pool = np.concatenate([keys, fresh[-(k // 2 + 3):]])
+    if pattern == "phase3":
+        ids = rng.randint(0, 2**32 - 1, size=65536, dtype=np.int64)
+        p = 1.0 / np.arange(1, 65537) ** 1.1
+        items = ids[rng.choice(65536, size=t, p=p / p.sum())]
+        unique = rng.rand(t) < 0.10
+        items[unique] = rng.randint(0, 2**32 - 1, size=int(unique.sum()),
+                                    dtype=np.int64)
+        keys[:] = 0xFFFFFFFF
+        counts[:] = 0.0
+        vals = (rng.rand(t) * 3 + 1 if float_weights
+                else rng.randint(1, 5, t)).astype(np.float32)
+    elif pattern == "reinsert":
+        items = rng.choice(keys, t)
+        for g in range(0, t - 32, 32):
+            for new in fresh[g // 8: g // 8 + 4]:
+                i, j = rng.choice(32, 2, replace=False)
+                items[g + i] = items[g + j] = new
+    elif pattern == "evict_return":
+        counts[:] = 2.0
+        items = rng.choice(pool, t)
+        back = np.nonzero(rng.rand(t) < 0.3)[0]
+        back = back[back >= 8]
+        items[back] = items[back - rng.randint(1, 8, back.size)]
+    elif pattern == "all_miss_ties":
+        counts[:] = 3.0
+        items = fresh[:t].copy()
+        vals[:] = 1.0
+    elif pattern == "special_weights":
+        specials = np.array([-0.0, 0.0, np.nan, -2.0, 1.5], np.float32)
+        some = rng.rand(k) < 0.3
+        counts[some] = rng.choice(specials, int(some.sum()))
+        counts[::7] = -0.0
+        counts[3::11] = np.nan
+        items = rng.choice(pool, t)
+        odd = rng.rand(t) < 0.2
+        vals[odd] = rng.choice(specials, int(odd.sum()))
+    else:                                        # sentinel_bursts
+        keys[rng.rand(k) < 0.2] = 0xFFFFFFFF
+        items = rng.choice(pool, t)
+        for start in range(5, t - 40, 97):
+            items[start:start + rng.randint(1, 41)] = 0xFFFFFFFF
+    mask = rng.rand(t) > 0.05
+    rows = np.zeros(t, np.int32) if pattern != "phase3" else \
+        np.full(t, -1, np.int32)
+    c = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    table = keys.astype(np.uint32).view(np.int32)
+    state = (c(np.tile(table, (n, 1))), c(np.tile(counts, (n, 1))),
+             c(np.tile(error, (n, 1))))
+    batch = (c(rows), c(items.astype(np.uint32).view(np.int32)), c(vals),
+             c(mask), c(np.asarray([n - 1], np.int64)))
+    return state, batch
+
+
+# csrc/lossy_scan.cu's kGroupK and kBroadcastK, read back below
+LOSSY_GROUP_K, LOSSY_BROADCAST_K = 1024, 128
+_LOSSY_CASES = [
+    (7, 20, 300, [], None), (7, 34, 300, [2], None),
+    (5, 20, 2000, [0, 4], None), (3, 100, 1000, [1], None),
+    (1, 4, 700, [0], None), (4099, 34, 6000, [4098], None),
+    (4, 33, 1, [], None), (3, 300, 800, [0], None), (2, 1000, 1200, [1], None),
+    (3, 2000, 900, [2], None), (3, 20000, 1500, [2], None),
+    # each side of the hash index (k > LOSSY_BROADCAST_K) and of the group
+    # walk (k <= LOSSY_GROUP_K)
+    (3, LOSSY_BROADCAST_K, 900, [1], None),
+    (3, LOSSY_BROADCAST_K + 1, 900, [1], None),
+    (2, LOSSY_GROUP_K, 1200, [1], None),
+    (2, LOSSY_GROUP_K + 1, 1200, [1], None),
+    *[(2, k, 6000, [], pattern) for pattern in LOSSY_PATTERNS
+      for k in (20, 100, LOSSY_BROADCAST_K, LOSSY_BROADCAST_K + 1, 1000,
+                LOSSY_GROUP_K)],
+    (1, 100, 65536, [], "phase3"), (1, 1000, 65536, [], "phase3")]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("float_weights", [False, True],
                          ids=["int_weights", "float_weights"])
-@pytest.mark.parametrize("n,k,t,sources", [
-    (7, 20, 300, []), (7, 34, 300, [2]), (5, 20, 2000, [0, 4]),
-    (3, 100, 1000, [1]), (1, 4, 700, [0]), (4099, 34, 6000, [4098]),
-    (4, 33, 1, []), (3, 300, 800, [0]), (2, 1000, 1200, [1]),
-    (3, 2000, 900, [2]), (3, 20000, 1500, [2])])
+@pytest.mark.parametrize("n,k,t,sources,pattern", _LOSSY_CASES)
 def test_lossy_scan_matches_plain_byte_for_byte(dev, n, k, t, sources,
-                                                float_weights):
-    """The scan kernel against its plain version: tables in registers at
-    k = 4 (fewer slots than lanes), 20, 33 and 34 (not multiples of 32),
-    100, 300 and 1,000 (1, 2, 4, 16 and 32 slots a lane), in shared memory
-    at k = 2,000 and in device memory at k = 20,000 (past a block's shared
-    memory); runs of one tuple to a third of the batch; no source row, one
-    routed to as well, two; the sentinel item. Keys, counts and error
-    byte-equal to the plain version and across two kernel runs, one
-    launch a call."""
+                                                pattern, float_weights):
+    """The scan kernel against its plain version: tables compared key by
+    key at k = 4 (fewer slots than lanes), 20, 33 and 34 (not multiples
+    of 32), 100 and 128, through the hash index at 129, 300, 1,000 and
+    1,024 (1 to 32 slots a lane), a step a tuple in shared memory at
+    1,025 and 2,000 and in device memory at 20,000 (past a block's shared
+    memory); runs of one tuple to a third of the batch; no source row,
+    one routed to as well, two; the sentinel item; keys repeated in a row
+    (``_lossy_case``: such a row is not indexed). Then ``_lossy_pattern``'s
+    groups, each a routed run and a data-source walk of one table, and
+    one data-source row over phase 3's traffic (T = 65,536). Keys, counts
+    and error byte-equal to the plain version and across two
+    kernel runs, one launch a call."""
     rng = np.random.RandomState(n + k + t)
-    state, batch = _lossy_case(rng, n, k, t, sources, float_weights, dev)
+    if pattern is None:
+        state, batch = _lossy_case(rng, n, k, t, sources, float_weights,
+                                   dev)
+    else:
+        state, batch = _lossy_pattern(rng, pattern, n, k, t, float_weights,
+                                      dev)
+    assert lossy_scan.group_k() == (LOSSY_GROUP_K, LOSSY_BROADCAST_K)
     if k == 20000:
         assert k > lossy_scan.max_shared_k()
     outs = []
@@ -1182,6 +1286,9 @@ def test_lossy_scan_matches_plain_byte_for_byte(dev, n, k, t, sources,
     for a, b, w in zip(*outs, want):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
         assert torch.equal(a.view(torch.int32), w.view(torch.int32))
+    if pattern not in (None, "phase3"):     # the routed run, the source walk
+        assert torch.equal(want[0][0].view(torch.int32),
+                           want[0][-1].view(torch.int32))
     if t > 300:                       # a run longer than one load group
         assert lossy_scan.walks_of(batch[0], batch[3], n, batch[4])[1] > 32
 

@@ -8,6 +8,8 @@ both packages, then carried across by ``convert.engine_from_contents``.
 Everything agrees byte for byte: ``keys`` compared as uint32 bits,
 ``counts`` and ``error`` as float32 bytes, for integer and float weights
 alike (each count is one float32 add a step, in the same order)."""
+import collections
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -18,6 +20,7 @@ from repro.core import batched as jbatched
 from repro.core import lossy as jlossy
 from repro.service import SDE as JaxSDE
 from test_torch_convert import jax_contents
+from test_torch_cuda import LOSSY_PATTERNS, _lossy_case, _lossy_pattern
 from test_torch_rhp import _same
 from repro_torch import core as tcore
 from repro_torch.convert import engine_from_contents
@@ -218,6 +221,244 @@ def test_walks_of_counts_rows_and_the_longest_chain():
     assert lossy_scan.walks_of(syn, mask, 4, torch.tensor([3, 3, 7])) == \
         (3, 7)
     assert lossy_scan.walks_of(syn, ~mask, 4) == (2, 1)
+
+
+_NONE = 1 << 30
+
+
+def _order_key(c: np.float32) -> int:
+    """csrc/lossy_scan.cu's order key of a count: -0 as +0, NaN least."""
+    if c != c:
+        return 0
+    u = int(np.float32(c).view(np.uint32))
+    u = 0 if u == 0x80000000 else u
+    return (~u & 0xFFFFFFFF) if u & 0x80000000 else u | 0x80000000
+
+
+class _GroupWalk:
+    """A test-only model of the order of operations of the scan kernel's
+    group walk (``csrc/lossy_scan.cu``, ``GroupWalker``) on one table:
+    32 tuples a group, every lane's slot looked up at once; then, while
+    the table has an empty slot or the next tuple cannot open a phase, the
+    hits before the first miss (in lane order) and that one miss, the
+    lanes after it fixed for the one slot that changed; else a phase: the
+    longest prefix whose misses take the slots of least count (``mins``)
+    in slot order, all at once, and whose hits avoid the slots those
+    misses take. ``mins`` is always empty or exactly the slots of least
+    order key (-0 as +0, NaN least), as in the kernel. Counts every path
+    it takes."""
+
+    def __init__(self, keys, counts, error):
+        self.keys, self.counts, self.error = keys, counts, error
+        self.mins = set()
+        self.paths = collections.Counter()
+
+    def first(self, x):
+        at = np.flatnonzero(self.keys == x)
+        return int(at[0]) if at.size else _NONE
+
+    def recompute(self):
+        order = [_order_key(c) for c in self.counts]
+        self.mins = {j for j, o in enumerate(order) if o == min(order)}
+        self.paths["recompute"] += 1
+
+    def rose(self, s, up):
+        self.mins = self.mins - {s} if up else set()
+
+    def add(self, s, v):
+        a = self.counts[s]
+        self.counts[s] = np.float32(a + v)
+        return bool(self.counts[s] > a)
+
+    def group(self, xs, vs):
+        hit = [self.first(x) for x in xs]
+        rem = list(range(len(xs)))
+        while rem:
+            if self.first(tlossy.EMPTY) != _NONE or \
+                    not self.phase(rem, hit, xs, vs):
+                self.one_miss(rem, hit, xs, vs)
+
+    def one_miss(self, rem, hit, xs, vs):
+        self.paths["one_miss"] += 1
+        misses = [i for i in rem if hit[i] == _NONE]
+        seg = [i for i in rem if not misses or i < misses[0]]
+        if seg:
+            slots = {hit[i] for i in seg}
+            least = bool(slots & self.mins)
+            up = all([self.add(hit[i], vs[i]) for i in seg])
+            if len(slots) == 1:
+                self.rose(hit[seg[0]], up)
+            elif least or not up:
+                self.mins = set()
+        if not misses:
+            rem.clear()
+            return
+        b = misses[0]
+        rem[:] = [i for i in rem if i > b]
+        x, v = xs[b], vs[b]
+        s = self.first(tlossy.EMPTY)
+        if s != _NONE:
+            y = tlossy.EMPTY
+            self.keys[s], self.counts[s] = x, np.float32(np.float32(0) + v)
+            self.mins = set()
+        else:
+            if not self.mins:
+                self.recompute()
+            s = min(self.mins)
+            y, old = int(self.keys[s]), self.counts[s]
+            self.keys[s], self.error[s] = x, old
+            self.rose(s, self.add(s, v))
+            self.paths["sentinel eviction"] += x == tlossy.EMPTY
+        for i in rem:
+            if xs[i] == x:
+                hit[i] = min(hit[i], s)
+                self.paths["new key hit"] += 1
+            elif xs[i] == y and hit[i] == s:
+                hit[i] = self.first(y)
+                self.paths["looked again"] += 1
+
+    def phase(self, rem, hit, xs, vs):
+        missm = [i for i in rem if hit[i] == _NONE]
+        if missm and not self.mins:
+            self.recompute()
+        P = []
+        for i in rem:
+            if hit[i] == _NONE:
+                earlier = [j for j in missm if j < i]
+                stop = (any(xs[j] == xs[i] for j in earlier)
+                        or not vs[i] > 0 or xs[i] == tlossy.EMPTY
+                        or len(earlier) >= len(self.mins))
+            else:
+                stop = not vs[i] > 0
+            if stop:
+                break
+            P.append(i)
+        least = sorted(self.mins)
+        pm = [i for i in P if hit[i] == _NONE]
+        # a hit on a slot of least count that a miss of P would take ends
+        # P; one beyond the misses' reach only raises its count
+        cut = next((i for i in P if hit[i] in self.mins
+                    and least.index(hit[i]) < len(pm)), None)
+        if cut is not None:
+            P = P[:P.index(cut)]
+            pm = [i for i in P if hit[i] == _NONE]
+        if not P:
+            return False
+        order = least[:len(pm)]
+        bad = next((j for j, (i, s) in enumerate(zip(pm, order))
+                    if not np.float32(self.counts[s] + vs[i])
+                    > self.counts[s]), None)
+        if bad is not None:
+            P = [i for i in P if i <= pm[bad]]
+            pm, order = pm[:bad + 1], order[:bad + 1]
+            self.paths["phase cut at a count that did not rise"] += 1
+        taken = dict(zip(pm, order))
+        for i, s in taken.items():
+            self.keys[s], self.error[s] = xs[i], self.counts[s]
+            self.add(s, vs[i])
+        raised = {hit[i] for i in P if hit[i] in self.mins}
+        before = {s: self.counts[s] for s in raised}
+        for i in P:
+            if hit[i] != _NONE:
+                self.add(hit[i], vs[i])
+        self.mins = self.mins - set(order) - raised
+        if bad is not None or any(not self.counts[s] > c
+                                  for s, c in before.items()):
+            self.mins = set()
+        self.paths["hit on a slot of least count in a phase"] += bool(raised)
+        del rem[:len(P)]
+        for i in rem:
+            same = [j for j in pm if xs[j] == xs[i]]
+            if same:
+                hit[i] = taken[same[0]]
+                self.paths["new key hit"] += 1
+            elif hit[i] in taken.values():
+                hit[i] = self.first(xs[i])
+                self.paths["looked again"] += 1
+        self.paths["phase"] += 1
+        self.paths["phase of 2+ misses"] += len(pm) > 1
+        return True
+
+
+def _model_scan(state, batch):
+    """The stacked scan through ``_GroupWalk``, each walk as the kernel
+    groups it: a routed row's tuples 32 at a time from the run's start, a
+    data-source row's every 32 batch positions (the masked-in ones).
+    Returns the stack (numpy) and the paths taken."""
+    keys, counts, error = (x.numpy().copy() for x in state)
+    rows, items, vals, mask, src = (
+        None if x is None else x.numpy() for x in batch)
+    n = keys.shape[0]
+    srcs = sorted({int(r) for r in ([] if src is None else src)
+                   if 0 <= r < n})
+    paths = collections.Counter()
+    for r in range(n):
+        walk = _GroupWalk(keys[r], counts[r], error[r])
+        if r in srcs:
+            groups = [np.nonzero(mask[g:g + 32])[0] + g
+                      for g in range(0, len(rows), 32)]
+        else:
+            mine = np.nonzero(mask & (rows == r))[0]
+            groups = [mine[g:g + 32] for g in range(0, len(mine), 32)]
+        for g in groups:
+            if g.size:
+                walk.group([int(x) for x in items[g]],
+                           [np.float32(v) for v in vals[g]])
+        paths.update(walk.paths)
+    return (keys, counts, error), paths
+
+
+def _want_scan(state, batch):
+    """Each walked row through ``core/lossy.scan_row``, the reference's
+    step literally, in batch order."""
+    keys, counts, error = (x.clone() for x in state)
+    rows, items, vals, mask, src = batch
+    n = keys.shape[0]
+    srcs = {int(r) for r in ([] if src is None else src.tolist())
+            if 0 <= r < n}
+    for r in range(n):
+        take = mask if r in srcs else mask & (rows == r)
+        tlossy.scan_row(keys[r], counts[r], error[r], items[take],
+                        vals[take])
+    return keys, counts, error
+
+
+# the path each adversarial pattern is there to take
+_PATTERN_PATH = {"reinsert": "new key hit", "evict_return": "looked again",
+                 "all_miss_ties": "phase of 2+ misses",
+                 "special_weights": "phase cut at a count that did not rise",
+                 "sentinel_bursts": "sentinel eviction"}
+
+
+@pytest.mark.parametrize("k", [4, 20, 100, 129])
+@pytest.mark.parametrize("pattern", [None, *LOSSY_PATTERNS, "phase3"])
+def test_group_walk_order_matches_scan_row(pattern, k):
+    """The scan kernel's new order of operations (``_GroupWalk``: lookups
+    of a group at once, the hits before a miss in lane order, a miss at a
+    time with the one-slot fix-up, and phases of misses taking the slots
+    of least count at once) byte for byte against ``core/lossy.scan_row``
+    on the CPU: the card tests' ``_lossy_case`` stacks (keys repeated in
+    a row, float weights, the sentinel, source rows) and
+    ``_lossy_pattern``'s groups (an item inserted and hit again within 32
+    tuples, evicted items back within 32, all-miss groups on tied counts,
+    -0.0 / NaN / negative weights and counts, sentinel bursts, phase 3's
+    traffic from an empty table); each pattern takes the path it is there
+    for."""
+    rng = np.random.RandomState(k)
+    for float_weights in (False, True):
+        if pattern is None:
+            state, batch = _lossy_case(rng, 5, k, 700, [3], float_weights,
+                                       "cpu")
+        else:
+            state, batch = _lossy_pattern(
+                rng, pattern, 2, k, 3000 if pattern == "phase3" else 1200,
+                float_weights, "cpu")
+        got, paths = _model_scan(state, batch)
+        for g, w in zip(got, _want_scan(state, batch)):
+            assert g.tobytes() == w.numpy().tobytes()
+        assert paths["phase"] > 0 or pattern is None and k >= 100
+        if pattern in _PATTERN_PATH:
+            assert paths[_PATTERN_PATH[pattern]] > 0, dict(paths)
 
 
 def _lossy_requests(rng, ids, extra, n_batches=3, t=300):
