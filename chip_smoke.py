@@ -2,12 +2,12 @@
 """Drive the PyTorch port's main path on one CUDA card and hold every
 hand-written kernel against its plain PyTorch version.
 
-    python3 chip_smoke.py            # needs one CUDA card; ~6 minutes
+    python3 chip_smoke.py            # needs one CUDA card; ~6-7 minutes
 
 Phases (any failure raises, so the script exits non-zero without its
 last line; each phase prints its peak device memory, held under 48 GiB):
 
-  1. Card and build: ``nvidia-smi`` name and power limit, then the seven
+  1. Card and build: ``nvidia-smi`` name and power limit, then the eight
      kernel sources built by ``nvcc`` in parallel.
   2. Each of the thirteen kernel entry points against its plain version at
      the main path's shapes, on a batch of 65,536 tuples with unrouted,
@@ -82,7 +82,16 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      slot's adds, or the longest routed run's, at FADD_CYCLES each,
      whichever is longer), with every miss at LOSSY_LEVEL_CYCLES and the
      earlier floor (every step of the walk at LOSSY_STEP_CYCLES) beside
-     it, neither a bound. One entry's tensors are held at a time.
+     it, neither a bound. Then the reservoir sampler's update
+     (``reservoir_scan``, no TPU counterpart) at the reference's defaults
+     (S = 64) on the same rows and data-source row, from empty rows and
+     from rows past the fill: values, items and n_seen byte-equal to the
+     plain version and across two kernel runs, each timed on its starting
+     state restored before every call, a profiler window held to
+     RESERVOIR_ACTIVITIES a call; the bound the bytes (the batch's rows,
+     items and mask once, the value of each slot's last writer, each
+     walked row's n_seen, each slot written once, counted by
+     ``reservoir_writes``). One entry's tensors are held at a time.
   3. The main path through ``SDE(device="cuda").handle``: per-stream AMS
      (the reference's defaults, [12, 2048]), CM, HLL, Bloom, FM, RHP and
      Figure-6 DFT over 65,536 hashed 63-bit ids; a data-source AMS, CM,
@@ -90,7 +99,9 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      and DFT; continuous AMS, HLL and FM (data-source rows) and DFT
      (window 64, on the hottest stream); per-stream and data-source Lossy
      Counting at eps 0.01 (one stack) and a data-source one at eps 0.001
-     (its own stack); 16 ingest batches of 65,536
+     (its own stack); per-stream, data-source and continuous chain
+     samplers at the reference's defaults (S = 64, one stack of 131,072
+     rows, 64.5 MiB); 16 ingest batches of 65,536
      Zipf(1.1) tuples (half with SDE_FUSED_PROBE=0), then 2 more under
      ``torch.profiler`` (device-busy share and top kernels); 1,024 CM,
      1,024 Bloom, 1,025 RHP, 1,025 DFT, 1,024 AMS and 1,024 per-stream
@@ -101,16 +112,24 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      data-source Lossy table's counts must sum to the exact weight W it
      was fed, every folded id heavier than W / k must be tracked with an
      estimate in [true, true + W / k], and the scan must launch once a
-     batch on each Lossy stack. Each per-stream AMS answer must be
+     batch on each Lossy stack. Each sampler row's n_seen must equal the
+     masked tuples it was fed after every unprofiled batch and after the
+     last (a per-stream row its stream's, a source row all), every valid
+     (item, value) must be an ingested pair (a per-stream row's of its own
+     stream), 1,026 sampler answers in query_many (1,024 per-stream,
+     src-rs, cq-rs) must equal the stack's rows with items as uint32, the
+     continuous sampler must emit once a batch, and the reservoir kernel
+     must launch once a batch. Each per-stream AMS answer must be
      float32(total)**2 of its
      stream's exact total weight, the data-source AMS within 0.15 of the
      exact F2 of the items it was fed, the continuous AMS equal to it and
      emitted once a batch. Every stack must equal a replay of the
      same batches through the plain versions on the card (AMS, RHP and
      DFT byte for byte, RHP's and DFT's answers equal to the replay's; the
-     Lossy stacks as they stood after the first LOSSY_REPLAY_BATCHES
-     batches, copied there, byte for byte against a replay of those
-     batches, since the plain scan takes tens of seconds a batch; the DFT
+     Lossy and sampler stacks as they stood after the first
+     LOSSY_REPLAY_BATCHES batches, copied there, byte for byte against a
+     replay of those batches, since the plain Lossy scan takes tens of
+     seconds a batch; the DFT
      replay finds each row's last routed value in numpy and ticks with
      ``DFT.step``), the data-source DFT must stay at init, no ingested id
      may be missing from its Bloom, every entry point must launch, the
@@ -150,8 +169,11 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      signed one-row ones, which phase 3 requires to be one a batch on
      the stack and one fold a batch; the Lossy rows' ``launches`` are all
      the scan's and those on tables of 1,000 slots, their ``replaces``
-     the JAX counterpart, ``src/repro/core/lossy.py:65``, with
-     ``tpu_kernel`` null), then the device line.
+     the JAX counterpart, ``src/repro/core/lossy.py:65``; the reservoir
+     row's ``replaces`` ``src/repro/core/sampler.py:55``, with its
+     past-the-fill numbers; every row whose counterpart lies under
+     ``src/repro/core/`` has ``tpu_kernel`` null), then the device
+     line.
 """
 from __future__ import annotations
 
@@ -199,6 +221,14 @@ LOSSY_REPLAY_BATCHES = 2    # the batches the plain replay takes (phase 3)
 # a Lossy scan's device time is 0.95-0.98 of its CUDA-event time on an
 # H100; a profiler window that lost activities read 0.78 of it
 LOSSY_DEVICE_SHARE = 0.9
+# the device activities of one reservoir update with data-source rows at
+# phase 2's row count: 3 memsets, the source flags, the sort's key, its
+# tile scan, 2 histogram and 2 scatter passes, the run bounds, the
+# placing and the finalize pass. A profiler window of its calls opens
+# with PAD_LAUNCHES spin kernels (``device_events``), and one that holds
+# another count is taken again (windows held 66, 64 and 58 in 5 runs)
+RESERVOIR_ACTIVITIES = 13
+PAD_LAUNCHES, PAD_CYCLES = 16, 100_000   # ~0.8 ms of spin at 1,980 MHz
 # the paper's Figure-6 DFT (benchmarks/fig6_dft_workflow.py)
 FIG6_DFT = {"window": 128, "n_coeffs": 8, "threshold": 0.9,
             "grid_coeffs": 2}
@@ -249,7 +279,8 @@ def cuda_ms(fn, runs: int = TIMING_RUNS, prep=None) -> float:
     return statistics.median(times)
 
 
-def device_events(fn, runs: int = 5, attempts: int = 6) -> list:
+def device_events(fn, runs: int = 5, attempts: int = 6,
+                  pad: int = 0) -> list:
     """(name, start µs, end µs) of every device activity (kernels and
     copies) of ``runs`` calls of ``fn()`` from ``torch.profiler``, on every
     stream, without the host's enqueue
@@ -258,7 +289,11 @@ def device_events(fn, runs: int = 5, attempts: int = 6) -> list:
     ``attempts`` times, after a pause that doubles from 0.1 s:
     torch.profiler now and then drops a whole window's CUDA events on this
     card (seen once in some 300 windows), and once three windows in a row
-    that followed one another at once."""
+    that followed one another at once. With ``pad``, the window opens with
+    that many spin kernels of PAD_CYCLES each (``torch.cuda._sleep``),
+    left out of the list: windows have lost their first activities (a
+    one-call window of the reservoir update held only its last 6 of
+    13), so that a pad, not the calls, takes the loss."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -267,12 +302,15 @@ def device_events(fn, runs: int = 5, attempts: int = 6) -> list:
             time.sleep(0.1 * 2 ** (attempt - 1))
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(pad):
+                torch.cuda._sleep(PAD_CYCLES)
             for _ in range(runs):
                 fn()
             torch.cuda.synchronize()
         spans = [(e.name, e.time_range.start, e.time_range.end)
                  for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not (pad and "spin_kernel" in e.name)]
         if spans:
             return spans
     raise RuntimeError(f"torch.profiler recorded no device activity in "
@@ -291,22 +329,29 @@ def busy_us(spans) -> float:
 
 
 def device_ms(fn, runs: int = 5, union: bool = False, prep=None,
-              label: str = "", floor_ms: float = 0.0) -> float:
+              label: str = "", floor_ms: float = 0.0, activities: int = 0,
+              reset=None) -> float:
     """Mean device time of ``fn()`` per run (``device_events``): its
     activities' summed durations, or, for a call whose kernels run on two
     streams at once (``union``), the union of their intervals. ``prep()``,
     when given, runs before each run as one device activity (a copy or a
-    fill), which is not counted. The profiler now and then loses some of a
+    fill), which is not counted; ``reset()``, when given, runs before each
+    window, outside it. The profiler now and then loses some of a
     window's activities (seen in a Bloom first-touch window and in a Lossy
     scan's, which then read 0.78 of its event time): a prepared window
-    whose activities do not split evenly into the runs, or a window whose
+    whose activities do not split evenly into the runs, a window that does
+    not hold ``activities`` a run (when given; such a window opens with a
+    pad, ``device_events``), or a window whose
     time falls under ``floor_ms``, is taken again, up to ``WINDOW_TRIES``
     windows, each retake printed with ``label``; then it fails."""
     for attempt in range(1, WINDOW_TRIES + 1):
+        if reset is not None:
+            reset()
         if prep is None:
-            events = device_events(fn, runs)
+            events = device_events(fn, runs,
+                                   pad=PAD_LAUNCHES if activities else 0)
             spans = [(s, e) for _, s, e in events]
-            even = True
+            even = not activities or len(events) == activities * runs
         else:
             events = sorted(device_events(lambda: (prep(), fn()), runs),
                             key=lambda ev: ev[1])
@@ -328,23 +373,30 @@ def device_ms(fn, runs: int = 5, union: bool = False, prep=None,
 
 
 def device_split(fn, groups: dict, rest: str, runs: int = 5,
-                 label: str = "", floor_ms: float = 0.0) -> dict:
+                 label: str = "", floor_ms: float = 0.0,
+                 activities: int = 0) -> dict:
     """Device ms of ``fn()`` per run by kernel: each activity whose name
     holds a key of ``groups`` under that key's value, every other one
-    under ``rest``; a window whose sum falls under ``floor_ms`` is taken
-    again, as in ``device_ms``."""
+    under ``rest``; a window whose sum falls under ``floor_ms``, or that
+    does not hold ``activities`` a run (when given), is taken again, as
+    in ``device_ms``."""
     for attempt in range(1, WINDOW_TRIES + 1):
         split: dict = {}
-        for name, start, end in device_events(fn, runs):
+        events = device_events(fn, runs,
+                               pad=PAD_LAUNCHES if activities else 0)
+        for name, start, end in events:
             key = next((g for k, g in groups.items() if k in name), rest)
             split[key] = split.get(key, 0.0) + (end - start) / runs / 1e3
-        if sum(split.values()) >= floor_ms:
+        if (sum(split.values()) >= floor_ms
+                and (not activities or len(events) == activities * runs)):
             return split
         print(f"[timing] {label}: split window {attempt} of {WINDOW_TRIES} "
+              f"held {len(events)} device activities in {runs} runs and "
               f"summed {sum(split.values()):.4f} ms a run (floor "
               f"{floor_ms:.4f}); taken again", flush=True)
-    raise RuntimeError(f"{label}: the split summed under {floor_ms:.4f} ms "
-                       f"a run in {WINDOW_TRIES} windows")
+    raise RuntimeError(f"{label}: no split window in {WINDOW_TRIES} held "
+                       f"{activities or 'any'} activities a run and summed "
+                       f"{floor_ms:.4f} ms a run or more")
 
 
 def chain_floor_ms(longest: int, cycles: int = FADD_CYCLES) -> tuple:
@@ -1540,13 +1592,179 @@ def phase2_lossy(b, n: int, results: dict) -> None:
         free()
 
 
+def reservoir_stack(n: int, s: int, dev):
+    """A sampler stack's three leaves as views of one int32 buffer, so that
+    a restore is one copy: (buffer, {values [n, s] f32, items [n, s] i32,
+    n_seen [n] i32}), all zero."""
+    buf = torch.zeros(2 * n * s + n, dtype=torch.int32, device=dev)
+    return buf, dict(values=buf[:n * s].view(torch.float32).view(n, s),
+                     items=buf[n * s:2 * n * s].view(n, s),
+                     n_seen=buf[2 * n * s:])
+
+
+def reservoir_writes(kind, rows, items, mask, n: int, src: torch.Tensor,
+                     n_seen0: torch.Tensor) -> tuple:
+    """(walks, longest walk, slots written) of one batch on a sampler
+    stack of n rows with data-source rows ``src``: the walks of the plain
+    version (``ref._walks``), each tuple ranked by its place in its walk,
+    and its slot and write from the reference's step arithmetic
+    (``core/sampler.slots_of``); a slot is written once however many
+    tuples draw it, so the slots written are also the tuples whose value
+    is read. Synchronises; for the bound, not for the path."""
+    from repro_torch.core import sampler
+    from repro_torch.kernels import ref
+    walk_rows, parts = zip(*ref._walks(rows, mask, n, src))
+    tix = [torch.nonzero(p)[:, 0] if p.dtype == torch.bool else p
+           for p in parts]
+    sizes = torch.tensor([p.numel() for p in tix], device=rows.device)
+    row = torch.repeat_interleave(
+        torch.tensor(walk_rows, device=rows.device), sizes)
+    rank = (torch.arange(row.numel(), device=rows.device)
+            - torch.repeat_interleave(torch.cumsum(sizes, 0) - sizes, sizes))
+    tix = torch.cat(tix)
+    slot, write = sampler.slots_of(n_seen0[row].long() + rank, items[tix],
+                                   kind.sample_size, kind.seed)
+    written = torch.unique(row[write] * kind.sample_size + slot[write])
+    return len(walk_rows), int(sizes.max()), int(written.numel())
+
+
+def phase2_reservoir(b, n: int, results: dict) -> None:
+    """The reservoir sampler's update (row ``reservoir_scan``, no TPU
+    counterpart) at the reference's defaults (S = 64, seed 41) on phase
+    2's batch: n rows, routed as the batch's probe gives them, plus one
+    data-source row (row n_streams, as the engine allocates it); from
+    empty rows (the fill, as a new stack's first batch) and from rows past
+    the fill (counts 64 to 2**20, random samples). Kernel against its
+    plain version on the card, byte for byte in values, items and n_seen,
+    and byte-equal across two kernel runs; each timed from its starting
+    state: 25 CUDA-event calls on a copy restored before every call (the
+    copy not timed), 5 profiler calls each on a copy made before the
+    window; the plain version from its one checked call (seconds: torch
+    ops a row and a write). No one PyTorch
+    call computes it: no library time. The bound is the bytes: the batch
+    read once (rows, items and mask of every tuple, the value of each
+    slot's last writer), each walked row's n_seen read and written, each
+    slot written once (``reservoir_writes``); no step depends on another.
+    A profiler window must hold RESERVOIR_ACTIVITIES a call, else it is
+    taken again. The split by kernel is taken on the state the runs
+    left."""
+    from repro_torch import core
+    from repro_torch.kernels import ref, reservoir_scan
+
+    t, dev = b.t, b.dev
+    kind = core.ReservoirSampler()
+    s = kind.sample_size
+    src_row = n // 2
+    src = torch.tensor([src_row], dtype=torch.int64, device=dev)
+    batch = (b.rows, b.items, b.vals, b.mask, src)
+    leaves = lambda st: (st["values"], st["items"], st["n_seen"])
+    out = {}
+    for label in ("empty", "past_fill"):
+        buf0, st0 = reservoir_stack(n, s, dev)
+        if label == "past_fill":
+            st0["n_seen"].random_(s, 1 << 20, generator=b.gen)
+            st0["items"].random_(-(1 << 31), 1 << 31, generator=b.gen)
+            st0["values"].normal_(generator=b.gen)
+        runs = []
+        for _ in range(2):
+            buf, st = reservoir_stack(n, s, dev)
+            buf.copy_(buf0)
+            reservoir_scan.reservoir_scan_update(*leaves(st), *batch,
+                                                 seed=kind.seed)
+            runs.append((buf, st))
+        torch.cuda.synchronize()
+        require(torch.equal(runs[0][0], runs[1][0]),
+                f"reservoir_scan ({label}): two kernel runs differ "
+                f"byte-wise")
+        pbuf, pst = reservoir_stack(n, s, dev)
+        pbuf.copy_(buf0)
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        a.record()
+        ref.reservoir_scan_update(*leaves(pst), *batch, seed=kind.seed)
+        z.record()
+        z.synchronize()
+        pms = a.elapsed_time(z)
+        kbuf, kst = runs[0]
+        require(torch.equal(kbuf, pbuf),
+                f"reservoir_scan ({label}): kernel differs byte-wise from "
+                f"its plain version")
+        _, err, _ = compare(kst["values"], pst["values"])
+        walks, longest, writes = reservoir_writes(
+            kind, b.rows, b.items, b.mask, n, src, st0["n_seen"])
+        del runs, pbuf, pst
+        kern = lambda: reservoir_scan.reservoir_scan_update(
+            *leaves(kst), *batch, seed=kind.seed)
+        restore = lambda: kbuf.copy_(buf0)
+        kms = cuda_ms(kern, prep=restore)
+        # the profiler's calls each on a copy of the starting state,
+        # restored before each window (for the warm-up and 5 runs), so
+        # that no copy runs among the activities it sums
+        pool = [reservoir_stack(n, s, dev) for _ in range(6)]
+        calls = iter(())
+
+        def refill():
+            nonlocal calls
+            for pbuf, _ in pool:
+                pbuf.copy_(buf0)
+            torch.cuda.synchronize()
+            calls = iter(pool)
+
+        fresh = lambda: reservoir_scan.reservoir_scan_update(
+            *leaves(next(calls)[1]), *batch, seed=kind.seed)
+        kdev = device_ms(fresh, label=f"reservoir_scan ({label})",
+                         activities=RESERVOIR_ACTIVITIES, reset=refill)
+        names = {}
+        refill()
+        for name, _, _ in device_events(fresh, runs=1, pad=PAD_LAUNCHES):
+            names[name[:40]] = names.get(name[:40], 0) + 1
+        # rows, items and mask of every tuple, the value of each slot's
+        # last writer; each walked row's n_seen in and out; each slot's
+        # value and item out
+        n_bytes = (t * (4 + 4 + 1) + 8 * src.numel() + walks * 4 * 2
+                   + writes * (4 + 4 + 4))
+        bms, by = bound_ms(n_bytes, 0)
+        out[label] = dict(max_abs_err=err, ms=kms, plain_ms=pms,
+                          bound_ms=bms, bound_by=by, device_ms=kdev,
+                          walks=walks, longest_run=longest, writes=writes)
+        print(f"[phase2] reservoir_scan ({label}): S={s}, n={n} rows + "
+              f"data-source row {src_row}, exact match (values, items, "
+              f"n_seen byte for byte; two kernel runs byte-identical), "
+              f"kernel {kms:.4f} ms (device {kdev:.4f} ms), plain "
+              f"{pms:.1f} ms (one call), no library call; {walks} walks, "
+              f"the longest {longest} tuples, {writes} slots written; bound "
+              f"{bms:.5f} ms ({by}, {n_bytes} B); device activities of a "
+              f"call: {names}", flush=True)
+        if label == "past_fill":
+            split = device_split(kern, {
+                "place_kernel": "place", "finalize_kernel": "finalize",
+                "sort_": "sort", "key_kernel": "key",
+                "bounds_kernel": "bounds", "scan_kernel": "scan",
+                "flag_kernel": "flag", "Memset": "memset"}, "other",
+                label="reservoir_scan", activities=RESERVOIR_ACTIVITIES)
+            print("[phase2] reservoir_scan: device ms by kernel (on the "
+                  "state the runs left): " + ", ".join(
+                      f"{g} {ms:.4f}" for g, ms in sorted(
+                          split.items(), key=lambda kv: -kv[1])), flush=True)
+        del kern, restore, kbuf, kst, buf0, st0, pool, fresh
+        free()
+    first = out["empty"]
+    results["reservoir_scan"] = dict(
+        first, library_ms=None, plain_device_ms=None,
+        library_device_ms=None, split_device_ms=split,
+        past_fill=out["past_fill"], start="empty rows (the fill)",
+        plain_timing="one call (CUDA events); its device time not "
+                     "measured",
+        library="none: no one PyTorch call computes it")
+
+
 def phase2(dev, seed: int, n: int, n_streams: int, t: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     b = phase2_batch(dev, seed, n_streams, t)
     results: dict = {}
     for part in (phase2_countmin, phase2_ams, phase2_hll, phase2_bloom,
                  phase2_fm, phase2_rhp, phase2_dft, phase2_corr,
-                 phase2_flash, phase2_lossy):
+                 phase2_flash, phase2_lossy, phase2_reservoir):
         part(b, n, results)
         free()
     peak_gib("phase2")
@@ -1562,6 +1780,7 @@ def phase2(dev, seed: int, n: int, n_streams: int, t: int) -> dict:
 # (AMS's), "@fresh@ams" its signed one-row launches (AMS's folds), and
 # "@k1000" the launches on tables of 1,000 slots; a main row counts all
 LOSSY_COUNTERPART = "src/repro/core/lossy.py:65"
+SAMPLER_COUNTERPART = "src/repro/core/sampler.py:55"
 ENTRY_POINTS = {
     "onehot_scatter_add": ("onehot_matmul", "onehot_scatter_add",
                            "countmin_scatter.cu", "onehot_matmul.py:61"),
@@ -1615,6 +1834,10 @@ ENTRY_POINTS = {
                    LOSSY_COUNTERPART),
     "lossy_scan@k1000": ("lossy_scan", "lossy_scan_update", "lossy_scan.cu",
                          LOSSY_COUNTERPART),
+    # no TPU kernel: its JAX counterpart is ReservoirSampler.add_batch
+    # under the vmap of batched.stacked_update
+    "reservoir_scan": ("reservoir_scan", "reservoir_scan_update",
+                       "reservoir_scan.cu", SAMPLER_COUNTERPART),
 }
 
 
@@ -1800,17 +2023,29 @@ def check_lossy_answers(sde, answers, q_streams, totals, heavy, fed_items,
           f"streams' totals", flush=True)
 
 
-def check_lossy_stack(stack, snap, prefix, dev) -> None:
-    """A Lossy stack, as it stood after the first ``len(prefix)`` batches
-    (``snap``), equals a replay of those batches through the plain
-    version on the card (the plain probe, then ``ref.lossy_scan_update``:
-    a torch op a launch for every step, so only a prefix fits the run's
-    time) byte for byte in keys, counts and error."""
+def check_scan_stack(stack, snap, prefix, dev) -> None:
+    """A scan-path stack (Lossy Counting, the sampler), as it stood after
+    the first ``len(prefix)`` batches (``snap``), equals a replay of those
+    batches through the plain version on the card (the plain probe, then
+    ``ref.lossy_scan_update`` or ``ref.reservoir_scan_update``: torch ops
+    a step or a write, so only a prefix fits the run's time) byte for byte
+    in every leaf."""
+    from repro_torch import core
     from repro_torch.core import batched
     from repro_torch.kernels import probe, ref
     from repro_torch.service import routing
     dt = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    replay = batched.stacked_init(stack.kind, stack.capacity, dev)
+    kind = stack.kind
+    replay = batched.stacked_init(kind, stack.capacity, dev)
+    if isinstance(kind, core.LossyCounting):
+        name = f"LossyCounting(eps={kind.eps})"
+        plain = lambda *batch: ref.lossy_scan_update(
+            replay["keys"], replay["counts"], replay["error"], *batch)
+    else:
+        name = f"ReservoirSampler(sample_size={kind.sample_size})"
+        plain = lambda *batch: ref.reservoir_scan_update(
+            replay["values"], replay["items"], replay["n_seen"], *batch,
+            seed=kind.seed)
     klo, khi, trows = stack.device_table()
     t0 = time.perf_counter()
     for sids, vals in prefix:
@@ -1818,20 +2053,90 @@ def check_lossy_stack(stack, snap, prefix, dev) -> None:
         lo, hi = routing.split64(sid64)
         rows = probe.probe_rows(klo, khi, trows, dt(lo.view(np.int32)),
                                 dt(hi.view(np.int32)), n_probe=stack.n_probe)
-        ref.lossy_scan_update(
-            replay["keys"], replay["counts"], replay["error"], rows,
-            dt(routing.fold64(sid64).view(np.int32)), dt(vals),
-            dt(sid64 >= 0), stack.source_rows_idx())
+        plain(rows, dt(routing.fold64(sid64).view(np.int32)), dt(vals),
+              dt(sid64 >= 0), stack.source_rows_idx())
     torch.cuda.synchronize()
     replay_s = time.perf_counter() - t0
-    name = f"LossyCounting(eps={stack.kind.eps})"
     require(same_leaves(snap, replay),
             f"{name} engine state differs byte-wise from the plain replay "
             f"of its first {len(prefix)} batches")
     print(f"[phase3] {name} stack {stack.capacity} x {stack.row_bytes()} B "
           f"after the first {len(prefix)} batches equals their plain replay "
-          f"byte for byte in keys, counts and error ({replay_s:.1f} s of "
+          f"byte for byte in {', '.join(sorted(snap))} ({replay_s:.1f} s of "
           f"replay)", flush=True)
+
+
+def check_sampler(sde, batches, counts, answers, q_streams, pop) -> None:
+    """The chain sampler after every batch: each per-stream row's n_seen
+    equals its stream's masked, routed tuples so far and each data-source
+    row's every masked tuple so far (``counts``: n_seen after each of the
+    unprofiled batches, then after the last); no other row moved. After
+    the last batch every valid (item, value) of a per-stream row is one of
+    its stream's ingested pairs (its item that stream's folded id), and of
+    a source row one of all ingested pairs; the query_many answers
+    (``answers``: the q_streams' rows, then src-rs and cq-rs) equal the
+    stack's rows, items as uint32; cq-rs equals src-rs."""
+    from repro_torch import core
+    from repro_torch.service import routing
+    kind = core.make_kind("chain_sampler")
+    stack = sde.stacks[kind]
+    s = kind.sample_size
+    rows = np.asarray([sde.entries[f"rs/{int(i)}"].row for i in pop])
+    src_rows = [sde.entries[sid].row for sid in ("src-rs", "cq-rs")]
+    want = np.zeros(stack.capacity, np.int64)
+    pairs, spairs, fed = [], [], 0
+    for b, (sids, vals) in enumerate(batches):
+        at = np.minimum(np.searchsorted(pop, sids), len(pop) - 1)
+        own = (pop[at] == sids) & (sids >= 0)
+        np.add.at(want, rows[at[own]], 1)
+        fed += int((sids >= 0).sum())
+        want[src_rows] = fed
+        bits = vals.astype(np.float32).view(np.uint32).astype(np.int64)
+        pairs.append((at[own].astype(np.int64) << 32) | bits[own])
+        items = routing.fold64(sids[sids >= 0]).astype(np.int64)
+        spairs.append((items << 32) | bits[sids >= 0])
+        if b < len(counts) - 1 or b == len(batches) - 1:
+            got = counts[min(b, len(counts) - 1)].cpu().numpy()
+            require(np.array_equal(got, want),
+                    f"sampler n_seen after batch {b} differs from the "
+                    f"masked tuples each row was fed")
+    state = {k: v.cpu().numpy() for k, v in stack.state.items()}
+    n_seen = state["n_seen"]
+    k = np.minimum(n_seen, s)
+    valid = np.arange(s)[None, :] < k[:, None]
+    items = state["items"].view(np.uint32).astype(np.int64)
+    bits = state["values"].view(np.uint32).astype(np.int64)
+    own_items = routing.fold64(pop).astype(np.int64)
+    r_valid = valid[rows]
+    stream = np.broadcast_to(np.arange(len(pop))[:, None], r_valid.shape)
+    require(bool((items[rows] == own_items[:, None])[r_valid].all()),
+            "a per-stream sample holds another stream's item")
+    require(bool(np.isin(((stream.astype(np.int64) << 32)
+                          | bits[rows])[r_valid],
+                         np.concatenate(pairs)).all()),
+            "a per-stream sample holds a value its stream was not fed")
+    src_keys = ((items[src_rows] << 32) | bits[src_rows])[valid[src_rows]]
+    require(src_keys.size == 2 * s and bool(np.isin(
+        src_keys, np.concatenate(spairs)).all()),
+            "a data-source sample holds a pair that was not ingested")
+    q_rows = [sde.entries[f"rs/{int(i)}"].row for i in q_streams] + src_rows
+    require(len(answers) == len(q_rows), "sampler answers missing")
+    for a, row in zip(answers, q_rows):
+        require(a["items"].dtype == np.uint32
+                and np.array_equal(a["items"], items[row])
+                and a["values"].tobytes() == state["values"][row].tobytes()
+                and np.array_equal(a["valid"], valid[row]),
+                f"a sampler answer differs from its row {row} of the stack")
+    require(all(np.array_equal(answers[-1][key], answers[-2][key])
+                for key in ("items", "values", "valid")),
+            "cq-rs (a data-source row too) differs from src-rs")
+    print(f"[phase3] sampler: n_seen of every row equals its fed tuples "
+          f"after each of {len(batches)} batches (per-stream up to "
+          f"{int(want[rows].max())}, source {fed}); every valid per-stream "
+          f"(item, value) is its stream's ({int(r_valid.sum())} slots), "
+          f"every source one ingested ({src_keys.size}); {len(answers)} "
+          f"query_many answers equal the stack's rows, items uint32 (max "
+          f"{int(items[q_rows].max())})", flush=True)
 
 
 def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
@@ -1879,7 +2184,10 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
              {"stream_id": ids[0], "continuous": True}),
             ("lossy", "lossy_counting", LOSSY_PARAMS, per_stream),
             ("src-lossy", "lossy_counting", LOSSY_PARAMS, {}),
-            ("src-lossy-k1000", "lossy_counting", LOSSY_K1000_PARAMS, {})):
+            ("src-lossy-k1000", "lossy_counting", LOSSY_K1000_PARAMS, {}),
+            ("rs", "chain_sampler", {}, per_stream),
+            ("src-rs", "chain_sampler", {}, {}),
+            ("cq-rs", "chain_sampler", {}, {"continuous": True})):
         r = sde.handle({"type": "build", "request_id": f"b-{sid}",
                         "synopsis_id": sid, "kind": kind, "params": params,
                         **extra})
@@ -1893,21 +2201,25 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    lossy_snap = {}
+    scan_snap, sampler_counts = {}, []
+    sampler = sde.stacks[core.make_kind("chain_sampler")]
     for b, (sids, vals) in enumerate(batches[:n_batches]):
         os.environ["SDE_FUSED_PROBE"] = "1" if b % 2 == 0 else "0"
         r = sde.handle({"type": "ingest", "request_id": f"i{b}",
                         "stream_ids": sids.tolist(),
                         "values": vals.tolist()})
         require(r.ok, f"ingest {b} failed: {r.error}")
-        if b + 1 == LOSSY_REPLAY_BATCHES:   # the Lossy replay's prefix
-            lossy_snap = {kind: batched.tree_map(torch.clone, st.state)
-                          for kind, st in sde.stacks.items()
-                          if isinstance(kind, core.LossyCounting)}
+        sampler_counts.append(sampler.state["n_seen"].clone())   # no sync
+        if b + 1 == LOSSY_REPLAY_BATCHES:   # the scan replay's prefix
+            scan_snap = {kind: batched.tree_map(torch.clone, st.state)
+                         for kind, st in sde.stacks.items()
+                         if isinstance(kind, (core.LossyCounting,
+                                              core.ReservoirSampler))}
     torch.cuda.synchronize()
     ingest_s = time.perf_counter() - t0
     profile_batches(sde, batches[n_batches:], n_batches)
     os.environ.pop("SDE_FUSED_PROBE", None)
+    sampler_counts.append(sampler.state["n_seen"].clone())
 
     # exact answers: each per-stream CM row only ever sees its own item,
     # so its point estimate is the stream's exact total weight, and each
@@ -1957,7 +2269,9 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
                    "query": {"items": [int(s)]}} for s in q_streams],
         "lossy-src": [{"synopsis_id": sid,
                        "query": {"items": [int(x) for x in heavy[sid]]}}
-                      for sid in heavy]}
+                      for sid in heavy],
+        "rs": ([{"synopsis_id": f"rs/{int(s)}"} for s in q_streams]
+               + [{"synopsis_id": "src-rs"}, {"synopsis_id": "cq-rs"}])}
     queries = [q for part in parts.values() for q in part]
     t0 = time.perf_counter()
     r = sde.handle({"type": "query_many", "request_id": "qm",
@@ -2010,7 +2324,7 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
                                         f"{rel['src-hll']:.3f}")
     require(abs(rel["src-fm"]) < 0.35, f"data-source FM off by "
                                        f"{rel['src-fm']:.3f}")
-    require(len(sde.continuous_out) == 4 * (n_batches + n_profiled),
+    require(len(sde.continuous_out) == 5 * (n_batches + n_profiled),
             "one continuous response per continuous query and batch "
             "expected")
     # the data-source AMS against the exact F2 of the items it was fed
@@ -2033,6 +2347,15 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
             "src-ams")
     check_lossy_answers(sde, answers, q_streams, want, heavy, fed_items,
                         fed_totals, fed_w, dev)
+    check_sampler(sde, batches, sampler_counts, answers["rs"], q_streams,
+                  pop)
+    cq_rs = [c.value for c in sde.continuous_out
+             if c.synopsis_id == "cq-rs"]
+    require(len(cq_rs) == n_batches + n_profiled
+            and all(np.array_equal(cq_rs[-1][key], answers["rs"][-1][key])
+                    for key in ("items", "values", "valid")),
+            "the continuous sampler did not emit once a batch, or its last "
+            "emission differs from its query_many answer")
     launches = read_launches()
     n_fused = len(range(0, n_batches, 2)) + len(range(0, n_profiled, 2))
     n_all = n_batches + n_profiled
@@ -2041,6 +2364,9 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
             f"the Lossy scan's launches {[launches[k] for k in want_lossy]}, "
             f"not {list(want_lossy.values())} (one a batch on each of the "
             f"two Lossy stacks)")
+    require(launches["reservoir_scan"] == n_all,
+            f"the reservoir kernel launched {launches['reservoir_scan']} "
+            f"times, not {n_all} (one a batch on the sampler stack)")
     want_ams = {"onehot_probe_scatter@ams": n_fused,
                 "onehot_scatter_add@ams": n_all - n_fused,
                 "onehot_scatter_add@fresh@ams": n_all}
@@ -2069,9 +2395,9 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
         if stack.is_timeseries:
             check_dft_stack(sde, stack, batches, dft_checks, dev)
             continue
-        if isinstance(kind, core.LossyCounting):
-            check_lossy_stack(stack, lossy_snap[kind],
-                              batches[:LOSSY_REPLAY_BATCHES], dev)
+        if kind in scan_snap:
+            check_scan_stack(stack, scan_snap[kind],
+                             batches[:LOSSY_REPLAY_BATCHES], dev)
             continue
         replay = batched.stacked_init(kind, stack.capacity, dev)
         klo, khi, trows = stack.device_table()
@@ -2351,7 +2677,7 @@ def main() -> None:
     t0 = time.perf_counter()
     build.build(["countmin_scatter", "bitset_or", "rhp_project",
                  "sliding_dft", "pairwise_corr", "flash_attention",
-                 "lossy_scan"])
+                 "lossy_scan", "reservoir_scan"])
     print(f"[phase1] kernels built in {time.perf_counter() - t0:.2f} s",
           flush=True)
     for name, log in build.BUILD_LOG.items():
@@ -2403,11 +2729,12 @@ def main() -> None:
         kernels[-1].update({k: r[k] for k in (
             "longest_run", "runs", "long_runs", "chain_floor_ms",
             "step_floor_ms", "miss_floor_ms", "misses", "levels",
-            "hottest_adds", "split_device_ms",
+            "hottest_adds", "split_device_ms", "walks", "writes",
+            "past_fill", "start",
             "first_touch_ms", "first_touch_device_ms",
             "lanes", "sectors", "hottest_lane", "k", "plain_timing",
             "library") if k in r})
-        if replaced == LOSSY_COUNTERPART:
+        if replaced.startswith("src/repro/core/"):
             kernels[-1]["tpu_kernel"] = None    # none: see ENTRY_POINTS
         if f"{name}.long_runs" in launches:
             kernels[-1]["long_runs_phase3"] = launches[f"{name}.long_runs"]

@@ -1,9 +1,9 @@
 """Synopsis kinds (port of ``repro/core/__init__.py``).
 
-The port registers CountMin, AMS, HyperLogLog, Bloom, FM, RHP, DFT and
-Lossy Counting so far, under the reference's names; building any other
-kind (the other scan-path kinds among them: Sticky Sampling, the
-sampler, GK, CoreSetTree) answers ok=False through the registry's
+The port registers CountMin, AMS, HyperLogLog, Bloom, FM, RHP, DFT, Lossy
+Counting and the chain sampler so far, under the reference's names;
+building any other kind (the other scan-path kinds among them: Sticky
+Sampling, GK, CoreSetTree) answers ok=False through the registry's
 KeyError (``synopsis.make_kind``).
 """
 from . import hashing  # noqa: F401
@@ -17,6 +17,7 @@ from .fm import FMSketch
 from .rhp import RHP
 from .dft import DFT
 from .lossy import LossyCounting
+from .sampler import ReservoirSampler
 from . import batched  # noqa: F401
 
 for _name, _factory in {
@@ -28,9 +29,11 @@ for _name, _factory in {
     "rhp": RHP,
     "dft": DFT,
     "lossy_counting": LossyCounting,
+    "chain_sampler": ReservoirSampler,
 }.items():
     register_kind(_name, _factory)
 
 __all__ = ["Synopsis", "register_kind", "make_kind", "known_kinds",
            "kind_params", "CountMin", "AMS", "HyperLogLog", "BloomFilter",
-           "FMSketch", "RHP", "DFT", "LossyCounting", "batched"]
+           "FMSketch", "RHP", "DFT", "LossyCounting", "ReservoirSampler",
+           "batched"]

@@ -14,10 +14,11 @@ Differences from the reference:
     reference vmaps the one-row ``step``), with the sliding-DFT kernel as
     its coefficient update.
   * The scan branch of ``stacked_update`` hands the batch to the kind's
-    ``scan_update``, which groups it by row and scans each row's own
-    tuples once (Lossy Counting: the hand-written scan kernel), where the
-    reference vmaps ``add_batch`` over every row with the whole batch
-    masked to that row's tuples. The rows' results are the same.
+    ``scan_update``, which groups it by row and takes each row's own
+    tuples once (Lossy Counting: the hand-written scan kernel; the
+    sampler: the hand-written reservoir kernel), where the reference vmaps
+    ``add_batch`` over every row with the whole batch masked to that
+    row's tuples. The rows' results are the same.
 """
 from __future__ import annotations
 

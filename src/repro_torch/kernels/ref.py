@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the hand-written kernels (port of the
 scatter, sliding-DFT, pairwise-correlation and attention oracles in
 ``repro/kernels/ref.py``, and of the one-hot max cube of
-``repro/kernels/bitset_or.py``, which has no oracle there; and Lossy
-Counting's stacked scan, whose reference is no kernel but
-``LossyCounting.add_batch`` under the vmap of ``batched.stacked_update``).
+``repro/kernels/bitset_or.py``, which has no oracle there; and the
+stacked scans of Lossy Counting and of the reservoir sampler, whose
+reference is no kernel but the kind's ``add_batch`` under the vmap of
+``batched.stacked_update``).
 
 The wrappers run these on CPU tensors; ``chip_smoke.py`` holds each CUDA
 kernel against them on the card. The updates work in place (the
@@ -23,7 +24,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core import lossy
+from repro_torch.core import lossy, sampler
 from . import probe
 
 
@@ -104,38 +105,63 @@ def rhp_probe_update(state: torch.Tensor, keys_lo: torch.Tensor,
     return rhp_project_update(state, rows, values, signs)
 
 
-def lossy_scan_update(keys: torch.Tensor, counts: torch.Tensor,
-                      error: torch.Tensor, syn_idx: torch.Tensor,
-                      items: torch.Tensor, values: torch.Tensor,
-                      mask: torch.Tensor,
-                      source_rows: Optional[torch.Tensor] = None) -> None:
-    """Lossy Counting's stacked scan, in place: each row r in ``[0, n)``
-    scans the tuples with ``mask & (syn_idx == r)``, and each data-source
-    row (``source_rows``) every tuple with ``mask``, routed or not (once,
-    however often it is listed), each in batch order; other rows are
-    untouched. The batch is grouped by row with ``torch.sort(stable=True)``
-    and each row's tuples go through the one-row scan
-    (``core/lossy.scan_row``). keys [n, k] i32 (-1 empty); counts, error
-    [n, k] f32; syn_idx, items [T] i32; values [T] f32; mask [T] bool."""
-    n = keys.shape[0]
-    if n == 0:
-        return
+def _walks(syn_idx: torch.Tensor, mask: torch.Tensor, n: int,
+           source_rows: Optional[torch.Tensor]):
+    """The rows a stacked scan walks, each with its tuples in batch order:
+    each row r in ``[0, n)`` the tuples with ``mask & (syn_idx == r)``,
+    grouped by ``torch.sort(stable=True)``, then each data-source row
+    (``source_rows``) every tuple with ``mask``, routed or not (once,
+    however often it is listed; its routed tuples are not taken twice).
+    Yields (row, index or bool mask of its tuples)."""
     keep = mask & (syn_idx >= 0) & (syn_idx < n)
     src = []
     if source_rows is not None:
         src = sorted({int(r) for r in source_rows.tolist() if 0 <= r < n})
-        is_src = torch.zeros(n, dtype=torch.bool, device=keys.device)
+        is_src = torch.zeros(n, dtype=torch.bool, device=syn_idx.device)
         is_src[src] = True
         keep &= ~is_src[syn_idx.clamp(0, n - 1).long()]
     rows, order = torch.sort(syn_idx[keep], stable=True)
     tix = torch.nonzero(keep)[:, 0][order]
     uniq, sizes = torch.unique_consecutive(rows, return_counts=True)
-    for r, part in zip(uniq.tolist(), torch.split(tix, sizes.tolist())):
+    yield from zip(uniq.tolist(), torch.split(tix, sizes.tolist()))
+    for r in src:
+        yield r, mask
+
+
+def lossy_scan_update(keys: torch.Tensor, counts: torch.Tensor,
+                      error: torch.Tensor, syn_idx: torch.Tensor,
+                      items: torch.Tensor, values: torch.Tensor,
+                      mask: torch.Tensor,
+                      source_rows: Optional[torch.Tensor] = None) -> None:
+    """Lossy Counting's stacked scan, in place: each walked row
+    (:func:`_walks`) goes through the one-row scan
+    (``core/lossy.scan_row``) over its tuples; other rows are untouched.
+    keys [n, k] i32 (-1 empty); counts, error [n, k] f32; syn_idx, items
+    [T] i32; values [T] f32; mask [T] bool."""
+    if keys.shape[0] == 0:
+        return
+    for r, part in _walks(syn_idx, mask, keys.shape[0], source_rows):
         lossy.scan_row(keys[r], counts[r], error[r], items[part],
                        values[part])
-    for r in src:
-        lossy.scan_row(keys[r], counts[r], error[r], items[mask],
-                       values[mask])
+
+
+def reservoir_scan_update(values: torch.Tensor, items: torch.Tensor,
+                          n_seen: torch.Tensor, syn_idx: torch.Tensor,
+                          in_items: torch.Tensor, in_values: torch.Tensor,
+                          mask: torch.Tensor,
+                          source_rows: Optional[torch.Tensor] = None, *,
+                          seed: int) -> None:
+    """The reservoir sampler's stacked update, in place: each walked row
+    (:func:`_walks`) goes through the one-row sampler
+    (``core/sampler.sample_row``) over its tuples; other rows are
+    untouched. values [n, S] f32; items [n, S] i32 (uint32 bits); n_seen
+    [n] i32; syn_idx, in_items [T] i32; in_values [T] f32; mask [T]
+    bool."""
+    if values.shape[0] == 0:
+        return
+    for r, part in _walks(syn_idx, mask, values.shape[0], source_rows):
+        sampler.sample_row(values[r], items[r], n_seen[r], in_items[part],
+                           in_values[part], seed)
 
 
 def sliding_dft_step(re: torch.Tensor, im: torch.Tensor, delta: torch.Tensor,

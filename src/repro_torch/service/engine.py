@@ -9,14 +9,15 @@ service maintaining thousands of synopses for thousands of streams.
   * red path: ``handle(request)`` adhoc queries and ``query_many`` --
     one stacked-estimate call per kind answers every query of that kind.
 
-The port serves CountMin, AMS, HyperLogLog, Bloom, FM, RHP, DFT and Lossy
-Counting so far: build (per stream, per stream of a source, data source),
-ingest, adhoc, query_many, stop, status, flush and shutdown, with
-continuous queries emitted eagerly. DFT is a time-series kind: each
-ingest batch ticks every stream once with its last routed value
-(``_step_all``). Lossy Counting is a scan-path kind: it declares no
-registry kernel, so ingest probes the rows and hands the batch to
-``batched.stacked_update``'s scan branch (the hand-written scan kernel).
+The port serves CountMin, AMS, HyperLogLog, Bloom, FM, RHP, DFT, Lossy
+Counting and the chain sampler so far: build (per stream, per stream of
+a source, data source), ingest, adhoc, query_many, stop, status, flush
+and shutdown, with continuous queries emitted eagerly. DFT is a
+time-series kind: each ingest batch ticks every stream once with its
+last routed value (``_step_all``). Lossy Counting and the sampler are
+scan-path kinds: they declare no registry kernel, so ingest probes the
+rows and hands the batch to ``batched.stacked_update``'s scan branch
+(the kind's hand-written kernel: the scan, the reservoir update).
 
 Differences from the reference:
 
@@ -615,10 +616,11 @@ def _step_all(kind, n_probe, state, klo, khi, trows, sid_lo, sid_hi, vals,
 # red-path query planning: normalize N query dicts for one kind into padded
 # batched device args + a per-query result slicer. CountMin, Bloom and
 # Lossy Counting take per-query ``items`` (default ``[0]``) as ONE [N, L]
-# arg (L = padded max arg length); AMS, HyperLogLog, FM, RHP and DFT are
-# arg-free and return their estimate per row (AMS's the L2-norm^2; RHP's a
-# dict: signature, hamming_weight, bucket; DFT's a dict: bucket, coeffs,
-# coords).
+# arg (L = padded max arg length); AMS, HyperLogLog, FM, RHP, DFT and the
+# sampler are arg-free and return their estimate per row (AMS's the
+# L2-norm^2; RHP's a dict: signature, hamming_weight, bucket; DFT's a dict:
+# bucket, coeffs, coords; the sampler's a dict: items as uint32, valid,
+# values).
 # ---------------------------------------------------------------------------
 
 _ITEM_KINDS = (core.CountMin, core.BloomFilter, core.LossyCounting)

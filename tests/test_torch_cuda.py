@@ -31,8 +31,11 @@ the same bytes in every run, and an N past 46,341 where N * N passes
 S = 200, Sq != Sk both ways, D = 16 to 256, float32 and bfloat16,
 causal and not, the same bytes in two runs, one launch a call, heads
 kept apart at a ragged Sk (a neighbour head's K and V all inf), and a
-BH * S * D past 2**31. Tests marked ``cuda`` need a card; run them there
-with
+BH * S * D past 2**31; for the reservoir sampler's update empty rows,
+rows past the fill (counts above 2**24 and up to 2**31 - 2T), one hot
+row, several source rows (one also routed to, one listed twice), runs
+within and across a warp's 32 positions, S = 1 to 100, byte for byte.
+Tests marked ``cuda`` need a card; run them there with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -46,8 +49,8 @@ import torch
 
 from repro_torch.kernels import (bitset_or, flash_attention, fm_bitmap,
                                  hll_max, lossy_scan, onehot_matmul, ops,
-                                 pairwise_corr, probe, ref, rhp_project,
-                                 sliding_dft)
+                                 pairwise_corr, probe, ref, reservoir_scan,
+                                 rhp_project, sliding_dft)
 from repro_torch.service import routing
 
 
@@ -1351,6 +1354,173 @@ def test_lossy_plain_matches_a_python_loop():
         got = [x.clone() for x in state]
         lossy_scan.lossy_scan_update(*got, *batch)
         for g, w in zip(got, (keys, counts, error)):
+            assert g.numpy().tobytes() == w.tobytes()
+
+
+RESERVOIR_PATTERNS = ("empty", "past_fill", "mixed", "hot")
+
+
+def _reservoir_case(rng, n, s, t, sources, pattern, dev):
+    """A reservoir-sampler stack [n, s] and a batch over it: rows -1 and
+    n, masked tuples, item ids of 2**31 and above, float values, the first
+    source row also routed to and listed twice. ``pattern`` sets the
+    counts and the rows:
+
+      empty      every row at n_seen 0 (the fill)
+      past_fill  every row past its fill, some counts near 2**24 (where
+                 float32(n + 1) rounds) and near 2**31 - 2t
+      mixed      counts 0, below s and past it
+      hot        mixed counts, and one row taking ~70% of the batch
+    """
+    top = 2**31 - 2 * t
+    if pattern == "empty":
+        n_seen = np.zeros(n, np.int64)
+    elif pattern == "past_fill":
+        n_seen = rng.randint(s, s + 5000, n)
+        n_seen[::3] = rng.randint(2**24 - 300, 2**24 + 300, n_seen[::3].size)
+        n_seen[1::5] = rng.randint(top - 1000, top + 1, n_seen[1::5].size)
+    else:
+        n_seen = rng.choice([0, 0, 1, max(s - 1, 0), s, 10 * s + 7, 2**24],
+                            n)
+    values = np.where(n_seen[:, None] > np.arange(s)[None, :],
+                      rng.randn(n, s), 0).astype(np.float32)
+    items = np.where(n_seen[:, None] > np.arange(s)[None, :],
+                     rng.randint(0, 2**32, (n, s), dtype=np.int64), 0)
+    in_items = rng.randint(0, 2**32, t, dtype=np.int64)
+    in_items[::7] = rng.randint(2**31, 2**32, in_items[::7].size)
+    rows = rng.randint(0, n, t).astype(np.int32)
+    if pattern == "hot":
+        rows[rng.rand(t) < 0.7] = n // 2
+    rows[::11] = -1
+    rows[5::13] = n
+    if sources:
+        rows[1::17] = sources[0]
+    vals = (rng.randn(t) * 3).astype(np.float32)
+    mask = rng.rand(t) > 0.1
+    c = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    src = (c(np.asarray(sources + sources[:1], np.int64)) if sources
+           else None)
+    state = (c(values), c(items.astype(np.uint32).view(np.int32)),
+             c(n_seen.astype(np.int32)))
+    batch = (c(rows), c(in_items.astype(np.uint32).view(np.int32)), c(vals),
+             c(mask), src)
+    return state, batch
+
+
+RESERVOIR_SEED = 41
+_RESERVOIR_CASES = [
+    (7, 16, 300, [], "empty"), (7, 16, 300, [2], "past_fill"),
+    (5, 64, 2000, [0, 4], "mixed"), (5, 64, 2000, [3], "hot"),
+    (4, 1, 700, [1], "mixed"), (4, 1, 700, [], "hot"),
+    (3, 33, 33, [], "empty"), (3, 33, 31, [0], "past_fill"),
+    (1, 100, 5000, [0], "hot"), (2, 100, 1, [], "mixed"),
+    (4099, 64, 6000, [4098, 7], "mixed"), (64, 64, 65536, [32], "hot"),
+    *[(9, s, 4000, [2, 6], pattern) for pattern in RESERVOIR_PATTERNS
+      for s in (1, 32, 64)]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s,t,sources,pattern", _RESERVOIR_CASES)
+def test_reservoir_scan_matches_plain_byte_for_byte(dev, n, s, t, sources,
+                                                    pattern):
+    """The reservoir kernel against its plain version: S = 1 (every slot
+    written by the last tuple that draws 0), 16, 32, 33, 64 and 100; one
+    tuple to 65,536; runs of one tuple (within a warp's 32 positions) to
+    ~70% of the batch (across many warps); no source row, one also routed
+    to, two, one listed twice; counts from 0 through the fill, near 2**24
+    and near 2**31 - 2T. Values, items and n_seen byte-equal to the plain
+    version and across two kernel runs, one launch a call."""
+    rng = np.random.RandomState(n + s + t)
+    state, batch = _reservoir_case(rng, n, s, t, sources, pattern, dev)
+    outs = []
+    before = reservoir_scan.reservoir_scan_update.launches
+    for _ in range(2):
+        st = [x.clone() for x in state]
+        reservoir_scan.reservoir_scan_update(*st, *batch,
+                                             seed=RESERVOIR_SEED)
+        outs.append(st)
+    assert reservoir_scan.reservoir_scan_update.launches == before + 2
+    torch.cuda.synchronize()
+    want = [x.clone() for x in state]
+    ref.reservoir_scan_update(*want, *batch, seed=RESERVOIR_SEED)
+    for a, b, w in zip(*outs, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert torch.equal(a.view(torch.int32), w.view(torch.int32))
+    if t > 1:                                         # some row took tuples
+        assert not torch.equal(want[2], state[2])
+
+
+@pytest.mark.cuda
+def test_reservoir_scan_rejects_bad_operands_and_skips_empty_batches(dev):
+    state, batch = _reservoir_case(np.random.RandomState(1), 5, 16, 64, [1],
+                                   "mixed", dev)
+    values, items, n_seen = state
+    rows, in_items, vals, mask, src = batch
+    update = reservoir_scan.reservoir_scan_update
+    before = update.launches
+    with pytest.raises(TypeError):
+        update(values, items, n_seen, rows, in_items, vals,
+               mask.to(torch.int32), src, seed=RESERVOIR_SEED)
+    with pytest.raises(TypeError):
+        update(values, items, n_seen.long(), rows, in_items, vals, mask, src,
+               seed=RESERVOIR_SEED)
+    with pytest.raises(ValueError):
+        update(values, items, n_seen, rows[:-1], in_items, vals, mask, src,
+               seed=RESERVOIR_SEED)
+    with pytest.raises(ValueError):
+        update(values, items.cpu(), n_seen, rows, in_items, vals, mask, src,
+               seed=RESERVOIR_SEED)
+    empty = [x[:0] for x in batch[:4]]
+    snapshot = [x.clone() for x in state]
+    update(*state, *empty, src, seed=RESERVOIR_SEED)
+    assert update.launches == before
+    assert all(torch.equal(a, b) for a, b in zip(state, snapshot))
+
+
+def _reservoir_step(n, x, s, seed):
+    """The reference's step in numpy uint32 / float32 scalars: (slot,
+    write) of item x arriving at count n."""
+    m = 0xFFFFFFFF
+    h = ((n * 2654435761) & m) ^ int(x) ^ ((seed * 0x9E3779B9 + 1) & m)
+    for shift, mult in ((16, 0x85EBCA6B), (13, 0xC2B2AE35), (16, 1)):
+        h = ((h ^ (h >> shift)) * mult) & m
+    u = np.float32(np.float32(np.uint32(h)) * np.float32(2.0 ** -32))
+    j = int(np.float32(u * np.float32(n + 1)))
+    if n < s:
+        return n, True
+    return j, j < s
+
+
+def test_reservoir_plain_matches_a_python_loop():
+    """On the CPU: the plain reservoir update the card tests compare
+    against, held to a pure-Python loop of the reference's step in numpy
+    scalars over the batch, with the rows, sources, masks and counts of
+    the card cases, so a kernel is never held to a plain version that
+    shares its mistake."""
+    for n, s, t, sources, pattern in ((7, 16, 300, [2], "mixed"),
+                                      (3, 1, 200, [0, 2], "past_fill"),
+                                      (4, 33, 400, [], "hot")):
+        rng = np.random.RandomState(s + t)
+        state, batch = _reservoir_case(rng, n, s, t, sources, pattern,
+                                       "cpu")
+        values, items, n_seen = (x.numpy().copy() for x in state)
+        rows, in_items, vals, mask, src = (
+            None if x is None else x.numpy() for x in batch)
+        src_set = set() if src is None else set(src.tolist())
+        for r in range(n):
+            for i in range(t):
+                if not mask[i] or (r not in src_set and rows[i] != r):
+                    continue
+                slot, write = _reservoir_step(int(n_seen[r]),
+                                              in_items[i].view(np.uint32),
+                                              s, RESERVOIR_SEED)
+                if write:
+                    values[r, slot], items[r, slot] = vals[i], in_items[i]
+                n_seen[r] += 1
+        got = [x.clone() for x in state]
+        reservoir_scan.reservoir_scan_update(*got, *batch,
+                                             seed=RESERVOIR_SEED)
+        for g, w in zip(got, (values, items, n_seen)):
             assert g.numpy().tobytes() == w.tobytes()
 
 
