@@ -82,16 +82,20 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      slot's adds, or the longest routed run's, at FADD_CYCLES each,
      whichever is longer), with every miss at LOSSY_LEVEL_CYCLES and the
      earlier floor (every step of the walk at LOSSY_STEP_CYCLES) beside
-     it, neither a bound. Then the reservoir sampler's update
-     (``reservoir_scan``, no TPU counterpart) at the reference's defaults
-     (S = 64) on the same rows and data-source row, from empty rows and
-     from rows past the fill: values, items and n_seen byte-equal to the
-     plain version and across two kernel runs, each timed on its starting
-     state restored before every call, a profiler window held to
-     RESERVOIR_ACTIVITIES a call; the bound the bytes (the batch's rows,
-     items and mask once, the value of each slot's last writer, each
-     walked row's n_seen, each slot written once, counted by
-     ``reservoir_writes``). One entry's tensors are held at a time.
+     it, neither a bound. Then the reservoir sampler's update (no TPU
+     counterpart) through both entry points, rows given
+     (``reservoir_scan``) and the probe fused in
+     (``reservoir_probe_scan``), at the reference's defaults (S = 64) on
+     the same rows and data-source row, from empty rows and from rows
+     past the fill: values, items and n_seen byte-equal to the plain
+     version (the fused entry's: the plain probe, then the plain update)
+     and across two kernel runs, each timed on its starting state
+     restored before every call, a profiler window held to
+     RESERVOIR_ACTIVITIES a call; the bound the bytes (the batch's rows or
+     stream ids, items and mask once, the table slots the probes read,
+     the value of each slot's last writer, each walked row's n_seen, each
+     slot written once, counted by ``reservoir_writes``). One entry's
+     tensors are held at a time.
   3. The main path through ``SDE(device="cuda").handle``: per-stream AMS
      (the reference's defaults, [12, 2048]), CM, HLL, Bloom, FM, RHP and
      Figure-6 DFT over 65,536 hashed 63-bit ids; a data-source AMS, CM,
@@ -118,8 +122,11 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      (item, value) must be an ingested pair (a per-stream row's of its own
      stream), 1,026 sampler answers in query_many (1,024 per-stream,
      src-rs, cq-rs) must equal the stack's rows with items as uint32, the
-     continuous sampler must emit once a batch, and the reservoir kernel
-     must launch once a batch. Each per-stream AMS answer must be
+     continuous sampler must emit once a batch, the reservoir kernel must
+     launch through its fused entry once a fused batch and through the
+     rows-given one once an unfused batch, and the sampler's update may
+     run the plain probe (``ops.route_probe``) only in unfused batches,
+     once each (``SamplerProbes``). Each per-stream AMS answer must be
      float32(total)**2 of its
      stream's exact total weight, the data-source AMS within 0.15 of the
      exact F2 of the items it was fed, the continuous AMS equal to it and
@@ -169,9 +176,9 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      signed one-row ones, which phase 3 requires to be one a batch on
      the stack and one fold a batch; the Lossy rows' ``launches`` are all
      the scan's and those on tables of 1,000 slots, their ``replaces``
-     the JAX counterpart, ``src/repro/core/lossy.py:65``; the reservoir
-     row's ``replaces`` ``src/repro/core/sampler.py:55``, with its
-     past-the-fill numbers; every row whose counterpart lies under
+     the JAX counterpart, ``src/repro/core/lossy.py:65``; the two
+     reservoir rows' ``replaces`` ``src/repro/core/sampler.py:55``, with
+     their past-the-fill numbers; every row whose counterpart lies under
      ``src/repro/core/`` has ``tpu_kernel`` null), then the device
      line.
 """
@@ -221,13 +228,13 @@ LOSSY_REPLAY_BATCHES = 2    # the batches the plain replay takes (phase 3)
 # a Lossy scan's device time is 0.95-0.98 of its CUDA-event time on an
 # H100; a profiler window that lost activities read 0.78 of it
 LOSSY_DEVICE_SHARE = 0.9
-# the device activities of one reservoir update with data-source rows at
-# phase 2's row count: 3 memsets, the source flags, the sort's key, its
-# tile scan, 2 histogram and 2 scatter passes, the run bounds, the
-# placing and the finalize pass. A profiler window of its calls opens
-# with PAD_LAUNCHES spin kernels (``device_events``), and one that holds
-# another count is taken again (windows held 66, 64 and 58 in 5 runs)
-RESERVOIR_ACTIVITIES = 13
+# the device activities of one reservoir update, either entry, at sizes
+# it ran at before: its one cooperative launch (no memset: the scratch
+# it keeps is zeroed only when the sizes change). A profiler window of
+# its calls opens with PAD_LAUNCHES spin kernels (``device_events``), and
+# one that holds another count is taken again (windows of the earlier
+# 13-launch design held 66, 64 and 58 in 5 runs)
+RESERVOIR_ACTIVITIES = 1
 PAD_LAUNCHES, PAD_CYCLES = 16, 100_000   # ~0.8 ms of spin at 1,980 MHz
 # the paper's Figure-6 DFT (benchmarks/fig6_dft_workflow.py)
 FIG6_DFT = {"window": 128, "n_coeffs": 8, "threshold": 0.9,
@@ -292,8 +299,8 @@ def device_events(fn, runs: int = 5, attempts: int = 6,
     that followed one another at once. With ``pad``, the window opens with
     that many spin kernels of PAD_CYCLES each (``torch.cuda._sleep``),
     left out of the list: windows have lost their first activities (a
-    one-call window of the reservoir update held only its last 6 of
-    13), so that a pad, not the calls, takes the loss."""
+    one-call window of the 13-launch reservoir update held only its last
+    6), so that a pad, not the calls, takes the loss."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1629,133 +1636,163 @@ def reservoir_writes(kind, rows, items, mask, n: int, src: torch.Tensor,
 
 
 def phase2_reservoir(b, n: int, results: dict) -> None:
-    """The reservoir sampler's update (row ``reservoir_scan``, no TPU
-    counterpart) at the reference's defaults (S = 64, seed 41) on phase
-    2's batch: n rows, routed as the batch's probe gives them, plus one
+    """The reservoir sampler's update (no TPU counterpart) through both
+    entry points, rows given (``reservoir_scan``) and the routing probe
+    fused in (``reservoir_probe_scan``, on the batch's stream ids and
+    table), at the reference's defaults (S = 64, seed 41) on phase 2's
+    batch: n rows, routed as the batch's probe gives them, plus one
     data-source row (row n_streams, as the engine allocates it); from
     empty rows (the fill, as a new stack's first batch) and from rows past
     the fill (counts 64 to 2**20, random samples). Kernel against its
-    plain version on the card, byte for byte in values, items and n_seen,
-    and byte-equal across two kernel runs; each timed from its starting
+    plain version on the card (the fused entry's: the plain probe, then
+    the plain update), byte for byte in values, items and n_seen, and
+    byte-equal across two kernel runs; each timed from its starting
     state: 25 CUDA-event calls on a copy restored before every call (the
     copy not timed), 5 profiler calls each on a copy made before the
     window; the plain version from its one checked call (seconds: torch
-    ops a row and a write). No one PyTorch
-    call computes it: no library time. The bound is the bytes: the batch
-    read once (rows, items and mask of every tuple, the value of each
-    slot's last writer), each walked row's n_seen read and written, each
-    slot written once (``reservoir_writes``); no step depends on another.
-    A profiler window must hold RESERVOIR_ACTIVITIES a call, else it is
-    taken again. The split by kernel is taken on the state the runs
-    left."""
+    ops a row and a write). No one PyTorch call computes it: no library
+    time. The bound is the bytes: the batch read once (rows, or the
+    stream ids' halves, items and mask of every tuple, the value of each
+    slot's last writer), for the fused entry each table slot the masked
+    tuples' probes read (TABLE_B bytes), each walked row's n_seen read and
+    written, each slot written once (``reservoir_writes``); no step
+    depends on another. A profiler window must hold RESERVOIR_ACTIVITIES
+    a call, else it is taken again; so must one of two stacks (S = 64 and
+    16) updated in turn, each size with its own scratch."""
     from repro_torch import core
-    from repro_torch.kernels import ref, reservoir_scan
+    from repro_torch.kernels import probe, ref, reservoir_scan
 
     t, dev = b.t, b.dev
     kind = core.ReservoirSampler()
     s = kind.sample_size
     src_row = n // 2
     src = torch.tensor([src_row], dtype=torch.int64, device=dev)
-    batch = (b.rows, b.items, b.vals, b.mask, src)
+    tail = (b.items, b.vals, b.mask, src)
+    table = (b.klo, b.khi, b.trows, b.slo, b.shi)
     leaves = lambda st: (st["values"], st["items"], st["n_seen"])
-    out = {}
+    entries = {
+        "reservoir_scan": (
+            lambda st: reservoir_scan.reservoir_scan_update(
+                *leaves(st), b.rows, *tail, seed=kind.seed),
+            lambda st: ref.reservoir_scan_update(
+                *leaves(st), b.rows, *tail, seed=kind.seed),
+            t * 4),
+        "reservoir_probe_scan": (
+            lambda st: reservoir_scan.reservoir_probe_scan_update(
+                *leaves(st), *table, *tail, n_probe=b.n_probe,
+                seed=kind.seed),
+            lambda st: ref.reservoir_scan_update(
+                *leaves(st), probe.probe_rows(*table, n_probe=b.n_probe),
+                *tail, seed=kind.seed),
+            t * 8 + TABLE_B * probed_slots(b, b.mask))}
+    out = {name: {} for name in entries}
     for label in ("empty", "past_fill"):
         buf0, st0 = reservoir_stack(n, s, dev)
         if label == "past_fill":
             st0["n_seen"].random_(s, 1 << 20, generator=b.gen)
             st0["items"].random_(-(1 << 31), 1 << 31, generator=b.gen)
             st0["values"].normal_(generator=b.gen)
-        runs = []
-        for _ in range(2):
-            buf, st = reservoir_stack(n, s, dev)
-            buf.copy_(buf0)
-            reservoir_scan.reservoir_scan_update(*leaves(st), *batch,
-                                                 seed=kind.seed)
-            runs.append((buf, st))
-        torch.cuda.synchronize()
-        require(torch.equal(runs[0][0], runs[1][0]),
-                f"reservoir_scan ({label}): two kernel runs differ "
-                f"byte-wise")
-        pbuf, pst = reservoir_stack(n, s, dev)
-        pbuf.copy_(buf0)
-        a = torch.cuda.Event(enable_timing=True)
-        z = torch.cuda.Event(enable_timing=True)
-        a.record()
-        ref.reservoir_scan_update(*leaves(pst), *batch, seed=kind.seed)
-        z.record()
-        z.synchronize()
-        pms = a.elapsed_time(z)
-        kbuf, kst = runs[0]
-        require(torch.equal(kbuf, pbuf),
-                f"reservoir_scan ({label}): kernel differs byte-wise from "
-                f"its plain version")
-        _, err, _ = compare(kst["values"], pst["values"])
         walks, longest, writes = reservoir_writes(
             kind, b.rows, b.items, b.mask, n, src, st0["n_seen"])
-        del runs, pbuf, pst
-        kern = lambda: reservoir_scan.reservoir_scan_update(
-            *leaves(kst), *batch, seed=kind.seed)
-        restore = lambda: kbuf.copy_(buf0)
-        kms = cuda_ms(kern, prep=restore)
-        # the profiler's calls each on a copy of the starting state,
-        # restored before each window (for the warm-up and 5 runs), so
-        # that no copy runs among the activities it sums
-        pool = [reservoir_stack(n, s, dev) for _ in range(6)]
-        calls = iter(())
-
-        def refill():
-            nonlocal calls
-            for pbuf, _ in pool:
-                pbuf.copy_(buf0)
+        for name, (kernel, plain, rows_b) in entries.items():
+            runs = []
+            for _ in range(2):
+                buf, st = reservoir_stack(n, s, dev)
+                buf.copy_(buf0)
+                kernel(st)
+                runs.append((buf, st))
             torch.cuda.synchronize()
-            calls = iter(pool)
+            require(torch.equal(runs[0][0], runs[1][0]),
+                    f"{name} ({label}): two kernel runs differ byte-wise")
+            pbuf, pst = reservoir_stack(n, s, dev)
+            pbuf.copy_(buf0)
+            a = torch.cuda.Event(enable_timing=True)
+            z = torch.cuda.Event(enable_timing=True)
+            a.record()
+            plain(pst)
+            z.record()
+            z.synchronize()
+            pms = a.elapsed_time(z)
+            kbuf, kst = runs[0]
+            require(torch.equal(kbuf, pbuf),
+                    f"{name} ({label}): kernel differs byte-wise from its "
+                    f"plain version")
+            _, err, _ = compare(kst["values"], pst["values"])
+            del runs, pbuf, pst
+            kern = lambda: kernel(kst)
+            restore = lambda: kbuf.copy_(buf0)
+            kms = cuda_ms(kern, prep=restore)
+            # the profiler's calls each on a copy of the starting state,
+            # restored before each window (for the warm-up and 5 runs), so
+            # that no copy runs among the activities it sums
+            pool = [reservoir_stack(n, s, dev) for _ in range(6)]
+            calls = iter(())
 
-        fresh = lambda: reservoir_scan.reservoir_scan_update(
-            *leaves(next(calls)[1]), *batch, seed=kind.seed)
-        kdev = device_ms(fresh, label=f"reservoir_scan ({label})",
-                         activities=RESERVOIR_ACTIVITIES, reset=refill)
-        names = {}
-        refill()
-        for name, _, _ in device_events(fresh, runs=1, pad=PAD_LAUNCHES):
-            names[name[:40]] = names.get(name[:40], 0) + 1
-        # rows, items and mask of every tuple, the value of each slot's
-        # last writer; each walked row's n_seen in and out; each slot's
-        # value and item out
-        n_bytes = (t * (4 + 4 + 1) + 8 * src.numel() + walks * 4 * 2
-                   + writes * (4 + 4 + 4))
-        bms, by = bound_ms(n_bytes, 0)
-        out[label] = dict(max_abs_err=err, ms=kms, plain_ms=pms,
-                          bound_ms=bms, bound_by=by, device_ms=kdev,
-                          walks=walks, longest_run=longest, writes=writes)
-        print(f"[phase2] reservoir_scan ({label}): S={s}, n={n} rows + "
-              f"data-source row {src_row}, exact match (values, items, "
-              f"n_seen byte for byte; two kernel runs byte-identical), "
-              f"kernel {kms:.4f} ms (device {kdev:.4f} ms), plain "
-              f"{pms:.1f} ms (one call), no library call; {walks} walks, "
-              f"the longest {longest} tuples, {writes} slots written; bound "
-              f"{bms:.5f} ms ({by}, {n_bytes} B); device activities of a "
-              f"call: {names}", flush=True)
-        if label == "past_fill":
-            split = device_split(kern, {
-                "place_kernel": "place", "finalize_kernel": "finalize",
-                "sort_": "sort", "key_kernel": "key",
-                "bounds_kernel": "bounds", "scan_kernel": "scan",
-                "flag_kernel": "flag", "Memset": "memset"}, "other",
-                label="reservoir_scan", activities=RESERVOIR_ACTIVITIES)
-            print("[phase2] reservoir_scan: device ms by kernel (on the "
-                  "state the runs left): " + ", ".join(
-                      f"{g} {ms:.4f}" for g, ms in sorted(
-                          split.items(), key=lambda kv: -kv[1])), flush=True)
-        del kern, restore, kbuf, kst, buf0, st0, pool, fresh
+            def refill():
+                nonlocal calls
+                for pbuf, _ in pool:
+                    pbuf.copy_(buf0)
+                torch.cuda.synchronize()
+                calls = iter(pool)
+
+            fresh = lambda: kernel(next(calls)[1])
+            kdev = device_ms(fresh, label=f"{name} ({label})",
+                             activities=RESERVOIR_ACTIVITIES, reset=refill)
+            names = {}
+            refill()
+            for act, _, _ in device_events(fresh, runs=1, pad=PAD_LAUNCHES):
+                names[act[:40]] = names.get(act[:40], 0) + 1
+            # rows (or the ids' halves and the table slots the probes
+            # read), items and mask of every tuple, the value of each
+            # slot's last writer; each walked row's n_seen in and out;
+            # each slot's value and item out
+            n_bytes = (rows_b + t * (4 + 1) + 8 * src.numel()
+                       + walks * 4 * 2 + writes * (4 + 4 + 4))
+            bms, by = bound_ms(n_bytes, 0)
+            out[name][label] = dict(max_abs_err=err, ms=kms, plain_ms=pms,
+                                    bound_ms=bms, bound_by=by,
+                                    device_ms=kdev, walks=walks,
+                                    longest_run=longest, writes=writes)
+            print(f"[phase2] {name} ({label}): S={s}, n={n} rows + "
+                  f"data-source row {src_row}, exact match (values, items, "
+                  f"n_seen byte for byte; two kernel runs byte-identical), "
+                  f"kernel {kms:.4f} ms (device {kdev:.4f} ms), plain "
+                  f"{pms:.1f} ms (one call), no library call; {walks} "
+                  f"walks, the longest {longest} tuples, {writes} slots "
+                  f"written; bound {bms:.5f} ms ({by}, {n_bytes} B); device "
+                  f"activities of a call: {names}", flush=True)
+            del kern, restore, kbuf, kst, pool, fresh
+            free()
+        del buf0, st0
         free()
-    first = out["empty"]
-    results["reservoir_scan"] = dict(
-        first, library_ms=None, plain_device_ms=None,
-        library_device_ms=None, split_device_ms=split,
-        past_fill=out["past_fill"], start="empty rows (the fill)",
-        plain_timing="one call (CUDA events); its device time not "
-                     "measured",
-        library="none: no one PyTorch call computes it")
+    # two stacks of different sizes in turn, as an engine with two sampler
+    # kinds updates them in every batch: each size keeps its own scratch,
+    # so a window must still hold RESERVOIR_ACTIVITIES a call
+    small = core.ReservoirSampler(sample_size=16)
+    pair = [(kd, reservoir_stack(n, kd.sample_size, dev)[1])
+            for kd in (kind, small)]
+
+    def both():
+        for kd, st in pair:
+            reservoir_scan.reservoir_scan_update(*leaves(st), b.rows, *tail,
+                                                 seed=kd.seed)
+
+    pair_ms = device_ms(both, label="reservoir_scan (two stacks)",
+                        activities=2 * RESERVOIR_ACTIVITIES)
+    print(f"[phase2] reservoir_scan (two stacks, S={s} and "
+          f"{small.sample_size}, in turn): device {pair_ms:.4f} ms a pair, "
+          f"{RESERVOIR_ACTIVITIES} device activities a call", flush=True)
+    del pair
+    free()
+    for name in entries:
+        results[name] = dict(
+            out[name]["empty"], library_ms=None, plain_device_ms=None,
+            library_device_ms=None, past_fill=out[name]["past_fill"],
+            start="empty rows (the fill)",
+            plain_timing="one call (CUDA events); its device time not "
+                         "measured",
+            library="none: no one PyTorch call computes it")
+    results["reservoir_scan"]["two_stacks_device_ms"] = pair_ms
 
 
 def phase2(dev, seed: int, n: int, n_streams: int, t: int) -> dict:
@@ -1838,6 +1875,8 @@ ENTRY_POINTS = {
     # under the vmap of batched.stacked_update
     "reservoir_scan": ("reservoir_scan", "reservoir_scan_update",
                        "reservoir_scan.cu", SAMPLER_COUNTERPART),
+    "reservoir_probe_scan": ("reservoir_scan", "reservoir_probe_scan_update",
+                             "reservoir_scan.cu", SAMPLER_COUNTERPART),
 }
 
 
@@ -1918,6 +1957,43 @@ def replay_timeseries(stack, batches, dev):
 def same_leaves(got: dict, want: dict) -> bool:
     return sorted(got) == sorted(want) and all(
         same_bytes(got[k], want[k]) for k in got)
+
+
+class SamplerProbes:
+    """Counts, while entered, the plain probes (``ops.route_probe``) that
+    the engine runs inside the chain sampler's stack update, keyed by
+    whether the batch fused the probe (``SDE_FUSED_PROBE``): it wraps the
+    engine's ``_update`` and ``ops.route_probe`` and restores them on
+    exit."""
+
+    def __enter__(self) -> dict:
+        from repro_torch import core
+        from repro_torch.kernels import ops
+        from repro_torch.service import engine
+        counts = {"fused": 0, "unfused": 0}
+        inside = [False]
+        probe0, update0 = ops.route_probe, engine._update
+
+        def route_probe(*args, **kwargs):
+            if inside[0]:
+                counts["fused" if ops.probe_fusion_enabled()
+                       else "unfused"] += 1
+            return probe0(*args, **kwargs)
+
+        def update(kind, *args, **kwargs):
+            inside[0] = isinstance(kind, core.ReservoirSampler)
+            try:
+                return update0(kind, *args, **kwargs)
+            finally:
+                inside[0] = False
+
+        ops.route_probe, engine._update = route_probe, update
+        self._undo = lambda: (setattr(ops, "route_probe", probe0),
+                              setattr(engine, "_update", update0))
+        return counts
+
+    def __exit__(self, *exc) -> None:
+        self._undo()
 
 
 def profile_batches(sde, batches, first: int) -> None:
@@ -2203,21 +2279,22 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
     t0 = time.perf_counter()
     scan_snap, sampler_counts = {}, []
     sampler = sde.stacks[core.make_kind("chain_sampler")]
-    for b, (sids, vals) in enumerate(batches[:n_batches]):
-        os.environ["SDE_FUSED_PROBE"] = "1" if b % 2 == 0 else "0"
-        r = sde.handle({"type": "ingest", "request_id": f"i{b}",
-                        "stream_ids": sids.tolist(),
-                        "values": vals.tolist()})
-        require(r.ok, f"ingest {b} failed: {r.error}")
-        sampler_counts.append(sampler.state["n_seen"].clone())   # no sync
-        if b + 1 == LOSSY_REPLAY_BATCHES:   # the scan replay's prefix
-            scan_snap = {kind: batched.tree_map(torch.clone, st.state)
-                         for kind, st in sde.stacks.items()
-                         if isinstance(kind, (core.LossyCounting,
-                                              core.ReservoirSampler))}
-    torch.cuda.synchronize()
-    ingest_s = time.perf_counter() - t0
-    profile_batches(sde, batches[n_batches:], n_batches)
+    with SamplerProbes() as sampler_probes:
+        for b, (sids, vals) in enumerate(batches[:n_batches]):
+            os.environ["SDE_FUSED_PROBE"] = "1" if b % 2 == 0 else "0"
+            r = sde.handle({"type": "ingest", "request_id": f"i{b}",
+                            "stream_ids": sids.tolist(),
+                            "values": vals.tolist()})
+            require(r.ok, f"ingest {b} failed: {r.error}")
+            sampler_counts.append(sampler.state["n_seen"].clone())  # async
+            if b + 1 == LOSSY_REPLAY_BATCHES:   # the scan replay's prefix
+                scan_snap = {kind: batched.tree_map(torch.clone, st.state)
+                             for kind, st in sde.stacks.items()
+                             if isinstance(kind, (core.LossyCounting,
+                                                  core.ReservoirSampler))}
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t0
+        profile_batches(sde, batches[n_batches:], n_batches)
     os.environ.pop("SDE_FUSED_PROBE", None)
     sampler_counts.append(sampler.state["n_seen"].clone())
 
@@ -2364,9 +2441,17 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
             f"the Lossy scan's launches {[launches[k] for k in want_lossy]}, "
             f"not {list(want_lossy.values())} (one a batch on each of the "
             f"two Lossy stacks)")
-    require(launches["reservoir_scan"] == n_all,
-            f"the reservoir kernel launched {launches['reservoir_scan']} "
-            f"times, not {n_all} (one a batch on the sampler stack)")
+    want_rs = {"reservoir_probe_scan": n_fused,
+               "reservoir_scan": n_all - n_fused}
+    require(all(launches[k] == v for k, v in want_rs.items()),
+            f"the reservoir kernel's launches "
+            f"{[launches[k] for k in want_rs]}, not "
+            f"{list(want_rs.values())} (the fused entry once a fused batch, "
+            f"the rows-given one once an unfused batch)")
+    require(sampler_probes == {"fused": 0, "unfused": n_all - n_fused},
+            f"the sampler stack's plain probes by batch kind: "
+            f"{sampler_probes}, not none in a fused batch and one in each "
+            f"unfused batch")
     want_ams = {"onehot_probe_scatter@ams": n_fused,
                 "onehot_scatter_add@ams": n_all - n_fused,
                 "onehot_scatter_add@fresh@ams": n_all}
@@ -2730,7 +2815,7 @@ def main() -> None:
             "longest_run", "runs", "long_runs", "chain_floor_ms",
             "step_floor_ms", "miss_floor_ms", "misses", "levels",
             "hottest_adds", "split_device_ms", "walks", "writes",
-            "past_fill", "start",
+            "past_fill", "start", "two_stacks_device_ms",
             "first_touch_ms", "first_touch_device_ms",
             "lanes", "sectors", "hottest_lane", "k", "plain_timing",
             "library") if k in r})

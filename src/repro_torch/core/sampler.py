@@ -20,11 +20,13 @@ Differences from the reference:
   * ``add_batch`` updates ``state`` in place and skips masked tuples (a
     masked step of the reference writes its slot back unchanged and
     leaves ``n_seen``).
-  * There is no ``stacked_add_batch``: a stack is updated by
-    :meth:`ReservoirSampler.scan_update`, which groups the batch by row
-    (the hand-written kernel of ``kernels/reservoir_scan.py`` on the
-    card), where the reference vmaps ``add_batch`` over every row with
-    the whole batch masked.
+  * There is no ``stacked_add_batch``: the engine updates a stack through
+    the registry kernel ``"reservoir_scan"`` (``kernels/ops.py``, the
+    routing probe fused in unless ``SDE_FUSED_PROBE`` is off), and
+    ``batched.stacked_update`` through :meth:`ReservoirSampler.scan_update`;
+    both group the batch by row (the hand-written kernel of
+    ``kernels/reservoir_scan.py`` on the card), where the reference vmaps
+    ``add_batch`` over every row with the whole batch masked.
   * ``estimate`` and ``stacked_estimate`` answer ``items`` as
     ``torch.uint32`` (the int32 bits viewed), so an answer brought to the
     host is the reference's uint32 array and ids of 2**31 and above stay
@@ -82,6 +84,7 @@ class ReservoirSampler:
     seed: int = 41
 
     merge_mode = "gather"
+    update_kernel = "reservoir_scan"     # kernels.ops registry name
 
     def init(self, device) -> dict:
         s = self.sample_size

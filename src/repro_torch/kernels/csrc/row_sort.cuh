@@ -35,6 +35,14 @@
 // equal rows keep batch order.
 // The first pass drops the tuples outside [0, n).
 //
+// The two steps are device functions over a virtual block index
+// (sort_hist_tile, or sort_hist_keys for keys a block already holds, and
+// sort_scatter_tile), so that a persistent kernel can run
+// them between grid-wide barriers (reservoir_scan.cu); kCoherent then reads
+// what other blocks of the same launch wrote through L2 (ld.global.cg), and
+// a last pass given head / end also records each row's first and one past
+// its last sorted position. sort_rows launches them as kernels.
+//
 // Scratch (SortScratch, from the caller's int32 words) holds the count,
 // the [block, digit] counts, each pass's totals and group sums (set to 0
 // by one memset a call) and two (rows, batch index) buffers that the
@@ -133,33 +141,47 @@ __device__ __forceinline__ unsigned peers_of(bool keep, int dg, int bits) {
 
 // Tuple i of block b's tile is b * kSortTile + w * kWarpTile + r * 32 + lane
 // for warp w and round r: a warp's kWarpTile tuples are consecutive.
-__device__ __forceinline__ long long tile_base() {
-  return (long long)blockIdx.x * kSortTile + (threadIdx.x >> 5) * kWarpTile +
+__device__ __forceinline__ long long tile_base(int vb) {
+  return (long long)vb * kSortTile + (threadIdx.x >> 5) * kWarpTile +
          (threadIdx.x & 31);
 }
 
-// Step 1. The pass's input is the batch's rows (first: T tuples, those in
-// [0, n) kept) or the previous pass's output (*count tuples, all kept).
-__global__ void __launch_bounds__(kSortThreads)
-sort_hist_kernel(const int32_t* __restrict__ keys, int n, int T,
-                 const int32_t* __restrict__ count, bool first, int shift,
-                 int bits, int32_t* __restrict__ hist,
-                 int32_t* __restrict__ sums) {
+// A pass's input (keys, batch indices): through the read-only cache, or,
+// when another block of the same launch wrote it, through L2.
+template <bool kCoherent>
+__device__ __forceinline__ int32_t sort_in(const int32_t* p) {
+  if constexpr (kCoherent) return __ldcg(p);
+  else return __ldg(p);
+}
+
+// The counts and sums of a pass, written by the launch before (or, with
+// kCoherent, by the phase before).
+template <bool kCoherent>
+__device__ __forceinline__ int32_t sort_sum(const int32_t* p) {
+  if constexpr (kCoherent) return __ldcg(p);
+  else return *p;
+}
+
+// head[r] holds kHeadBias - (row r's first sorted position), so that an
+// integer atomicMax over a zeroed array keeps the least position.
+constexpr int32_t kHeadBias = 0x7fffffff;
+
+// Step 1, for virtual block vb. The pass's input is the batch's rows
+// (first: T tuples, those in [0, n) kept) or the previous pass's output
+// (*count tuples, all kept).
+// The histogram of virtual block vb's keys, held by its threads (key[r]:
+// tuple tile_base(vb) + 32 r; -1 or any key outside [0, n): none).
+__device__ __forceinline__ void sort_hist_keys(
+    int vb, const int (&key)[kSortItems], int n, int shift, int bits,
+    int32_t* __restrict__ hist, int32_t* __restrict__ sums) {
   __shared__ int s_hist[kMaxRadix];
   const int radix = 1 << bits;
   const int lane = threadIdx.x & 31;
   for (int i = threadIdx.x; i < radix; i += kSortThreads) s_hist[i] = 0;
-  const long long len = first ? T : *count;
-  const long long i0 = tile_base();
-  int key[kSortItems];
-#pragma unroll
-  for (int r = 0; r < kSortItems; ++r) {
-    key[r] = i0 + r * 32 < len ? __ldg(keys + i0 + r * 32) : -1;
-  }
   __syncthreads();
 #pragma unroll
   for (int r = 0; r < kSortItems; ++r) {
-    const bool keep = i0 + r * 32 < len && key[r] >= 0 && key[r] < n;
+    const bool keep = key[r] >= 0 && key[r] < n;
     const int dg = (key[r] >> shift) & (radix - 1);
     const unsigned peers = peers_of(keep, dg, bits);
     if (keep && (peers & ((1u << lane) - 1u)) == 0u) {
@@ -167,29 +189,49 @@ sort_hist_kernel(const int32_t* __restrict__ keys, int n, int T,
     }
   }
   __syncthreads();
-  int32_t* const group = sums + (1 + blockIdx.x / kGroup) * kMaxRadix;
+  int32_t* const group = sums + (1 + vb / kGroup) * kMaxRadix;
   for (int i = threadIdx.x; i < radix; i += kSortThreads) {
     const int c = s_hist[i];
-    hist[(long long)blockIdx.x * kMaxRadix + i] = c;
+    hist[(long long)vb * kMaxRadix + i] = c;
     if (c != 0) {
       atomicAdd(sums + i, c);
       atomicAdd(group + i, c);
     }
   }
+  __syncthreads();                 // s_hist is free for the next tile
 }
 
-// Step 2. Where each digit of this block begins, then the ranks: each
-// kept tuple (row, batch index) goes to that place + the tuples of its
-// digit in the warps before its own + its rank in its warp. perm ==
-// nullptr: the first pass, whose batch index is the position.
-__global__ void __launch_bounds__(kSortThreads)
-sort_scatter_kernel(const int32_t* __restrict__ keys,
-                    const int32_t* __restrict__ perm, int n, int T,
-                    int32_t* __restrict__ count, int shift, int bits,
-                    const int32_t* __restrict__ hist,
-                    const int32_t* __restrict__ sums,
-                    int32_t* __restrict__ keys_out,
-                    int32_t* __restrict__ perm_out) {
+template <bool kCoherent>
+__device__ __forceinline__ void sort_hist_tile(
+    int vb, const int32_t* __restrict__ keys, int n, int T,
+    const int32_t* __restrict__ count, bool first, int shift, int bits,
+    int32_t* __restrict__ hist, int32_t* __restrict__ sums) {
+  const long long len = first ? T : sort_sum<kCoherent>(count);
+  const long long i0 = tile_base(vb);
+  int key[kSortItems];
+#pragma unroll
+  for (int r = 0; r < kSortItems; ++r) {
+    key[r] = i0 + r * 32 < len ? sort_in<kCoherent>(keys + i0 + r * 32) : -1;
+  }
+  sort_hist_keys(vb, key, n, shift, bits, hist, sums);
+}
+
+// Step 2, for virtual block vb. Where each digit of this block begins,
+// then the ranks: each kept tuple (row, batch index) goes to that place +
+// the tuples of its digit in the warps before its own + its rank in its
+// warp. perm == nullptr: the first pass, whose batch index is the position.
+// Given head and end (the last pass), each warp's first and last tuple of
+// a row among the staged ones raise head[row] (kHeadBias - position) and
+// end[row] (position + 1), both zero before: the row's run is [kHeadBias -
+// head, end) once every block has run.
+template <bool kCoherent>
+__device__ __forceinline__ void sort_scatter_tile(
+    int vb, const int32_t* __restrict__ keys,
+    const int32_t* __restrict__ perm, int n, int T,
+    int32_t* __restrict__ count, int shift, int bits,
+    const int32_t* __restrict__ hist, const int32_t* __restrict__ sums,
+    int32_t* __restrict__ keys_out, int32_t* __restrict__ perm_out,
+    int32_t* __restrict__ head, int32_t* __restrict__ end) {
   __shared__ int s_cnt[kSortWarps][kMaxRadix];  // a warp's counts by digit
   __shared__ int s_base[kMaxRadix];    // output position - staged position
   __shared__ int s_lbase[kMaxRadix];   // where the digit's staged run begins
@@ -203,14 +245,14 @@ sort_scatter_kernel(const int32_t* __restrict__ keys,
   const int warp = threadIdx.x >> 5;
   const int g = threadIdx.x;                    // radix <= kSortThreads
   for (int i = lane; i < radix; i += 32) s_cnt[warp][i] = 0;
-  const long long len = first ? T : *count;
-  const long long i0 = tile_base();
+  const long long len = first ? T : sort_sum<kCoherent>(count);
+  const long long i0 = tile_base(vb);
   int key[kSortItems], tix[kSortItems], dg[kSortItems], rank[kSortItems];
 #pragma unroll
   for (int r = 0; r < kSortItems; ++r) {
     const long long i = i0 + r * 32;
-    key[r] = i < len ? __ldg(keys + i) : -1;
-    tix[r] = first ? (int)i : (i < len ? __ldg(perm + i) : 0);
+    key[r] = i < len ? sort_in<kCoherent>(keys + i) : -1;
+    tix[r] = first ? (int)i : (i < len ? sort_in<kCoherent>(perm + i) : 0);
   }
   // digit g: its tuples in all blocks, and in the blocks before this one
   // (its group's blocks before it, then the groups before its group),
@@ -218,20 +260,24 @@ sort_scatter_kernel(const int32_t* __restrict__ keys,
   // load-adds waits out one memory latency a load
   int total = 0, before = 0;
   if (g < radix) {
-    const int grp = blockIdx.x / kGroup;
+    const int grp = vb / kGroup;
     int part[kGroup];
 #pragma unroll
     for (int i = 0; i < kGroup; ++i) {
       const int b = grp * kGroup + i;
-      part[i] = b < (int)blockIdx.x ? hist[(long long)b * kMaxRadix + g] : 0;
+      part[i] = b < vb ? sort_sum<kCoherent>(hist + (long long)b * kMaxRadix +
+                                             g)
+                       : 0;
     }
-    total = sums[g];
+    total = sort_sum<kCoherent>(sums + g);
 #pragma unroll
     for (int i = 0; i < kGroup; ++i) before += part[i];
     for (int q0 = 0; q0 < grp; q0 += kGroup) {
 #pragma unroll
       for (int i = 0; i < kGroup; ++i) {
-        part[i] = q0 + i < grp ? sums[(1 + q0 + i) * kMaxRadix + g] : 0;
+        part[i] = q0 + i < grp
+                      ? sort_sum<kCoherent>(sums + (1 + q0 + i) * kMaxRadix + g)
+                      : 0;
       }
 #pragma unroll
       for (int i = 0; i < kGroup; ++i) before += part[i];
@@ -286,7 +332,7 @@ sort_scatter_kernel(const int32_t* __restrict__ keys,
     }
     s_lbase[g] = lrun;
     s_base[g] = run + before - lrun;
-    if (first && blockIdx.x == 0 && g == radix - 1) *count = run + total;
+    if (first && vb == 0 && g == radix - 1) *count = run + total;
   }
   __syncthreads();
 #pragma unroll
@@ -304,34 +350,90 @@ sort_scatter_kernel(const int32_t* __restrict__ keys,
     const int pos = s_base[(k >> shift) & (radix - 1)] + i;
     keys_out[pos] = k;
     perm_out[pos] = s_tix[i];
+    if (head != nullptr) {         // staged tuples are in sorted order
+      if (lane == 0 || s_key[i - 1] != k) atomicMax(head + k, kHeadBias - pos);
+      if (lane == 31 || i + 1 == kept || s_key[i + 1] != k)
+        atomicMax(end + k, pos + 1);
+    }
   }
+  __syncthreads();                 // the staging is free for the next tile
+}
+
+__global__ void __launch_bounds__(kSortThreads)
+sort_hist_kernel(const int32_t* __restrict__ keys, int n, int T,
+                 const int32_t* __restrict__ count, bool first, int shift,
+                 int bits, int32_t* __restrict__ hist,
+                 int32_t* __restrict__ sums) {
+  sort_hist_tile<false>(blockIdx.x, keys, n, T, count, first, shift, bits,
+                        hist, sums);
+}
+
+__global__ void __launch_bounds__(kSortThreads)
+sort_scatter_kernel(const int32_t* __restrict__ keys,
+                    const int32_t* __restrict__ perm, int n, int T,
+                    int32_t* __restrict__ count, int shift, int bits,
+                    const int32_t* __restrict__ hist,
+                    const int32_t* __restrict__ sums,
+                    int32_t* __restrict__ keys_out,
+                    int32_t* __restrict__ perm_out) {
+  sort_scatter_tile<false>(blockIdx.x, keys, perm, n, T, count, shift, bits,
+                           hist, sums, keys_out, perm_out, nullptr, nullptr);
+}
+
+// The passes of a sort of rows in [0, n): ceil(log2 n) bits in passes of
+// equal width, at most kMaxDigitBits each (one pass of 0 bits at n <= 1).
+struct SortPlan {
+  int passes, bits;
+};
+
+__host__ __device__ inline SortPlan sort_plan(int n) {
+  int nbits = 0;
+  while (nbits < 31 && (1u << nbits) < (unsigned)n) ++nbits;
+  const int passes =
+      nbits > 0 ? (nbits + kMaxDigitBits - 1) / kMaxDigitBits : 1;
+  return {passes, (nbits + passes - 1) / passes};
+}
+
+// Pass p's buffers: the passes alternate so that the last one writes srow /
+// perm; the first reads `rows` (its batch index is the position).
+struct SortPass {
+  const int32_t* in_k;
+  const int32_t* in_p;
+  int32_t* out_k;
+  int32_t* out_p;
+  int32_t* sums;
+  int shift;
+};
+
+__host__ __device__ inline SortPass sort_pass(const SortScratch& s,
+                                              const int32_t* rows, int p,
+                                              const SortPlan& plan) {
+  const bool to_main = (plan.passes - 1 - p) % 2 == 0;
+  SortPass q;
+  q.in_k = p == 0 ? rows : (to_main ? s.keys2 : s.srow);
+  q.in_p = p == 0 ? nullptr : (to_main ? s.perm2 : s.perm);
+  q.out_k = to_main ? s.srow : s.keys2;
+  q.out_p = to_main ? s.perm : s.perm2;
+  q.sums = s.sums + (long long)p * (1 + s.groups) * kMaxRadix;
+  q.shift = p * plan.bits;
+  return q;
 }
 
 // Sort rows [T] (rows outside [0, n) dropped) into s.srow / s.perm, T' into
 // *s.count, on `stream`. Returns the launches' error.
 inline cudaError_t sort_rows(const int32_t* rows, int n, int T,
                              const SortScratch& s, cudaStream_t stream) {
-  const int nbits = n > 1 ? 32 - __builtin_clz((unsigned)(n - 1)) : 0;
-  const int passes =
-      nbits > 0 ? (nbits + kMaxDigitBits - 1) / kMaxDigitBits : 1;
-  const int bits = (nbits + passes - 1) / passes;
+  const SortPlan plan = sort_plan(n);
   const cudaError_t zero = cudaMemsetAsync(
       s.sums, 0, sizeof(int32_t) * s.sums_words, stream);
   if (zero != cudaSuccess) return zero;
-  for (int p = 0; p < passes; ++p) {
-    const bool first = p == 0;
-    // the passes alternate buffers so that the last one writes srow / perm
-    const bool to_main = (passes - 1 - p) % 2 == 0;
-    const int32_t* in_k = first ? rows : (to_main ? s.keys2 : s.srow);
-    const int32_t* in_p = first ? nullptr : (to_main ? s.perm2 : s.perm);
-    int32_t* const out_k = to_main ? s.srow : s.keys2;
-    int32_t* const out_p = to_main ? s.perm : s.perm2;
-    const int shift = p * bits;
-    int32_t* const sums = s.sums + (long long)p * (1 + s.groups) * kMaxRadix;
+  for (int p = 0; p < plan.passes; ++p) {
+    const SortPass q = sort_pass(s, rows, p, plan);
     sort_hist_kernel<<<s.blocks, kSortThreads, 0, stream>>>(
-        in_k, n, T, s.count, first, shift, bits, s.hist, sums);
+        q.in_k, n, T, s.count, p == 0, q.shift, plan.bits, s.hist, q.sums);
     sort_scatter_kernel<<<s.blocks, kSortThreads, 0, stream>>>(
-        in_k, in_p, n, T, s.count, shift, bits, s.hist, sums, out_k, out_p);
+        q.in_k, q.in_p, n, T, s.count, q.shift, plan.bits, s.hist, q.sums,
+        q.out_k, q.out_p);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }

@@ -63,7 +63,8 @@ import torch
 
 from repro_torch.core import batched, hashing
 from . import (bitset_or, flash_attention as fa, fm_bitmap, hll_max,
-               onehot_matmul, pairwise_corr, probe, rhp_project, sliding_dft)
+               onehot_matmul, pairwise_corr, probe, reservoir_scan,
+               rhp_project, sliding_dft)
 
 _FALSY = ("0", "false", "no", "off")
 
@@ -351,9 +352,29 @@ def _rhp_kernel(kind, fuse):
     return fn
 
 
+def _sampler_kernel(kind, fuse):
+    """The chain sampler's update: routed rows and data-source rows in one
+    launch of the reservoir kernel, the probe inside it or ahead of it."""
+    def fn(state, klo, khi, trows, slo, shi, items, vals, msk, src_rows, *,
+           n_probe):
+        leaves = (state["values"], state["items"], state["n_seen"])
+        if fuse:
+            reservoir_scan.reservoir_probe_scan_update(
+                *leaves, klo, khi, trows, slo, shi, items, vals, msk,
+                src_rows, n_probe=n_probe, seed=kind.seed)
+        else:
+            syn = route_probe(klo, khi, trows, slo, shi, n_probe=n_probe)
+            reservoir_scan.reservoir_scan_update(*leaves, syn, items, vals,
+                                                 msk, src_rows,
+                                                 seed=kind.seed)
+        return state
+    return fn
+
+
 register_update_kernel("countmin_scatter", _countmin_kernel)
 register_update_kernel("ams_scatter", _ams_kernel)
 register_update_kernel("hll_max", _hll_kernel)
 register_update_kernel("bloom_bitset", _bloom_kernel)
 register_update_kernel("fm_bitmap", _fm_kernel)
 register_update_kernel("rhp_project", _rhp_kernel)
+register_update_kernel("reservoir_scan", _sampler_kernel)

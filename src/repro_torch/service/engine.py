@@ -571,10 +571,10 @@ class SDE:
 # ---------------------------------------------------------------------------
 # blue-path update: the kind's registry kernel (probe fused unless
 # SDE_FUSED_PROBE is off), routed rows and data-source rows in one call,
-# state updated in place. A kind without a registry kernel (the scan-path
-# kinds) takes the probe, then ``batched.stacked_update``, as in the
-# reference; SDE_FUSED_PROBE does not touch it. Time-series kinds take
-# the step path (``_step_all``) instead.
+# state updated in place; the chain sampler's is the reservoir kernel. A
+# kind without a registry kernel (Lossy Counting) takes the probe, then
+# ``batched.stacked_update``, as in the reference; SDE_FUSED_PROBE does not
+# touch it. Time-series kinds take the step path (``_step_all``) instead.
 # ---------------------------------------------------------------------------
 def _update(kind, n_probe, state, klo, khi, trows, sid_lo, sid_hi, items,
             vals, msk, src_rows=None):

@@ -34,7 +34,9 @@ kept apart at a ragged Sk (a neighbour head's K and V all inf), and a
 BH * S * D past 2**31; for the reservoir sampler's update empty rows,
 rows past the fill (counts above 2**24 and up to 2**31 - 2T), one hot
 row, several source rows (one also routed to, one listed twice), runs
-within and across a warp's 32 positions, S = 1 to 100, byte for byte.
+within and across a warp's 32 positions, S = 1 to 100, byte for byte,
+through both entry points (the probe fused in: a table at 0.7 load, ids
+found on the probe's last step or displaced one slot past it).
 Tests marked ``cuda`` need a card; run them there with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -47,10 +49,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import (bitset_or, flash_attention, fm_bitmap,
-                                 hll_max, lossy_scan, onehot_matmul, ops,
-                                 pairwise_corr, probe, ref, reservoir_scan,
-                                 rhp_project, sliding_dft)
+from repro_torch.kernels import (bitset_or, build, flash_attention,
+                                 fm_bitmap, hll_max, lossy_scan,
+                                 onehot_matmul, ops, pairwise_corr, probe,
+                                 ref, reservoir_scan, rhp_project,
+                                 sliding_dft)
 from repro_torch.service import routing
 
 
@@ -1473,6 +1476,135 @@ def test_reservoir_scan_rejects_bad_operands_and_skips_empty_batches(dev):
     empty = [x[:0] for x in batch[:4]]
     snapshot = [x.clone() for x in state]
     update(*state, *empty, src, seed=RESERVOIR_SEED)
+    assert update.launches == before
+    assert all(torch.equal(a, b) for a, b in zip(state, snapshot))
+
+
+@pytest.mark.cuda
+def test_reservoir_scan_keeps_a_scratch_for_each_size(dev):
+    """Two stacks of different sizes updated in turn, as an engine with
+    two sampler kinds does in every batch: each size keeps its own zeroed
+    scratch (the same buffer in every round), and every call stays
+    byte-equal to the plain version."""
+    cases = [_reservoir_case(np.random.RandomState(7 + s), 9, s, 3000, [2],
+                             "mixed", dev) for s in (64, 16)]
+    states = [[x.clone() for x in st] for st, _ in cases]
+    wants = [[x.clone() for x in st] for st, _ in cases]
+    held = reservoir_scan._SCRATCH.setdefault(
+        (dev, build.stream(dev)), {})
+    ptrs = []
+    for _ in range(3):
+        for st, want, (_, batch) in zip(states, wants, cases):
+            reservoir_scan.reservoir_scan_update(*st, *batch,
+                                                 seed=RESERVOIR_SEED)
+            ref.reservoir_scan_update(*want, *batch, seed=RESERVOIR_SEED)
+            for a, w in zip(st, want):
+                assert torch.equal(a.view(torch.int32), w.view(torch.int32))
+        ptrs.append([held[(9, s, 3000, 2)].data_ptr() for s in (64, 16)])
+    assert ptrs[0] == ptrs[1] == ptrs[2]
+
+
+def _reservoir_probe_case(rng, n, t, rows, dev, cut):
+    """A routing table for a reservoir case's rows: an id a row in [0, n]
+    (row n lies outside the stack) and filler ids routed past it, filled
+    to the table's 0.7 load so that keys sit many slots from home, the
+    rows in [0, n] given to the most displaced keys; the batch's
+    stream-id halves (an id not in the table where the row is -1);
+    n_probe the longest displacement + 1 - ``cut`` (cut 1: the most
+    displaced keys, the first rows', resolve to -1)."""
+    size = routing.next_pow2(max(64, int((n + 1) / 0.7) + 1))
+    m = max(int(0.7 * size), n + 1)
+    table = routing.RouteTable(size)
+    table.insert_many(np.unique(rng.randint(0, 2**62, 2 * m,
+                                            dtype=np.int64))[:m],
+                      np.zeros(m, np.int32))
+    held = np.nonzero(table.rows >= 0)[0]
+    home = routing.slot_hash(*routing.split64(table.keys[held]), table.size)
+    pop = table.keys[held[np.argsort(-((held - home) % table.size),
+                                     kind="stable")]]
+    table.insert_many(pop, np.arange(len(pop), dtype=np.int32))  # rows only
+    rows = rows.cpu().numpy()
+    sids = np.where(rows >= 0, pop[np.clip(rows, 0, n)],
+                    (1 << 62) + rng.randint(0, 2**40, t))
+    lo, hi = routing.split64(table.keys)
+    slo, shi = routing.split64(sids)
+    c = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return ((c(lo.view(np.int32)), c(hi.view(np.int32)), c(table.rows)),
+            (c(slo.view(np.int32)), c(shi.view(np.int32))),
+            max(table.max_probe - cut, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cut", [0, 1], ids=["all_found", "longest_cut"])
+@pytest.mark.parametrize("n,s,t,sources,pattern", _RESERVOIR_CASES)
+def test_reservoir_probe_scan_matches_plain_byte_for_byte(dev, n, s, t,
+                                                          sources, pattern,
+                                                          cut):
+    """The fused entry (the probe in the kernel's first phase) against
+    the plain probe plus the plain version, on every case above, over a
+    table at 0.7 load with n_probe its longest displacement + 1 (every id
+    found on its last step) or one less (the most displaced ids take no
+    row); two runs byte-equal, one launch a call, and a rows-given call
+    between them at the same sizes (the two share the stream's scratch)."""
+    rng = np.random.RandomState(n + s + t + cut)
+    state, batch = _reservoir_case(rng, n, s, t, sources, pattern, dev)
+    rows, in_items, vals, mask, src = batch
+    table, sids, n_probe = _reservoir_probe_case(rng, n, t, rows, dev, cut)
+    plain_rows = probe.probe_rows(*table, *sids, n_probe=n_probe)
+    found = bool((plain_rows == torch.where(rows >= 0, rows, -1)).all())
+    assert found if not cut else (t < 32 or not found)   # cut: rows dropped
+    outs = []
+    fused = reservoir_scan.reservoir_probe_scan_update
+    before = (fused.launches, reservoir_scan.reservoir_scan_update.launches)
+    for _ in range(2):
+        st = [x.clone() for x in state]
+        fused(*st, *table, *sids, in_items, vals, mask, src,
+              n_probe=n_probe, seed=RESERVOIR_SEED)
+        outs.append(st)
+        other = [x.clone() for x in state]
+        reservoir_scan.reservoir_scan_update(*other, plain_rows, in_items,
+                                             vals, mask, src,
+                                             seed=RESERVOIR_SEED)
+    assert (fused.launches, reservoir_scan.reservoir_scan_update.launches) \
+        == (before[0] + 2, before[1] + 2)
+    torch.cuda.synchronize()
+    want = [x.clone() for x in state]
+    ref.reservoir_scan_update(*want, plain_rows, in_items, vals, mask, src,
+                              seed=RESERVOIR_SEED)
+    for a, b, o, w in zip(*outs, other, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert torch.equal(a.view(torch.int32), w.view(torch.int32))
+        assert torch.equal(o.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_reservoir_probe_scan_rejects_bad_operands_and_skips_empty_batches(
+        dev):
+    rng = np.random.RandomState(2)
+    state, batch = _reservoir_case(rng, 5, 16, 64, [1], "mixed", dev)
+    rows, in_items, vals, mask, src = batch
+    table, sids, n_probe = _reservoir_probe_case(rng, 5, 64, rows, dev, 0)
+    update = reservoir_scan.reservoir_probe_scan_update
+    before = update.launches
+    call = lambda st, tb, sd, *rest: update(*st, *tb, *sd, *rest, src,
+                                            n_probe=n_probe,
+                                            seed=RESERVOIR_SEED)
+    with pytest.raises(TypeError):
+        call(state, table, sids, in_items, vals, mask.to(torch.int32))
+    with pytest.raises(TypeError):
+        call(state, table, (sids[0].long(), sids[1]), in_items, vals, mask)
+    with pytest.raises(ValueError):                  # size not a power of 2
+        call(state, [x[:-1] for x in table], sids, in_items, vals, mask)
+    with pytest.raises(ValueError):
+        call(state, table, (sids[0][:-1], sids[1]), in_items, vals, mask)
+    with pytest.raises(ValueError):
+        call(state, (table[0].cpu(), *table[1:]), sids, in_items, vals, mask)
+    with pytest.raises(ValueError):
+        call((state[0][:, :-1], *state[1:]), table, sids, in_items, vals,
+             mask)
+    snapshot = [x.clone() for x in state]
+    call(state, table, [x[:0] for x in sids], in_items[:0], vals[:0],
+         mask[:0])
     assert update.launches == before
     assert all(torch.equal(a, b) for a, b in zip(state, snapshot))
 

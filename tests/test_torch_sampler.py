@@ -3,10 +3,12 @@ package: the kind (``core/sampler.py``) at S = 1, 16 and 64, with counts
 from 0 through the fill, near 2**24 (where float32(n + 1) rounds) and up
 to 2**31 - 2T; its queries and merge; the stacked update
 (``batched.stacked_update``'s scan branch, whose CPU route is the
-reservoir kernel's plain version) against the reference's vmap; a CPU
-model of the kernel's order (rank, slot, then each slot's last writer)
-against the per-tuple loop; and the engine's JSON flow through
-``SDE.handle`` in both packages, then carried across by
+reservoir kernel's plain version) against the reference's vmap; the
+registry update (``ops.resolve_update_kernel``, the probe fused or not)
+against the reference's probe and vmap; a CPU model of the kernel's
+order (rank, slot, then each slot's last writer) against the per-tuple
+loop; and the engine's JSON flow through ``SDE.handle`` in both
+packages (the registry route, probe fused), then carried across by
 ``convert.engine_from_contents``.
 
 Everything agrees byte for byte: ``items`` compared as uint32 bits,
@@ -22,6 +24,7 @@ import torch
 from repro import core as jcore
 from repro.core import batched as jbatched
 from repro.core import sampler as jsampler
+from repro.kernels import ops as jops
 from repro.service import SDE as JaxSDE
 from test_torch_convert import jax_contents
 from test_torch_cuda import (RESERVOIR_SEED, _RESERVOIR_CASES,
@@ -189,6 +192,102 @@ def test_stacked_update_matches_jax_vmap(s, sources):
     assert np.array_equal(tstate["n_seen"][n - 3:].numpy(), n0[n - 3:])
 
 
+def _registry_inputs(seed, s, sources, t=900):
+    """A stack of 32 rows at counts 0 to past 2**24, and a batch of stream
+    ids on a 64-slot routing table whose first 6 ids share a start slot
+    (displaced 0-5 slots, beyond ``n_probe`` = 2 for the last 3): Zipf-hot
+    routed ids, ids not in the table, negative ids (masked, as ingest masks
+    them) and a fifth masked, items past 2**31; ``sources`` data-source
+    rows, the first of them also routed to."""
+    rng = np.random.RandomState(seed)
+    cand = np.arange(1, 200000, dtype=np.int64)
+    home = routing.slot_hash(*routing.split64(cand), 64)
+    cluster = cand[home == home[0]][:6]
+    pop = np.concatenate([cluster, rng.randint(2**40, 2**62, 24,
+                                               dtype=np.int64)])
+    table = routing.RouteTable(64)
+    table.insert_many(pop, np.arange(len(pop), dtype=np.int32))
+    assert table.size == 64 and table.max_probe >= 6
+    n = len(pop) + 2
+    p = 1.0 / np.arange(1, len(pop) + 1) ** 1.1
+    sids = pop[rng.choice(len(pop), t, p=p / p.sum())]
+    sids[::23] = cluster[rng.randint(0, 6, sids[::23].size)]
+    sids[::13] = rng.randint(2**62, 2**63 - 1, sids[::13].size,
+                             dtype=np.int64)             # not in the table
+    sids[5::41] = -7                                     # negative
+    items = routing.fold64(sids)
+    items[::9] |= np.uint32(2**31)
+    mask = (rng.rand(t) > 0.2) & (sids >= 0)
+    vals = (rng.randn(t) * 3).astype(np.float32)
+    n0 = rng.choice([0, 3, s - 1, s, 40 * s, 2**24 - 10], n).astype(np.int32)
+    full = n0[:, None] > np.arange(s)[None, :]
+    state = dict(values=np.where(full, rng.randn(n, s), 0).astype(np.float32),
+                 items=np.where(full, rng.randint(0, 2**32, (n, s)),
+                                0).astype(np.uint32),
+                 n_seen=n0)
+    klo, khi = routing.split64(table.keys)
+    slo, shi = routing.split64(sids)
+    src = None if sources is None else np.asarray(sources, np.int32)
+    return dict(table=(klo, khi, table.rows), sids=(slo, shi), items=items,
+                vals=vals, mask=mask, src=src, state=state, n_probe=2,
+                pop=pop)
+
+
+@pytest.mark.parametrize("sources", [None, [3, 31, 3]],
+                         ids=["no_source", "sources"])
+@pytest.mark.parametrize("fuse", [True, False], ids=["fused", "unfused"])
+def test_registry_update_matches_jax_probe_and_vmap(fuse, sources):
+    """The registry's sampler update (``resolve_update_kernel``: the fused
+    entry, or the plain probe ahead of the rows-given one) over two
+    batches, byte for byte against the JAX package's probe plus its vmapped
+    ``stacked_update`` and against the port's ``route_probe`` plus
+    ``batched.stacked_update``: ids displaced beyond ``n_probe``, ids not
+    in the table and negative ids take no row, hot rows take runs of many
+    tuples, data-source rows every masked tuple."""
+    s = 16
+    jk = jcore.make_kind("chain_sampler", sample_size=s)
+    tk = tcore.make_kind("chain_sampler", sample_size=s)
+    assert tk.update_kernel == "reservoir_scan"
+    x = _registry_inputs(3 + (sources is None), s, sources)
+    jstate = _jstate(x["state"])
+    tstate = {k: _t(v) for k, v in x["state"].items()}
+    plain = {k: v.clone() for k, v in tstate.items()}
+    fn = tops.resolve_update_kernel(tk, fuse)
+    before = (reservoir_scan.reservoir_scan_update.launches,
+              reservoir_scan.reservoir_probe_scan_update.launches)
+    for _ in range(2):
+        jargs = [jnp.asarray(a) for a in (*x["table"], *x["sids"])]
+        rows = jops.route_probe(*jargs, n_probe=x["n_probe"])
+        jstate = jbatched.stacked_update(
+            jk, jstate, rows, jnp.asarray(x["items"]), jnp.asarray(x["vals"]),
+            jnp.asarray(x["mask"]),
+            None if x["src"] is None else jnp.asarray(x["src"]))
+        targs = [_t(a) for a in (*x["table"], *x["sids"], x["items"],
+                                 x["vals"], x["mask"])]
+        src = None if x["src"] is None else _t(x["src"]).long()
+        assert fn(tstate, *targs, src, n_probe=x["n_probe"]) is tstate
+        trows = tops.route_probe(*targs[:5], n_probe=x["n_probe"])
+        assert np.array_equal(trows.numpy(), np.asarray(rows))
+        tbatched.stacked_update(tk, plain, trows, *targs[5:], src)
+        _same_state(tstate, jstate)
+        _same_state(plain, jstate)
+    assert (reservoir_scan.reservoir_scan_update.launches,
+            reservoir_scan.reservoir_probe_scan_update.launches) == before
+    rows = np.asarray(rows)
+    sid64 = (x["sids"][1].astype(np.int64) << 32) | x["sids"][0]
+    known = np.isin(sid64, x["pop"])
+    assert ((rows == -1) & known).sum() > 0              # displaced
+    assert ((rows == -1) & ~known & (sid64 >= 0)).sum() > 0
+    assert (sid64 < 0).sum() > 0
+    routed = rows[x["mask"] & (rows >= 0)]
+    assert np.bincount(routed).max() > 64                 # runs over warps
+    n_seen = tstate["n_seen"].numpy()
+    spare = len(x["pop"])                                  # no id, no source
+    assert n_seen[spare] == x["state"]["n_seen"][spare]
+    if sources is not None:                  # every masked tuple, twice
+        assert n_seen[31] == x["state"]["n_seen"][31] + 2 * x["mask"].sum()
+
+
 def _model_scan(state, batch, seed):
     """A test-only model of the reservoir kernel's order of operations
     (``csrc/reservoir_scan.cu``): the key pass (routed tuples of source
@@ -325,14 +424,24 @@ def _sampler_requests(rng, ids, extra, n_batches=3, t=300):
     return reqs
 
 
-def test_engine_json_flow_matches_jax_engine():
+def test_engine_json_flow_matches_jax_engine(monkeypatch):
     """Per-stream (growing past 64 rows), data-source, continuous and
     single-stream (sample_size 16) samplers through ``SDE.handle``: the
     same JSON responses (items of 2**31 and above as the same positive
     numbers), states, continuous emissions and status; each per-stream
     sample holds only its own folded id; then stop, rebuild (an empty
     sample) and a converted engine that keeps ingesting like the
-    reference."""
+    reference. Every ingest takes the registry route, the probe fused
+    into the reservoir update (its plain version here)."""
+    fused = reservoir_scan.reservoir_probe_scan_update
+    calls = collections.Counter()
+
+    def spy(*args, **kwargs):
+        calls["fused"] += 1
+        return fused(*args, **kwargs)
+
+    monkeypatch.setattr(reservoir_scan, "reservoir_probe_scan_update", spy)
+    monkeypatch.setenv("SDE_FUSED_PROBE", "1")
     rng = np.random.RandomState(41)
     ids = [int(s) for s in np.unique(rng.randint(0, 2**63 - 1, size=70,
                                                  dtype=np.int64))]
@@ -386,6 +495,7 @@ def test_engine_json_flow_matches_jax_engine():
     n_ingest = sum(q["type"] == "ingest" for q in reqs)
     assert tops.DISPATCH_COUNT["update:ReservoirSampler"] - before == \
         2 * n_ingest                # two kind stacks: S = 64 and 16
+    assert calls["fused"] == 2 * n_ingest
     own = dict(zip(ids, routing.fold64(np.asarray(ids, np.int64)).tolist()))
     seen = 0
     for i in ids:
