@@ -2,12 +2,12 @@
 """Drive the PyTorch port's main path on one CUDA card and hold every
 hand-written kernel against its plain PyTorch version.
 
-    python3 chip_smoke.py            # needs one CUDA card; ~6-7 minutes
+    python3 chip_smoke.py            # needs one CUDA card; ~7-8 minutes
 
 Phases (any failure raises, so the script exits non-zero without its
 last line; each phase prints its peak device memory, held under 48 GiB):
 
-  1. Card and build: ``nvidia-smi`` name and power limit, then the eight
+  1. Card and build: ``nvidia-smi`` name and power limit, then the nine
      kernel sources built by ``nvcc`` in parallel.
   2. Each of the thirteen kernel entry points against its plain version at
      the main path's shapes, on a batch of 65,536 tuples with unrouted,
@@ -94,8 +94,27 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      RESERVOIR_ACTIVITIES a call; the bound the bytes (the batch's rows or
      stream ids, items and mask once, the table slots the probes read,
      the value of each slot's last writer, each walked row's n_seen, each
-     slot written once, counted by ``reservoir_writes``). One entry's
-     tensors are held at a time.
+     slot written once, counted by ``reservoir_writes``). Then Sticky
+     Sampling's update (no TPU counterpart): first the kernel's own
+     float-function lookups (``sticky_scan.eval_tables``) equal to the
+     CPU's literal float32 functions, want_epoch at every count from 1 to
+     2**24 and geo at every distinct draw of ``uniform01``; then rows
+     given (``sticky_scan``, the reference's defaults, capacity 288), the
+     probe fused in (``sticky_probe_scan``) and rows given at support
+     0.001, eps 0.0001 (``sticky_scan@cap4096``: 7,195 slots by the
+     formula, capped to 4,096) on the same rows and data-source row, from
+     empty tables and from the state STICKY_PAST_BATCHES batches leave,
+     its counts set (``sticky_bump_state``) so that rows bump at the
+     batch's first step, after their walks and inside the source walk,
+     which the run requires: keys, counts, n_seen and epoch byte-equal
+     to the plain version (its
+     walks on the host) and across two kernel runs, each timed on its
+     starting state restored before every call; the bound the larger of
+     the bytes (``sticky_bytes``: the words the plain version changed,
+     each walked table's keys and each bumped table's counts) and the
+     source walk's hottest slot's dependent updates at FADD_CYCLES, from
+     a host replay (``sticky_replay``) held to the plain version's keys.
+     One entry's tensors are held at a time.
   3. The main path through ``SDE(device="cuda").handle``: per-stream AMS
      (the reference's defaults, [12, 2048]), CM, HLL, Bloom, FM, RHP and
      Figure-6 DFT over 65,536 hashed 63-bit ids; a data-source AMS, CM,
@@ -105,7 +124,10 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      Counting at eps 0.01 (one stack) and a data-source one at eps 0.001
      (its own stack); per-stream, data-source and continuous chain
      samplers at the reference's defaults (S = 64, one stack of 131,072
-     rows, 64.5 MiB); 16 ingest batches of 65,536
+     rows, 64.5 MiB); per-stream and data-source Sticky Sampling at the
+     reference's defaults (one stack of 131,072 rows, 2,312 B a row) and a
+     data-source one at support 0.001, eps 0.0001 (capacity 4,096, its
+     own stack); 16 ingest batches of 65,536
      Zipf(1.1) tuples (half with SDE_FUSED_PROBE=0), then 2 more under
      ``torch.profiler`` (device-busy share and top kernels); 1,024 CM,
      1,024 Bloom, 1,025 RHP, 1,025 DFT, 1,024 AMS and 1,024 per-stream
@@ -126,14 +148,22 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      launch through its fused entry once a fused batch and through the
      rows-given one once an unfused batch, and the sampler's update may
      run the plain probe (``ops.route_probe``) only in unfused batches,
-     once each (``SamplerProbes``). Each per-stream AMS answer must be
+     once each (``ScanProbes``). Each Sticky row's n_seen must equal its
+     fed tuples after every unprofiled batch and after the last, and its
+     epoch the one its next count asks for (its current count's where its
+     last tuple was its batch's last); each per-stream Sticky answer for
+     its own id must equal its stream's fed count while that is below 2t
+     (9,216); the sticky-scan kernel must launch through its fused entry
+     once a fused batch and through the rows-given one once an unfused
+     batch on each of the two Sticky stacks, and their updates may run the
+     plain probe only in unfused batches. Each per-stream AMS answer must be
      float32(total)**2 of its
      stream's exact total weight, the data-source AMS within 0.15 of the
      exact F2 of the items it was fed, the continuous AMS equal to it and
      emitted once a batch. Every stack must equal a replay of the
      same batches through the plain versions on the card (AMS, RHP and
      DFT byte for byte, RHP's and DFT's answers equal to the replay's; the
-     Lossy and sampler stacks as they stood after the first
+     Lossy, sampler and Sticky stacks as they stood after the first
      LOSSY_REPLAY_BATCHES batches, copied there, byte for byte against a
      replay of those batches, since the plain Lossy scan takes tens of
      seconds a batch; the DFT
@@ -178,7 +208,10 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      the scan's and those on tables of 1,000 slots, their ``replaces``
      the JAX counterpart, ``src/repro/core/lossy.py:65``; the two
      reservoir rows' ``replaces`` ``src/repro/core/sampler.py:55``, with
-     their past-the-fill numbers; every row whose counterpart lies under
+     their past-the-fill numbers; the three sticky-scan rows' ``replaces``
+     ``src/repro/core/sticky.py:86``, with their past-epochs numbers and
+     ``@cap4096``'s launches those on tables of 4,096 slots; every row
+     whose counterpart lies under
      ``src/repro/core/`` has ``tpu_kernel`` null), then the device
      line.
 """
@@ -236,6 +269,16 @@ LOSSY_DEVICE_SHARE = 0.9
 # 13-launch design held 66, 64 and 58 in 5 runs)
 RESERVOIR_ACTIVITIES = 1
 PAD_LAUNCHES, PAD_CYCLES = 16, 100_000   # ~0.8 ms of spin at 1,980 MHz
+# Sticky Sampling: the reference's defaults (support 0.01, eps 0.002, delta
+# 0.01: capacity 288), and support 0.001, eps 0.0001 (7,195 slots by the
+# formula, capped to 4,096: the largest table); phase 2's state "past a
+# few epochs" is the one STICKY_PAST_BATCHES of its batches leave, with
+# counts set so that its batch takes every kind of bump (sticky_bump_state)
+STICKY_PARAMS = {}
+STICKY_CAP4096_PARAMS = {"support": 0.001, "eps": 0.0001}
+STICKY_PAST_BATCHES = 5
+STICKY_TIMING_RUNS = 10     # its calls take ms: fewer event runs suffice
+QUEUE_CYCLES = 4_000_000    # ~2 ms of spin at 1,980 MHz: a call's enqueue
 # the paper's Figure-6 DFT (benchmarks/fig6_dft_workflow.py)
 FIG6_DFT = {"window": 128, "n_coeffs": 8, "threshold": 0.9,
             "grid_coeffs": 2}
@@ -377,6 +420,29 @@ def device_ms(fn, runs: int = 5, union: bool = False, prep=None,
     raise RuntimeError(f"{label}: {len(events)} device activities in "
                        f"{runs} runs, {ms:.4f} ms a run against a floor of "
                        f"{floor_ms:.4f}, {WINDOW_TRIES} windows")
+
+
+def queued_device_ms(fn, restore, runs: int = 5) -> float:
+    """Median device time of ``fn()`` over ``runs`` calls, each on the
+    state ``restore()`` makes: CUDA events recorded around the call while
+    a spin kernel ahead of them (``torch.cuda._sleep``, QUEUE_CYCLES)
+    holds the card, so that every launch of the call is queued before
+    the first one runs and no host enqueue lies between the events.
+    torch.profiler recorded no activity of the 4,096-slot sticky walk (a
+    127 ms kernel) in 6 windows of 6, so the long scans are timed so."""
+    times = []
+    for _ in range(runs):
+        restore()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(QUEUE_CYCLES)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
 
 
 def device_split(fn, groups: dict, rest: str, runs: int = 5,
@@ -1795,13 +1861,355 @@ def phase2_reservoir(b, n: int, results: dict) -> None:
     results["reservoir_scan"]["two_stacks_device_ms"] = pair_ms
 
 
+def sticky_stack(n: int, cap: int, dev):
+    """A Sticky stack's four leaves as views of one int32 buffer, so that
+    a restore is one copy: (buffer, {keys [n, cap] i32 (all -1), counts
+    [n, cap] f32, n_seen [n] i32, epoch [n] i32 (all 0)})."""
+    buf = torch.zeros(2 * n * cap + 2 * n, dtype=torch.int32, device=dev)
+    st = dict(keys=buf[:n * cap].view(n, cap),
+              counts=buf[n * cap:2 * n * cap].view(torch.float32).view(n, cap),
+              n_seen=buf[2 * n * cap:2 * n * cap + n],
+              epoch=buf[2 * n * cap + n:])
+    st["keys"].fill_(-1)
+    return buf, st
+
+
+def sticky_leaves(st: dict) -> tuple:
+    return st["keys"], st["counts"], st["n_seen"], st["epoch"]
+
+
+def sticky_replay(kind, keys, counts, n_seen: int, epoch: int,
+                  items: torch.Tensor, end_check: bool) -> dict:
+    """A host replay of one Sticky table's walk over its own ``items`` in
+    order (keys [cap] i32, counts [cap] f32 as the batch found them),
+    with the reference's checks: the batch's first, one before each
+    tuple, and with ``end_check`` the one after the last. It counts what
+    the walk's dependences need: ``bumps``, ``hits``, ``takes`` (empty
+    slots taken), ``hottest`` (the most dependent updates of one slot: its
+    adds, and a subtract at each bump) and the ``keys`` after, which a
+    caller holds to the plain version's. Synchronises; for the bound."""
+    from repro_torch.core import hashing, sticky
+    keys = keys.cpu().numpy().copy()
+    counts = counts.cpu().numpy().copy()
+    cap = keys.shape[0]
+    t_kind = 16 * cap
+    chain = np.zeros(cap, np.int64)
+    got = dict(bumps=0, hits=0, takes=0)
+    rates = np.asarray(sticky.inv_rates(), np.float32)
+    slots = torch.arange(cap, dtype=torch.int64)
+    m = items.shape[0]
+    n = (int(n_seen) + 1 + torch.arange(m + 1, dtype=torch.int64)
+         + 2**31) % 2**32 - 2**31
+    want = sticky.want_of(n, t_kind).tolist()
+    x = items.cpu()
+    coin = hashing.uniform01(hashing.as_u32(x) ^ hashing.as_u32(n[:m]),
+                             kind.seed + 1).numpy()
+
+    def bump(c):
+        g = sticky.geo_of(hashing.hash_u32(slots ^ (c & hashing.MASK32),
+                                           kind.seed)).numpy()
+        d = counts - g
+        counts[:] = np.where(d < 0, np.float32(0.0), d)
+        keys[counts <= 0] = -1
+        chain[:] += 1
+        got["bumps"] += 1
+
+    e = int(epoch)
+    if want[0] > e:                             # the batch's first step
+        bump(int(n[0]))
+        e = want[0]
+    for i, item in enumerate(x.tolist()):
+        if want[i] > e:
+            bump(int(n[i]))
+            e = want[i]
+        hit = np.flatnonzero(keys == item)      # the sentinel: first empty
+        if hit.size:
+            j = int(hit[0])
+            got["hits"] += 1
+        else:
+            empty = np.flatnonzero(keys == -1)
+            j = (int(empty[0]) if empty.size
+                 and coin[i] < rates[min(e, sticky.MAX_RATE_EPOCH)] else -1)
+            got["takes"] += j >= 0
+        if j >= 0:
+            keys[j] = item
+            counts[j] = counts[j] + np.float32(1.0)
+            chain[j] += 1
+    if m and end_check and want[m] > e:
+        bump(int(n[m]))
+    return dict(got, hottest=int(chain.max()), keys=keys)
+
+
+def sticky_floats(dev) -> dict:
+    """The kernel's own want_epoch and geo (``sticky_scan.eval_tables``:
+    the tables and lookups the kernel uses) against the port's literal
+    float32 functions on the CPU: want_epoch at every count from 1 to
+    2**24 for the capacities phase 2 runs (288 and 4,096), and geo at
+    every distinct float32 u that ``uniform01`` can return (u = float32(h)
+    * 2**-32: every hash below 2**24, then each float of [2**24, 2**32]
+    once). Returns the counts of values checked."""
+    from repro_torch.core import sticky
+    from repro_torch.kernels import sticky_scan
+    none = torch.zeros(0, dtype=torch.int32, device=dev)
+    counts_n = 1 << 24
+    n = torch.arange(1, counts_n + 1, dtype=torch.int32)
+    for cap in (288, 4096):
+        want, _ = sticky_scan.eval_tables(cap, 1, counts_n, none)
+        require(torch.equal(want.cpu(), sticky.want_epoch(n, 16 * cap)),
+                f"sticky_scan: the kernel's want_epoch at capacity {cap} "
+                f"differs from the CPU's float32 function below 2**24")
+    chunks = [torch.arange(0, 1 << 24, dtype=torch.int64)]
+    for k in range(24, 32):          # the floats of [2**k, 2**(k + 1))
+        chunks.append((1 << k) + (torch.arange(0, 1 << 23, dtype=torch.int64)
+                                  << (k - 23)))
+    chunks.append(torch.tensor([2**32 - 1], dtype=torch.int64))  # u = 1.0
+    n_u = 0
+    for h in chunks:
+        bits = (h.to(torch.int64) - (h >= 2**31).to(torch.int64) * 2**32)
+        _, geo = sticky_scan.eval_tables(288, 1, 0,
+                                         bits.to(torch.int32).to(dev))
+        want = sticky.geo_of_hash(h)
+        require(torch.equal(geo.cpu().view(torch.int32),
+                            want.view(torch.int32)),
+                "sticky_scan: the kernel's geo differs from the CPU's "
+                "float32 function")
+        n_u += h.numel()
+    print(f"[phase2] sticky_scan float functions: the kernel's want_epoch "
+          f"equals the CPU's float32 one at every count 1..2**24 (capacities"
+          f" 288 and 4096), its geo at all {n_u} distinct float32 draws of "
+          f"uniform01", flush=True)
+    return dict(want_counts=counts_n, geo_draws=n_u)
+
+
+def sticky_bump_state(kind, st: dict, b, n: int, src_row: int) -> tuple:
+    """Counts that make phase 2's batch take each kind of bump the
+    reference's masked steps take, set in place on ``st`` (the tables as
+    earlier batches left them): every 16th row is pending a bump at the
+    batch's first step (n_seen one below epoch 1's first count, epoch
+    0); each row 8 past those that the batch walks and whose last tuple
+    is not the batch's last reaches that count with its last tuple (a
+    bump after its walk); the data-source row is half its walk below its
+    next epoch (a bump inside its walk), at its count's epoch. Returns
+    the masks of the first-step and the end-of-walk rows."""
+    from repro_torch.core import sticky
+    t_kind = 16 * kind.capacity
+    starts = sticky.epoch_starts(t_kind)
+    dev = st["n_seen"].device
+    keep = b.mask & (b.rows >= 0) & (b.rows < n)
+    rows = b.rows[keep].long()
+    fed = torch.bincount(rows, minlength=n)
+    last = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    last.scatter_reduce_(0, rows, torch.arange(b.t, device=dev)[keep], "amax")
+    r = torch.arange(n, device=dev)
+    first = (r % 16 == 0) & (r != src_row)
+    end = ((r % 16 == 8) & (r != src_row) & (fed > 0)
+           & (fed < starts[0] - 1) & (last < b.t - 1))
+    st["n_seen"][first] = starts[0] - 1
+    st["epoch"][first] = 0
+    st["n_seen"][end] = (starts[0] - 1 - fed[end]).to(torch.int32)
+    st["epoch"][end] = 0
+    e = int(sticky.want_of(st["n_seen"][src_row:src_row + 1].cpu(), t_kind))
+    at = starts[e] - int(b.mask.sum()) // 2
+    require(at > 0 and int(sticky.want_of(torch.tensor([at]), t_kind)) == e,
+            f"sticky at capacity {kind.capacity}: the source walk cannot "
+            f"start half a walk below epoch {e + 1} within epoch {e}")
+    st["n_seen"][src_row] = at
+    st["epoch"][src_row] = e
+    return first, end
+
+
+def sticky_bytes(buf0: torch.Tensor, buf: torch.Tensor, n: int, cap: int,
+                 walks: int) -> int:
+    """The bytes a Sticky update from ``buf0`` to ``buf`` (``sticky_stack``
+    buffers) must move besides the batch's: every row's n_seen and epoch
+    read (the first-step checks), each walked table's keys read (a miss
+    rules out every key), each bumped table's counts read (the rows
+    whose epoch rose), each changed word written once, and each changed
+    count outside a bumped table read."""
+    nc = n * cap
+    diff = buf != buf0
+    counts = diff[nc:2 * nc].view(n, cap)
+    bumped = diff[2 * nc + n:]
+    words = (int(diff[:nc].sum()) + int(counts.sum())
+             + int(counts[~bumped].sum()) + int(diff[2 * nc:].sum()))
+    return n * 8 + walks * 4 * cap + int(bumped.sum()) * 4 * cap + 4 * words
+
+
+def phase2_sticky(b, n: int, results: dict) -> None:
+    """Sticky Sampling's update (no TPU counterpart) at the reference's
+    defaults (capacity 288) through both entry points, rows given
+    (``sticky_scan``) and the probe fused in (``sticky_probe_scan``), and
+    rows given at support 0.001, eps 0.0001 (7,195 slots by the formula,
+    capped to 4,096: ``sticky_scan@cap4096``, the largest table and the
+    shared-memory case), on phase 2's batch: n rows routed as the batch's
+    probe gives them, plus one data-source row (row n_streams); from empty
+    tables and from the state STICKY_PAST_BATCHES batches leave (the
+    source row a few epochs on), its counts set by ``sticky_bump_state``:
+    there the plain version must bump rows at the first step, after their
+    walks and inside the source walk. First the float-function check
+    (``sticky_floats``). For each parameter set and state the plain
+    version runs once (its walks on the host, timed): each entry's kernel
+    must equal it byte for byte in the four leaves (the fused entry's
+    plain version is the plain probe, whose rows the batch's are, then
+    this one) and equal itself across two runs. Each kernel is timed from
+    its starting state restored before every call (the copy not timed):
+    STICKY_TIMING_RUNS CUDA-event calls and 5 queued calls
+    (``queued_device_ms``). No one PyTorch call computes it. The bound is
+    the larger of the bytes (the batch read once, or the ids' halves and
+    the table slots the probes read; then ``sticky_bytes`` of the plain
+    version's change) and the source walk's hottest slot's dependent
+    updates at FADD_CYCLES (a host replay, ``sticky_replay``, whose keys
+    must equal the plain version's)."""
+    from repro_torch import core
+    from repro_torch.kernels import lossy_scan, probe, ref, sticky_scan
+
+    t, dev = b.t, b.dev
+    floats = sticky_floats(dev)
+    src_row = n // 2
+    src = torch.tensor([src_row], dtype=torch.int64, device=dev)
+    table = (b.klo, b.khi, b.trows, b.slo, b.shi)
+    walks, longest = lossy_scan.walks_of(b.rows, b.mask, n, src)
+    masked = torch.nonzero(b.mask)[:, 0]
+    end_check = int(masked[-1]) < t - 1
+    t0 = time.perf_counter()
+    probe.probe_rows(*table, n_probe=b.n_probe)
+    torch.cuda.synchronize()
+    probe_ms = (time.perf_counter() - t0) * 1e3
+    for params, names in ((STICKY_PARAMS, ("sticky_scan",
+                                           "sticky_probe_scan")),
+                          (STICKY_CAP4096_PARAMS, ("sticky_scan@cap4096",))):
+        kind = core.StickySampling(**params)
+        cap, kp = kind.capacity, kind.params()
+        fused_update = sticky_scan.sticky_probe_scan_update
+        entries = {
+            "sticky_scan": lambda st: sticky_scan.sticky_scan_update(
+                *sticky_leaves(st), b.rows, b.items, b.mask, src, **kp),
+            "sticky_probe_scan": lambda st: fused_update(
+                *sticky_leaves(st), *table, b.items, b.mask, src,
+                n_probe=b.n_probe, **kp)}
+        out = {name: {} for name in names}
+        buf0, st0 = sticky_stack(n, cap, dev)
+        for label in ("empty", "past_epochs"):
+            bump_rows = None
+            if label == "past_epochs":
+                for _ in range(STICKY_PAST_BATCHES):
+                    entries["sticky_scan"](st0)
+                bump_rows = sticky_bump_state(kind, st0, b, n, src_row)
+            nxt = st0["n_seen"].long() + 1
+            first = int((core.sticky.want_of(nxt, 16 * cap)
+                         > st0["epoch"]).sum())
+            rp = sticky_replay(kind, st0["keys"][src_row],
+                               st0["counts"][src_row],
+                               int(st0["n_seen"][src_row]),
+                               int(st0["epoch"][src_row]),
+                               b.items[b.mask], end_check)
+            pbuf, pst = sticky_stack(n, cap, dev)
+            pbuf.copy_(buf0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref.sticky_scan_update(*sticky_leaves(pst), b.rows, b.items,
+                                   b.mask, src, **kp)
+            torch.cuda.synchronize()
+            pms = (time.perf_counter() - t0) * 1e3
+            require(np.array_equal(rp["keys"],
+                                   pst["keys"][src_row].cpu().numpy()),
+                    f"sticky_scan at capacity {cap} ({label}): the host "
+                    f"replay of the source walk differs from the plain "
+                    f"version's keys")
+            n_end = 0
+            if bump_rows is not None:
+                rose = pst["epoch"] > st0["epoch"]
+                n_end = int(bump_rows[1].sum())
+                require(first > 0 and n_end > 0 and rp["bumps"] > 0
+                        and bool(rose[bump_rows[0] | bump_rows[1]].all())
+                        and bool(rose[src_row]),
+                        f"sticky_scan at capacity {cap} ({label}): the plain "
+                        f"version took {first} first-step bumps, "
+                        f"{n_end} rows set to bump after their walks, the "
+                        f"source walk {rp['bumps']} bumps; each must be "
+                        f"some and each such row's epoch must rise")
+            words_b = sticky_bytes(buf0, pbuf, n, cap, walks)
+            chain_ms, mhz = chain_floor_ms(rp["hottest"])
+            for name in names:
+                kernel = entries[name.split("@")[0]]
+                fused = name.startswith("sticky_probe")
+                runs = []
+                for _ in range(2):
+                    buf, st = sticky_stack(n, cap, dev)
+                    buf.copy_(buf0)
+                    kernel(st)
+                    runs.append((buf, st))
+                torch.cuda.synchronize()
+                require(torch.equal(runs[0][0], runs[1][0]),
+                        f"{name} ({label}): two kernel runs differ byte-wise")
+                del runs[1]
+                kbuf, kst = runs.pop()
+                require(torch.equal(kbuf, pbuf),
+                        f"{name} ({label}): kernel differs byte-wise from "
+                        f"its plain version")
+                _, err, _ = compare(kst["counts"], pst["counts"])
+                restore = lambda: kbuf.copy_(buf0)
+                kern = lambda: kernel(kst)
+                kms = cuda_ms(kern, runs=STICKY_TIMING_RUNS, prep=restore)
+                kdev = queued_device_ms(kern, restore)
+                batch_b = (t * (8 + 4 + 1)
+                           + TABLE_B * probed_slots(b, b.mask) if fused
+                           else t * (4 + 4 + 1) + 4 * src.numel())
+                n_bytes = batch_b + words_b
+                t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+                bms = max(t_bytes, chain_ms)
+                by = "bytes" if t_bytes >= chain_ms else "operations"
+                plain_ms = pms + (probe_ms if fused else 0.0)
+                out[name][label] = dict(
+                    max_abs_err=err, ms=kms, plain_ms=plain_ms, bound_ms=bms,
+                    bound_by=by, device_ms=kdev, walks=walks,
+                    longest_run=longest, hottest_adds=rp["hottest"],
+                    bumps=rp["bumps"], hits=rp["hits"], takes=rp["takes"],
+                    first_step_bumps=first, end_of_walk_bumps=n_end)
+                print(f"[phase2] {name} ({label}): capacity {cap}, n={n} "
+                      f"rows + data-source row {src_row}, exact match (keys, "
+                      f"counts, n_seen, epoch byte for byte; two kernel runs "
+                      f"byte-identical), kernel {kms:.4f} ms (device "
+                      f"{kdev:.4f} ms), plain {plain_ms:.1f} ms (one call, "
+                      f"its walks on the host"
+                      f"{', the plain probe first' if fused else ''}), "
+                      f"no library call; {walks} walks, the longest "
+                      f"{longest} tuples; {first} rows bump at the first "
+                      f"step, {n_end} after their walks; the source walk: "
+                      f"{rp['hits']} hits, "
+                      f"{rp['takes']} slots taken, {rp['bumps']} bumps, the "
+                      f"hottest slot {rp['hottest']} dependent updates; "
+                      f"chain {chain_ms:.5f} ms (at {FADD_CYCLES} cycles, "
+                      f"{mhz:.0f} MHz), bytes {t_bytes:.5f} ms ({n_bytes} B):"
+                      f" bound {bms:.5f} ms ({by})", flush=True)
+                del kern, restore, kbuf, kst
+                free()
+            del pbuf, pst
+            free()
+        del buf0, st0
+        free()
+        for name in names:
+            results[name] = dict(
+                out[name]["empty"], library_ms=None, plain_device_ms=None,
+                library_device_ms=None, past_epochs=out[name]["past_epochs"],
+                capacity=cap, start="empty tables",
+                plain_timing="one call (host clock, synchronized; its walks "
+                             "on the host); its device time not measured",
+                device_timing="CUDA events around the call queued behind a "
+                              "spin kernel (no host enqueue inside), median "
+                              "of 5",
+                library="none: no one PyTorch call computes it")
+    results["sticky_scan"]["float_check"] = floats
+
+
 def phase2(dev, seed: int, n: int, n_streams: int, t: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     b = phase2_batch(dev, seed, n_streams, t)
     results: dict = {}
     for part in (phase2_countmin, phase2_ams, phase2_hll, phase2_bloom,
                  phase2_fm, phase2_rhp, phase2_dft, phase2_corr,
-                 phase2_flash, phase2_lossy, phase2_reservoir):
+                 phase2_flash, phase2_lossy, phase2_reservoir,
+                 phase2_sticky):
         part(b, n, results)
         free()
     peak_gib("phase2")
@@ -1815,9 +2223,11 @@ def phase2(dev, seed: int, n: int, n_streams: int, t: int) -> dict:
 # a "@fresh" row reads the wrapper's one-row launches given no signs
 # (data-source folds), an "@ams" row its signed launches on a stack
 # (AMS's), "@fresh@ams" its signed one-row launches (AMS's folds), and
-# "@k1000" the launches on tables of 1,000 slots; a main row counts all
+# "@k1000" the launches on tables of 1,000 slots, "@cap4096" those on
+# tables of 4,096; a main row counts all
 LOSSY_COUNTERPART = "src/repro/core/lossy.py:65"
 SAMPLER_COUNTERPART = "src/repro/core/sampler.py:55"
+STICKY_COUNTERPART = "src/repro/core/sticky.py:86"
 ENTRY_POINTS = {
     "onehot_scatter_add": ("onehot_matmul", "onehot_scatter_add",
                            "countmin_scatter.cu", "onehot_matmul.py:61"),
@@ -1877,6 +2287,14 @@ ENTRY_POINTS = {
                        "reservoir_scan.cu", SAMPLER_COUNTERPART),
     "reservoir_probe_scan": ("reservoir_scan", "reservoir_probe_scan_update",
                              "reservoir_scan.cu", SAMPLER_COUNTERPART),
+    # no TPU kernel: its JAX counterpart is StickySampling.add_batch under
+    # the vmap of batched.stacked_update
+    "sticky_scan": ("sticky_scan", "sticky_scan_update", "sticky_scan.cu",
+                    STICKY_COUNTERPART),
+    "sticky_scan@cap4096": ("sticky_scan", "sticky_scan_update",
+                            "sticky_scan.cu", STICKY_COUNTERPART),
+    "sticky_probe_scan": ("sticky_scan", "sticky_probe_scan_update",
+                          "sticky_scan.cu", STICKY_COUNTERPART),
 }
 
 
@@ -1898,11 +2316,15 @@ def reset_launches() -> None:
             fn.long_runs.reset()
         if hasattr(fn, "launches_by_k"):
             fn.launches_by_k.clear()
+        if hasattr(fn, "launches_by_capacity"):
+            fn.launches_by_capacity.clear()
 
 
 def launches_of(name: str, fn) -> int:
     if name.endswith("@k1000"):
         return fn.launches_by_k[1000]
+    if name.endswith("@cap4096"):
+        return fn.launches_by_capacity[4096]
     ams_folds = getattr(fn, "signed_one_row_launches", 0)
     if name.endswith("@fresh@ams"):
         return ams_folds
@@ -1959,15 +2381,17 @@ def same_leaves(got: dict, want: dict) -> bool:
         same_bytes(got[k], want[k]) for k in got)
 
 
-class SamplerProbes:
+class ScanProbes:
     """Counts, while entered, the plain probes (``ops.route_probe``) that
-    the engine runs inside the chain sampler's stack update, keyed by
-    whether the batch fused the probe (``SDE_FUSED_PROBE``): it wraps the
-    engine's ``_update`` and ``ops.route_probe`` and restores them on
-    exit."""
+    the engine runs inside the stack updates of the kind ``kind_type``
+    (the chain sampler, Sticky Sampling), keyed by whether the batch fused
+    the probe (``SDE_FUSED_PROBE``): it wraps the engine's ``_update`` and
+    ``ops.route_probe`` and restores them on exit."""
+
+    def __init__(self, kind_type) -> None:
+        self.kind_type = kind_type
 
     def __enter__(self) -> dict:
-        from repro_torch import core
         from repro_torch.kernels import ops
         from repro_torch.service import engine
         counts = {"fused": 0, "unfused": 0}
@@ -1981,7 +2405,7 @@ class SamplerProbes:
             return probe0(*args, **kwargs)
 
         def update(kind, *args, **kwargs):
-            inside[0] = isinstance(kind, core.ReservoirSampler)
+            inside[0] = isinstance(kind, self.kind_type)
             try:
                 return update0(kind, *args, **kwargs)
             finally:
@@ -2100,12 +2524,13 @@ def check_lossy_answers(sde, answers, q_streams, totals, heavy, fed_items,
 
 
 def check_scan_stack(stack, snap, prefix, dev) -> None:
-    """A scan-path stack (Lossy Counting, the sampler), as it stood after
-    the first ``len(prefix)`` batches (``snap``), equals a replay of those
-    batches through the plain version on the card (the plain probe, then
-    ``ref.lossy_scan_update`` or ``ref.reservoir_scan_update``: torch ops
-    a step or a write, so only a prefix fits the run's time) byte for byte
-    in every leaf."""
+    """A scan-path stack (Lossy Counting, the sampler, Sticky Sampling), as
+    it stood after the first ``len(prefix)`` batches (``snap``), equals a
+    replay of those batches through the plain version on the card (the
+    plain probe, then ``ref.lossy_scan_update``,
+    ``ref.reservoir_scan_update`` or ``ref.sticky_scan_update``: torch ops
+    a step or a write, or walks on the host, so only a prefix fits the
+    run's time) byte for byte in every leaf."""
     from repro_torch import core
     from repro_torch.core import batched
     from repro_torch.kernels import probe, ref
@@ -2117,6 +2542,11 @@ def check_scan_stack(stack, snap, prefix, dev) -> None:
         name = f"LossyCounting(eps={kind.eps})"
         plain = lambda *batch: ref.lossy_scan_update(
             replay["keys"], replay["counts"], replay["error"], *batch)
+    elif isinstance(kind, core.StickySampling):
+        name = f"StickySampling(capacity={kind.capacity})"
+        plain = lambda rows, items, vals, mask, src: ref.sticky_scan_update(
+            replay["keys"], replay["counts"], replay["n_seen"],
+            replay["epoch"], rows, items, mask, src, **kind.params())
     else:
         name = f"ReservoirSampler(sample_size={kind.sample_size})"
         plain = lambda *batch: ref.reservoir_scan_update(
@@ -2215,6 +2645,86 @@ def check_sampler(sde, batches, counts, answers, q_streams, pop) -> None:
           f"{int(items[q_rows].max())})", flush=True)
 
 
+def check_sticky(sde, batches, counts, answers, q_streams, pop,
+                 heavy) -> None:
+    """Sticky Sampling after every batch: each row's n_seen equals its fed
+    tuples (a per-stream row its stream's masked, routed tuples, a source
+    row every masked tuple; ``counts``: (n_seen, epoch) of both stacks
+    after each unprofiled batch, then after the last), and its epoch is
+    ``want_epoch(n_seen + 1)`` (the check the step after its last tuple
+    took), or ``want_epoch(n_seen)`` for a row whose last tuple was its
+    batch's last (that check falls on the next batch's first step, a bump
+    pending where the two differ). After the last batch each per-stream
+    answer for its own folded id equals its stream's fed count while that
+    is below 2t = 9,216 (no bump yet: every tuple counted). The share of
+    the items above support x N each data-source table tracks (``heavy``:
+    their answers last in ``answers``) is printed, not gated."""
+    from repro_torch import core
+    from repro_torch.core import sticky
+    kinds = {sid: core.make_kind("sticky_sampling", **params)
+             for sid, params in (("src-sticky", STICKY_PARAMS),
+                                 ("src-sticky-cap4096",
+                                  STICKY_CAP4096_PARAMS))}
+    stacks = {sid: sde.stacks[kd] for sid, kd in kinds.items()}
+    rows = np.asarray([sde.entries[f"ss/{int(i)}"].row for i in pop])
+    src = {sid: sde.entries[sid].row for sid in kinds}
+    want = {sid: np.zeros(st.capacity, np.int64)
+            for sid, st in stacks.items()}
+    fed, pending = 0, 0
+    n_checks = len(counts)
+    for b, (sids, _) in enumerate(batches):
+        at = np.minimum(np.searchsorted(pop, sids), len(pop) - 1)
+        own = (pop[at] == sids) & (sids >= 0)
+        np.add.at(want["src-sticky"], rows[at[own]], 1)
+        fed += int((sids >= 0).sum())
+        for sid in kinds:
+            want[sid][src[sid]] = fed
+        if not (b < n_checks - 1 or b == len(batches) - 1):
+            continue
+        last = set()               # rows whose last tuple is the batch's
+        if sids[-1] >= 0:
+            last = {("src-sticky", src["src-sticky"]),
+                    ("src-sticky-cap4096", src["src-sticky-cap4096"])}
+            if own[-1]:
+                last.add(("src-sticky", int(rows[at[-1]])))
+        for sid, kd in kinds.items():
+            n_seen, epoch = (x.cpu().numpy()
+                             for x in counts[min(b, n_checks - 1)][sid])
+            require(np.array_equal(n_seen, want[sid]),
+                    f"{sid}'s stack: n_seen after batch {b} differs from "
+                    f"the masked tuples each row was fed")
+            t_kind = 16 * kd.capacity
+            nxt = sticky.want_of(torch.from_numpy(n_seen + 1), t_kind).numpy()
+            now = sticky.want_of(torch.from_numpy(n_seen), t_kind).numpy()
+            ok = epoch == nxt
+            for s_id, r in last:
+                if s_id == sid:
+                    ok[r] = epoch[r] == now[r]
+                    pending += int(now[r] < nxt[r])
+            require(bool(ok.all()),
+                    f"{sid}'s stack: an epoch after batch {b} is not the one "
+                    f"its count asks for (rows {np.nonzero(~ok)[0][:5]})")
+    n_fed = want["src-sticky"][rows]
+    q_rows = [sde.entries[f"ss/{int(i)}"].row for i in q_streams]
+    got = np.asarray([float(a[0]) for a in answers[:len(q_streams)]])
+    fed_q = want["src-sticky"][q_rows]
+    below = fed_q < 2 * 16 * kinds["src-sticky"].capacity
+    require(np.array_equal(got[below], fed_q[below].astype(np.float64)),
+            "a per-stream Sticky answer below 2t differs from its stream's "
+            "fed count")
+    shares = []
+    for (sid, items), est in zip(heavy.items(), answers[len(q_streams):]):
+        shares.append(f"{sid} {int((np.asarray(est) > 0).sum())} of "
+                      f"{len(items)}")
+    print(f"[phase3] Sticky: n_seen of every row equals its fed tuples and "
+          f"its epoch the one its count asks for after each of "
+          f"{len(batches)} batches (per-stream up to {int(n_fed.max())}, "
+          f"sources {fed}; {pending} bumps pending on a next batch's first "
+          f"step); {int(below.sum())} of {len(q_streams)} per-stream answers "
+          f"below 2t equal their fed counts exactly; items above support x "
+          f"N tracked (not gated): {', '.join(shares)}", flush=True)
+
+
 def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
            n_queries: int, n_profiled: int = 2) -> dict:
     from repro_torch import core
@@ -2263,7 +2773,11 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
             ("src-lossy-k1000", "lossy_counting", LOSSY_K1000_PARAMS, {}),
             ("rs", "chain_sampler", {}, per_stream),
             ("src-rs", "chain_sampler", {}, {}),
-            ("cq-rs", "chain_sampler", {}, {"continuous": True})):
+            ("cq-rs", "chain_sampler", {}, {"continuous": True}),
+            ("ss", "sticky_sampling", STICKY_PARAMS, per_stream),
+            ("src-sticky", "sticky_sampling", STICKY_PARAMS, {}),
+            ("src-sticky-cap4096", "sticky_sampling", STICKY_CAP4096_PARAMS,
+             {})):
         r = sde.handle({"type": "build", "request_id": f"b-{sid}",
                         "synopsis_id": sid, "kind": kind, "params": params,
                         **extra})
@@ -2277,9 +2791,17 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    scan_snap, sampler_counts = {}, []
+    scan_snap, sampler_counts, sticky_counts = {}, [], []
     sampler = sde.stacks[core.make_kind("chain_sampler")]
-    with SamplerProbes() as sampler_probes:
+    sticky_stacks = {sid: sde.stacks[sde.entries[sid].kind_key]
+                     for sid in ("src-sticky", "src-sticky-cap4096")}
+
+    def sticky_now():                            # device copies, no sync
+        return {sid: (st.state["n_seen"].clone(), st.state["epoch"].clone())
+                for sid, st in sticky_stacks.items()}
+
+    with ScanProbes(core.ReservoirSampler) as sampler_probes, \
+            ScanProbes(core.StickySampling) as sticky_probes:
         for b, (sids, vals) in enumerate(batches[:n_batches]):
             os.environ["SDE_FUSED_PROBE"] = "1" if b % 2 == 0 else "0"
             r = sde.handle({"type": "ingest", "request_id": f"i{b}",
@@ -2287,16 +2809,19 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
                             "values": vals.tolist()})
             require(r.ok, f"ingest {b} failed: {r.error}")
             sampler_counts.append(sampler.state["n_seen"].clone())  # async
+            sticky_counts.append(sticky_now())
             if b + 1 == LOSSY_REPLAY_BATCHES:   # the scan replay's prefix
                 scan_snap = {kind: batched.tree_map(torch.clone, st.state)
                              for kind, st in sde.stacks.items()
                              if isinstance(kind, (core.LossyCounting,
-                                                  core.ReservoirSampler))}
+                                                  core.ReservoirSampler,
+                                                  core.StickySampling))}
         torch.cuda.synchronize()
         ingest_s = time.perf_counter() - t0
         profile_batches(sde, batches[n_batches:], n_batches)
     os.environ.pop("SDE_FUSED_PROBE", None)
     sampler_counts.append(sampler.state["n_seen"].clone())
+    sticky_counts.append(sticky_now())
 
     # exact answers: each per-stream CM row only ever sees its own item,
     # so its point estimate is the stream's exact total weight, and each
@@ -2325,6 +2850,13 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
         "lossy_counting", **params).k]
         for sid, params in (("src-lossy", LOSSY_PARAMS),
                             ("src-lossy-k1000", LOSSY_K1000_PARAMS))}
+    # the items a data-source Sticky table should keep: those seen more
+    # than support x N times of the N tuples it was fed
+    fed_n = np.bincount(by_item)
+    sticky_heavy = {sid: fed_items[fed_n > core.make_kind(
+        "sticky_sampling", **params).support * fed_n.sum()]
+        for sid, params in (("src-sticky", STICKY_PARAMS),
+                            ("src-sticky-cap4096", STICKY_CAP4096_PARAMS))}
     # query_many's queries by kind, in order
     parts = {
         "cm": [{"synopsis_id": f"cm/{int(s)}", "query": {"items": [int(s)]}}
@@ -2348,7 +2880,12 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
                        "query": {"items": [int(x) for x in heavy[sid]]}}
                       for sid in heavy],
         "rs": ([{"synopsis_id": f"rs/{int(s)}"} for s in q_streams]
-               + [{"synopsis_id": "src-rs"}, {"synopsis_id": "cq-rs"}])}
+               + [{"synopsis_id": "src-rs"}, {"synopsis_id": "cq-rs"}]),
+        "ss": ([{"synopsis_id": f"ss/{int(s)}", "query": {"items": [int(s)]}}
+                for s in q_streams]
+               + [{"synopsis_id": sid,
+                   "query": {"items": [int(x) for x in items]}}
+                  for sid, items in sticky_heavy.items()])}
     queries = [q for part in parts.values() for q in part]
     t0 = time.perf_counter()
     r = sde.handle({"type": "query_many", "request_id": "qm",
@@ -2426,6 +2963,8 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
                         fed_totals, fed_w, dev)
     check_sampler(sde, batches, sampler_counts, answers["rs"], q_streams,
                   pop)
+    check_sticky(sde, batches, sticky_counts, answers["ss"], q_streams, pop,
+                 sticky_heavy)
     cq_rs = [c.value for c in sde.continuous_out
              if c.synopsis_id == "cq-rs"]
     require(len(cq_rs) == n_batches + n_profiled
@@ -2448,6 +2987,19 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
             f"{[launches[k] for k in want_rs]}, not "
             f"{list(want_rs.values())} (the fused entry once a fused batch, "
             f"the rows-given one once an unfused batch)")
+    want_ss = {"sticky_probe_scan": 2 * n_fused,
+               "sticky_scan": 2 * (n_all - n_fused),
+               "sticky_scan@cap4096": n_all - n_fused}
+    require(all(launches[k] == v for k, v in want_ss.items()),
+            f"the sticky-scan kernel's launches "
+            f"{[launches[k] for k in want_ss]}, not "
+            f"{list(want_ss.values())} (on each of the two Sticky stacks "
+            f"the fused entry once a fused batch, the rows-given one once an "
+            f"unfused batch)")
+    require(sticky_probes == {"fused": 0, "unfused": 2 * (n_all - n_fused)},
+            f"the Sticky stacks' plain probes by batch kind: {sticky_probes},"
+            f" not none in a fused batch and one a stack in each unfused "
+            f"batch")
     require(sampler_probes == {"fused": 0, "unfused": n_all - n_fused},
             f"the sampler stack's plain probes by batch kind: "
             f"{sampler_probes}, not none in a fused batch and one in each "
@@ -2762,7 +3314,7 @@ def main() -> None:
     t0 = time.perf_counter()
     build.build(["countmin_scatter", "bitset_or", "rhp_project",
                  "sliding_dft", "pairwise_corr", "flash_attention",
-                 "lossy_scan", "reservoir_scan"])
+                 "lossy_scan", "reservoir_scan", "sticky_scan"])
     print(f"[phase1] kernels built in {time.perf_counter() - t0:.2f} s",
           flush=True)
     for name, log in build.BUILD_LOG.items():
@@ -2815,7 +3367,11 @@ def main() -> None:
             "longest_run", "runs", "long_runs", "chain_floor_ms",
             "step_floor_ms", "miss_floor_ms", "misses", "levels",
             "hottest_adds", "split_device_ms", "walks", "writes",
-            "past_fill", "start", "two_stacks_device_ms",
+            "past_fill", "past_epochs", "capacity", "bumps", "hits",
+            "takes", "first_step_bumps", "end_of_walk_bumps", "float_check",
+            "device_timing",
+            "start",
+            "two_stacks_device_ms",
             "first_touch_ms", "first_touch_device_ms",
             "lanes", "sectors", "hottest_lane", "k", "plain_timing",
             "library") if k in r})

@@ -18,8 +18,10 @@ Every stack's state keeps the reference's dtype and layout (float32
 ``[n, d, w]`` CountMin and AMS, ``[n, b]`` RHP; int32 HLL, Bloom and FM
 lanes; DFT's six leaves, with int32 ``pos`` and ``count``; Lossy
 Counting's ``counts`` and ``error`` float32 ``[n, k]``; the sampler's
-``values`` float32 ``[n, S]`` and ``n_seen`` int32 ``[n]``), except that
-a uint32 leaf (Lossy Counting's ``keys``, whose empty sentinel is
+``values`` float32 ``[n, S]`` and ``n_seen`` int32 ``[n]``; Sticky
+Sampling's ``counts`` float32 ``[n, capacity]``, ``n_seen`` and
+``epoch`` int32 ``[n]``), except that a uint32 leaf (the ``keys`` of
+Lossy Counting and of Sticky Sampling, whose empty sentinel is
 0xFFFFFFFF, and the sampler's ``items``) is viewed as int32, bit for
 bit, as the port holds it.
 The route table is taken slot for slot, so the port probes exactly the

@@ -1,9 +1,9 @@
 """Synopsis kinds (port of ``repro/core/__init__.py``).
 
 The port registers CountMin, AMS, HyperLogLog, Bloom, FM, RHP, DFT, Lossy
-Counting and the chain sampler so far, under the reference's names;
-building any other kind (the other scan-path kinds among them: Sticky
-Sampling, GK, CoreSetTree) answers ok=False through the registry's
+Counting, the chain sampler and Sticky Sampling so far, under the
+reference's names; building any other kind (the other scan-path kinds
+among them: GK, CoreSetTree) answers ok=False through the registry's
 KeyError (``synopsis.make_kind``).
 """
 from . import hashing  # noqa: F401
@@ -18,6 +18,7 @@ from .rhp import RHP
 from .dft import DFT
 from .lossy import LossyCounting
 from .sampler import ReservoirSampler
+from .sticky import StickySampling
 from . import batched  # noqa: F401
 
 for _name, _factory in {
@@ -29,11 +30,12 @@ for _name, _factory in {
     "rhp": RHP,
     "dft": DFT,
     "lossy_counting": LossyCounting,
+    "sticky_sampling": StickySampling,
     "chain_sampler": ReservoirSampler,
 }.items():
     register_kind(_name, _factory)
 
 __all__ = ["Synopsis", "register_kind", "make_kind", "known_kinds",
            "kind_params", "CountMin", "AMS", "HyperLogLog", "BloomFilter",
-           "FMSketch", "RHP", "DFT", "LossyCounting", "ReservoirSampler",
-           "batched"]
+           "FMSketch", "RHP", "DFT", "LossyCounting", "StickySampling",
+           "ReservoirSampler", "batched"]

@@ -64,7 +64,7 @@ import torch
 from repro_torch.core import batched, hashing
 from . import (bitset_or, flash_attention as fa, fm_bitmap, hll_max,
                onehot_matmul, pairwise_corr, probe, reservoir_scan,
-               rhp_project, sliding_dft)
+               rhp_project, sliding_dft, sticky_scan)
 
 _FALSY = ("0", "false", "no", "off")
 
@@ -371,6 +371,26 @@ def _sampler_kernel(kind, fuse):
     return fn
 
 
+def _sticky_kernel(kind, fuse):
+    """Sticky Sampling's update: every row's first bump check, routed rows
+    and data-source rows in one call of the sticky-scan kernel, the probe
+    inside its key pass or ahead of it."""
+    def fn(state, klo, khi, trows, slo, shi, items, vals, msk, src_rows, *,
+           n_probe):
+        leaves = (state["keys"], state["counts"], state["n_seen"],
+                  state["epoch"])
+        if fuse:
+            sticky_scan.sticky_probe_scan_update(
+                *leaves, klo, khi, trows, slo, shi, items, msk, src_rows,
+                n_probe=n_probe, **kind.params())
+        else:
+            syn = route_probe(klo, khi, trows, slo, shi, n_probe=n_probe)
+            sticky_scan.sticky_scan_update(*leaves, syn, items, msk,
+                                           src_rows, **kind.params())
+        return state
+    return fn
+
+
 register_update_kernel("countmin_scatter", _countmin_kernel)
 register_update_kernel("ams_scatter", _ams_kernel)
 register_update_kernel("hll_max", _hll_kernel)
@@ -378,3 +398,4 @@ register_update_kernel("bloom_bitset", _bloom_kernel)
 register_update_kernel("fm_bitmap", _fm_kernel)
 register_update_kernel("rhp_project", _rhp_kernel)
 register_update_kernel("reservoir_scan", _sampler_kernel)
+register_update_kernel("sticky_scan", _sticky_kernel)

@@ -2,9 +2,9 @@
 scatter, sliding-DFT, pairwise-correlation and attention oracles in
 ``repro/kernels/ref.py``, and of the one-hot max cube of
 ``repro/kernels/bitset_or.py``, which has no oracle there; and the
-stacked scans of Lossy Counting and of the reservoir sampler, whose
-reference is no kernel but the kind's ``add_batch`` under the vmap of
-``batched.stacked_update``).
+stacked scans of Lossy Counting, of the reservoir sampler and of Sticky
+Sampling, whose reference is no kernel but the kind's ``add_batch`` under
+the vmap of ``batched.stacked_update``).
 
 The wrappers run these on CPU tensors; ``chip_smoke.py`` holds each CUDA
 kernel against them on the card. The updates work in place (the
@@ -24,7 +24,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core import lossy, sampler
+from repro_torch.core import lossy, sampler, sticky
 from . import probe
 
 
@@ -162,6 +162,57 @@ def reservoir_scan_update(values: torch.Tensor, items: torch.Tensor,
     for r, part in _walks(syn_idx, mask, values.shape[0], source_rows):
         sampler.sample_row(values[r], items[r], n_seen[r], in_items[part],
                            in_values[part], seed)
+
+
+def sticky_scan_update(keys: torch.Tensor, counts: torch.Tensor,
+                       n_seen: torch.Tensor, epoch: torch.Tensor,
+                       syn_idx: torch.Tensor, items: torch.Tensor,
+                       mask: torch.Tensor,
+                       source_rows: Optional[torch.Tensor] = None, *,
+                       support: float, eps: float, delta: float,
+                       seed: int) -> None:
+    """Sticky Sampling's stacked update, in place, equal to the reference's
+    vmap of ``add_batch`` over every row with the batch masked to that
+    row's tuples (capacity x T steps): first every row's bump check at the
+    batch's first step (``core/sticky.bump_rows``; a masked step takes it
+    too), then each walked row (:func:`_walks`) through its own tuples in
+    batch order (``core/sticky.walk_row``), with the check the step after
+    its last tuple takes where that tuple is not the batch's last. Between
+    two of a row's tuples its masked steps check at one count, which the
+    step of the later tuple checks again, and a check at one count bumps
+    at most once: so these are all the bumps the row takes, at the counts
+    it takes them. The walked rows' tables are walked on the host.
+    keys [n, cap] i32 (-1 empty); counts [n, cap] f32; n_seen, epoch [n]
+    i32; syn_idx, items [T] i32; mask [T] bool."""
+    kind = sticky.StickySampling(support, eps, delta, seed)
+    n, t = keys.shape[0], syn_idx.shape[0]
+    if keys.shape[1] != kind.capacity:
+        raise ValueError(f"keys has {keys.shape[1]} slots, the kind "
+                         f"{kind.capacity}")
+    if n == 0 or t == 0:
+        return
+    sticky.bump_rows(kind, keys, counts, n_seen, epoch)
+    walks = []
+    for r, part in _walks(syn_idx, mask, n, source_rows):
+        tix = torch.nonzero(part)[:, 0] if part.dtype == torch.bool else part
+        walks.append((r, tix))
+    if not walks:
+        return
+    rows = torch.tensor([r for r, _ in walks], dtype=torch.int64,
+                        device=keys.device)
+    k_host, c_host = keys[rows].cpu().numpy(), counts[rows].cpu().numpy()
+    s_host, e_host = n_seen[rows].tolist(), epoch[rows].tolist()
+    items_host = items.cpu()
+    for i, (_, tix) in enumerate(walks):
+        tix = tix.cpu()
+        end_check = tix.numel() > 0 and int(tix[-1]) < t - 1
+        s_host[i], e_host[i] = sticky.walk_row(
+            kind, k_host[i], c_host[i], s_host[i], e_host[i],
+            items_host[tix], end_check)
+    keys[rows] = torch.from_numpy(k_host).to(keys.device)
+    counts[rows] = torch.from_numpy(c_host).to(keys.device)
+    n_seen[rows] = torch.tensor(s_host, dtype=torch.int32, device=keys.device)
+    epoch[rows] = torch.tensor(e_host, dtype=torch.int32, device=keys.device)
 
 
 def sliding_dft_step(re: torch.Tensor, im: torch.Tensor, delta: torch.Tensor,

@@ -10,14 +10,16 @@ service maintaining thousands of synopses for thousands of streams.
     one stacked-estimate call per kind answers every query of that kind.
 
 The port serves CountMin, AMS, HyperLogLog, Bloom, FM, RHP, DFT, Lossy
-Counting and the chain sampler so far: build (per stream, per stream of
-a source, data source), ingest, adhoc, query_many, stop, status, flush
-and shutdown, with continuous queries emitted eagerly. DFT is a
-time-series kind: each ingest batch ticks every stream once with its
-last routed value (``_step_all``). Lossy Counting and the sampler are
-scan-path kinds: they declare no registry kernel, so ingest probes the
-rows and hands the batch to ``batched.stacked_update``'s scan branch
-(the kind's hand-written kernel: the scan, the reservoir update).
+Counting, the chain sampler and Sticky Sampling so far: build (per
+stream, per stream of a source, data source), ingest, adhoc, query_many,
+stop, status, flush and shutdown, with continuous queries emitted
+eagerly. DFT is a time-series kind: each ingest batch ticks every stream
+once with its last routed value (``_step_all``). Lossy Counting, the
+sampler and Sticky Sampling are scan-path kinds. Lossy Counting declares
+no registry kernel, so ingest probes the rows and hands the batch to
+``batched.stacked_update``'s scan branch (its hand-written scan kernel);
+the sampler and Sticky Sampling declare one (the reservoir update, the
+sticky scan), the probe fused in.
 
 Differences from the reference:
 
@@ -571,10 +573,10 @@ class SDE:
 # ---------------------------------------------------------------------------
 # blue-path update: the kind's registry kernel (probe fused unless
 # SDE_FUSED_PROBE is off), routed rows and data-source rows in one call,
-# state updated in place; the chain sampler's is the reservoir kernel. A
-# kind without a registry kernel (Lossy Counting) takes the probe, then
-# ``batched.stacked_update``, as in the reference; SDE_FUSED_PROBE does not
-# touch it. Time-series kinds take the step path (``_step_all``) instead.
+# state updated in place; the chain sampler's is the reservoir kernel,
+# Sticky Sampling's the sticky-scan kernel. A kind without a registry
+# kernel (Lossy Counting) takes the probe, then ``batched.stacked_update``,
+# as in the reference; SDE_FUSED_PROBE does not touch it. Time-series kinds take the step path (``_step_all``) instead.
 # ---------------------------------------------------------------------------
 def _update(kind, n_probe, state, klo, khi, trows, sid_lo, sid_hi, items,
             vals, msk, src_rows=None):
@@ -614,16 +616,17 @@ def _step_all(kind, n_probe, state, klo, khi, trows, sid_lo, sid_hi, vals,
 
 # ---------------------------------------------------------------------------
 # red-path query planning: normalize N query dicts for one kind into padded
-# batched device args + a per-query result slicer. CountMin, Bloom and
-# Lossy Counting take per-query ``items`` (default ``[0]``) as ONE [N, L]
-# arg (L = padded max arg length); AMS, HyperLogLog, FM, RHP, DFT and the
-# sampler are arg-free and return their estimate per row (AMS's the
-# L2-norm^2; RHP's a dict: signature, hamming_weight, bucket; DFT's a dict:
-# bucket, coeffs, coords; the sampler's a dict: items as uint32, valid,
-# values).
+# batched device args + a per-query result slicer. CountMin, Bloom, Lossy
+# Counting and Sticky Sampling take per-query ``items`` (default ``[0]``)
+# as ONE [N, L] arg (L = padded max arg length); AMS, HyperLogLog, FM,
+# RHP, DFT and the sampler are arg-free and return their estimate per row
+# (AMS's the L2-norm^2; RHP's a dict: signature, hamming_weight, bucket;
+# DFT's a dict: bucket, coeffs, coords; the sampler's a dict: items as
+# uint32, valid, values).
 # ---------------------------------------------------------------------------
 
-_ITEM_KINDS = (core.CountMin, core.BloomFilter, core.LossyCounting)
+_ITEM_KINDS = (core.CountMin, core.BloomFilter, core.LossyCounting,
+               core.StickySampling)
 
 _next_pow2 = routing.next_pow2
 

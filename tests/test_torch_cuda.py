@@ -36,7 +36,15 @@ rows past the fill (counts above 2**24 and up to 2**31 - 2T), one hot
 row, several source rows (one also routed to, one listed twice), runs
 within and across a warp's 32 positions, S = 1 to 100, byte for byte,
 through both entry points (the probe fused in: a table at 0.7 load, ids
-found on the probe's last step or displaced one slot past it).
+found on the probe's last step or displaced one slot past it); for
+Sticky Sampling's update capacities 8, 288 and 4,096, empty, part-filled
+and full tables (keys repeated, empty slots holding counts), counts on
+both sides of epoch starts, epochs behind and ahead of their counts, a
+hot row, several source rows, and the bumps that masked steps take: a
+row's last tuple before the batch's last position, at it (the bump then
+falls on the next batch's first step, with no tuple of the row) and
+followed by masked tuples only, over two batches, byte for byte, through
+both entry points.
 Tests marked ``cuda`` need a card; run them there with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -53,7 +61,8 @@ from repro_torch.kernels import (bitset_or, build, flash_attention,
                                  fm_bitmap, hll_max, lossy_scan,
                                  onehot_matmul, ops, pairwise_corr, probe,
                                  ref, reservoir_scan, rhp_project,
-                                 sliding_dft)
+                                 sliding_dft, sticky_scan)
+from repro_torch.core import sticky
 from repro_torch.service import routing
 
 
@@ -1710,3 +1719,262 @@ def test_plain_versions_match_a_serial_loop_at_edge_shapes():
               for a in (re, im, delta, mask, twr, twi)))
         assert np.array_equal(got[0].numpy(), want_re)
         assert np.array_equal(got[1].numpy(), want_im)
+
+
+STICKY_PARAMS = {8: dict(support=0.2, eps=0.1, delta=0.1, seed=37),
+                 288: dict(support=0.01, eps=0.002, delta=0.01, seed=37),
+                 4096: dict(support=0.001, eps=0.0001, delta=0.01, seed=37)}
+STICKY_PATTERNS = ("empty", "epochs", "full", "hot", "edges")
+
+
+def _sticky_state(rng, n, cap, pattern):
+    """A Sticky Sampling stack [n, cap] as numpy: ``empty`` at init; else
+    counts a few tuples below the start of epochs 1-4 (a handful near the
+    int32 top, where n_seen + 1 wraps), tables part filled (``full``:
+    every slot) with keys repeated within a row and ids of 2**31 and
+    above, empty slots holding counts, epochs as their counts ask but
+    every seventh row two behind and every fifth one ahead."""
+    keys = np.full((n, cap), -1, np.int64)
+    counts = np.zeros((n, cap), np.float32)
+    n_seen = np.zeros(n, np.int64)
+    epoch = np.zeros(n, np.int64)
+    if pattern == "empty":
+        return keys, counts, n_seen, epoch
+    starts = np.asarray(sticky.epoch_starts(16 * cap), np.int64)
+    k = rng.randint(1, min(4, len(starts)) + 1, n)
+    n_seen = starts[k - 1] - rng.randint(1, 40, n)
+    if pattern == "full":
+        n_seen = np.maximum(starts[k - 1] + rng.randint(-3000, 3000, n), 0)
+    n_seen[4::23] = 2**31 - 1 - rng.randint(0, 30, n_seen[4::23].size)
+    want = sticky.want_of(torch.from_numpy(n_seen), 16 * cap).numpy()
+    epoch = want.copy()
+    epoch[::7] = np.maximum(want[::7] - 2, 0)
+    epoch[3::5] = want[3::5] + 1
+    fill = rng.rand(n, cap) < (1.0 if pattern == "full" else 0.6)
+    ids = rng.randint(0, 3 * cap, (n, cap))
+    ids[:, ::9] = rng.randint(2**31, 2**32, ids[:, ::9].shape)
+    keys = np.where(fill, ids, -1)
+    counts = np.where(fill, rng.randint(1, 30, (n, cap)),
+                      np.where(rng.rand(n, cap) < 0.1, 2, 0)
+                      ).astype(np.float32)
+    return keys, counts, n_seen, epoch
+
+
+def _sticky_batch(rng, n, cap, t, sources, hot):
+    """Zipf items among the tables' ids, the sentinel 0xFFFFFFFF and ids
+    of 2**31 and above; rows -1 and n, masked tuples, the first source
+    row also routed to; with ``hot`` a row taking ~70% of the batch."""
+    items = (rng.zipf(1.3, t) % (3 * cap)).astype(np.int64)
+    items[::19] = 0xFFFFFFFF
+    items[5::29] = rng.randint(2**31, 2**32, items[5::29].size)
+    rows = rng.randint(0, n, t).astype(np.int32)
+    if hot:
+        rows[rng.rand(t) < 0.7] = n // 2
+    rows[::11] = -1
+    rows[5::13] = n
+    if sources:
+        rows[1::17] = sources[0]
+    return rows, items, rng.rand(t) > 0.1
+
+
+def _sticky_edges(state, batches, cap):
+    """The bumps masked steps take, built on purpose on rows 0-2 (no
+    source), one tuple before epoch 1 at the end of their tuples: row 0's
+    last tuple of batch 1 sits before the batch's last position (the next,
+    masked, step bumps it); row 1's is batch 1's last tuple, and batch 2
+    gives it none (batch 2's first step bumps it); row 2 takes no tuple of
+    batch 1, and batch 2's last tuples after its own are all masked."""
+    keys, counts, n_seen, epoch = state
+    e1 = sticky.epoch_starts(16 * cap)[0]
+    (r1, _, m1), (r2, _, m2) = batches
+    t = len(r1)
+    for rows in (r1, r2):
+        rows[np.isin(rows, [0, 1, 2])] = -1
+    for rows, mask, row, at in ((r1, m1, 0, [t // 8, t // 4, t // 2, t - 5]),
+                                (r1, m1, 1, [t // 8 + 1, t // 4 + 1, t - 1]),
+                                (r2, m2, 0, [1, t // 3 + 1]),
+                                (r2, m2, 2, [2, t // 5 + 1, t - 4])):
+        rows[at] = row
+        mask[at] = True
+    r2[t - 3:] = 2
+    m2[t - 3:] = False
+    for row, m in ((0, 4), (1, 3), (2, 3)):
+        n_seen[row] = e1 - 1 - m
+        epoch[row] = 0
+
+
+def _sticky_case(rng, n, cap, t, sources, pattern, dev, n_batches=2):
+    """A Sticky Sampling stack and ``n_batches`` batches over it (the
+    state and batch patterns above); ``edges`` adds the masked-step bumps
+    (``_sticky_edges``). Returns (state (keys, counts, n_seen, epoch),
+    [(rows, items, mask, src), ...]) on ``dev``."""
+    state = _sticky_state(rng, n, cap, "epochs" if pattern in ("hot",
+                                                               "edges")
+                          else pattern)
+    batches = [_sticky_batch(rng, n, cap, t, sources, pattern == "hot")
+               for _ in range(n_batches)]
+    if pattern == "edges":
+        _sticky_edges(state, batches, cap)
+    c = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    src = (c(np.asarray(sources + sources[:1], np.int64)) if sources
+           else None)
+    keys, counts, n_seen, epoch = state
+    state = (c(keys.astype(np.uint32).view(np.int32)), c(counts),
+             c(n_seen.astype(np.uint32).view(np.int32)),
+             c(epoch.astype(np.int32)))
+    return state, [(c(rows), c(items.astype(np.uint32).view(np.int32)),
+                    c(mask), src) for rows, items, mask in batches]
+
+
+_STICKY_CASES = [
+    (9, cap, 3000, sources, pattern)
+    for cap in (8, 288)
+    for pattern, sources in (("empty", []), ("epochs", [4]), ("full", [2, 6]),
+                             ("hot", [7]), ("edges", [8]))] + [
+    (5, 4096, 6000, [3], "epochs"), (5, 4096, 6000, [], "full"),
+    (6, 4096, 20000, [4], "edges"), (3, 8, 1, [], "epochs"),
+    (4, 288, 33, [3], "edges"), (4099, 288, 8000, [4098, 7], "epochs"),
+    (64, 8, 65536, [32], "hot")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,cap,t,sources,pattern", _STICKY_CASES)
+def test_sticky_scan_matches_plain_byte_for_byte(dev, n, cap, t, sources,
+                                                 pattern):
+    """The sticky-scan kernel (rows given) against its plain version over
+    two batches: capacities 8, 288 and 4,096; one tuple to 65,536; a hot
+    row; no source row, one also routed to, two, one listed twice; every
+    state pattern, and the bumps masked steps take (``edges``). Keys,
+    counts, n_seen and epoch byte-equal to the plain version and across
+    two kernel runs, one launch a call."""
+    params = STICKY_PARAMS[cap]
+    rng = np.random.RandomState(n + cap + t)
+    state, batches = _sticky_case(rng, n, cap, t, sources, pattern, dev)
+    update = sticky_scan.sticky_scan_update
+    outs = [[x.clone() for x in state] for _ in range(2)]
+    want = [x.clone() for x in state]
+    before = update.launches_by_capacity[cap]
+    for batch in batches:
+        for st in outs:
+            update(*st, *batch, **params)
+        ref.sticky_scan_update(*want, *batch, **params)
+        torch.cuda.synchronize()
+        for a, b, w in zip(*outs, want):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+            assert torch.equal(a.view(torch.int32), w.view(torch.int32))
+    assert update.launches_by_capacity[cap] == before + 2 * len(batches)
+    assert not torch.equal(want[1], state[1])
+    if pattern == "edges":                       # (a), (b), (c) bumped
+        assert want[3][:3].tolist() == [1, 1, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cut", [0, 1], ids=["all_found", "longest_cut"])
+@pytest.mark.parametrize("n,cap,t,sources,pattern", [
+    (9, 8, 3000, [4], "epochs"), (9, 288, 3000, [8], "edges"),
+    (9, 288, 3000, [2, 6], "full"), (5, 4096, 6000, [3], "hot"),
+    (4, 288, 33, [3], "edges")])
+def test_sticky_probe_scan_matches_plain_byte_for_byte(dev, n, cap, t,
+                                                       sources, pattern,
+                                                       cut):
+    """The fused entry (the probe in the kernel's key pass) against the
+    plain probe plus the plain version over two batches, on a table at
+    0.7 load with n_probe its longest displacement + 1 (every id found on
+    its last step) or one less (the most displaced ids take no row); two
+    runs byte-equal, one launch a call, and a rows-given call beside them
+    at the same sizes."""
+    params = STICKY_PARAMS[cap]
+    rng = np.random.RandomState(n + cap + t + cut)
+    state, batches = _sticky_case(rng, n, cap, t, sources, pattern, dev)
+    fused = sticky_scan.sticky_probe_scan_update
+    outs = [[x.clone() for x in state] for _ in range(2)]
+    other = [x.clone() for x in state]
+    want = [x.clone() for x in state]
+    before = (fused.launches, sticky_scan.sticky_scan_update.launches)
+    for rows, items, mask, src in batches:
+        table, sids, n_probe = _reservoir_probe_case(rng, n, t, rows, dev,
+                                                     cut)
+        plain_rows = probe.probe_rows(*table, *sids, n_probe=n_probe)
+        for st in outs:
+            fused(*st, *table, *sids, items, mask, src, n_probe=n_probe,
+                  **params)
+        sticky_scan.sticky_scan_update(*other, plain_rows, items, mask, src,
+                                       **params)
+        ref.sticky_scan_update(*want, plain_rows, items, mask, src,
+                               **params)
+        torch.cuda.synchronize()
+        for a, b, o, w in zip(*outs, other, want):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+            assert torch.equal(a.view(torch.int32), w.view(torch.int32))
+            assert torch.equal(o.view(torch.int32), w.view(torch.int32))
+    assert (fused.launches, sticky_scan.sticky_scan_update.launches) == \
+        (before[0] + 2 * len(batches), before[1] + len(batches))
+
+
+@pytest.mark.cuda
+def test_sticky_scan_rejects_bad_operands_and_skips_empty_batches(dev):
+    """Both entries raise on a wrong dtype, shape, device or capacity and
+    on a table of no power of two, and launch nothing on an empty batch
+    (the reference's scan of no tuple takes no step)."""
+    params = STICKY_PARAMS[8]
+    rng = np.random.RandomState(1)
+    state, batches = _sticky_case(rng, 5, 8, 64, [1], "epochs", dev, 1)
+    rows, items, mask, src = batches[0]
+    update = sticky_scan.sticky_scan_update
+    fused = sticky_scan.sticky_probe_scan_update
+    table, sids, n_probe = _reservoir_probe_case(rng, 5, 64, rows, dev, 0)
+    before = (update.launches, fused.launches)
+    keys, counts, n_seen, epoch = state
+    for bad, err in (((keys, counts, n_seen, epoch.long()), TypeError),
+                     ((keys, counts.cpu(), n_seen, epoch), ValueError),
+                     ((keys[:, :-1], counts[:, :-1], n_seen, epoch),
+                      ValueError)):
+        with pytest.raises(err):
+            update(*bad, rows, items, mask, src, **params)
+        with pytest.raises(err):
+            fused(*bad, *table, *sids, items, mask, src, n_probe=n_probe,
+                  **params)
+    with pytest.raises(TypeError):
+        update(*state, rows, items, mask.to(torch.int32), src, **params)
+    with pytest.raises(ValueError):
+        update(*state, rows[:-1], items, mask, src, **params)
+    with pytest.raises(ValueError):
+        update(*state, rows, items, mask, src, **STICKY_PARAMS[288])
+    with pytest.raises(ValueError):                  # size not a power of 2
+        fused(*state, *[x[:-1] for x in table], *sids, items, mask, src,
+              n_probe=n_probe, **params)
+    snapshot = [x.clone() for x in state]
+    update(*state, rows[:0], items[:0], mask[:0], src, **params)
+    fused(*state, *table, *[x[:0] for x in sids], items[:0], mask[:0], src,
+          n_probe=n_probe, **params)
+    assert (update.launches, fused.launches) == before
+    assert all(torch.equal(a, b) for a, b in zip(state, snapshot))
+
+
+@pytest.mark.cuda
+def test_sticky_tables_equal_the_float_functions(dev):
+    """The kernel's own want_epoch (``sticky_scan.eval_tables``) at every
+    count up to 2**20 and at each epoch start and its neighbours, and its
+    geo at every hash within 2**12 of each power of two, equal the literal
+    float32 functions on the CPU, for the three capacities."""
+    h = np.unique(np.concatenate(
+        [np.arange(max(0, 2**e - 4096), min(2**e + 4096, 2**32))
+         for e in range(0, 33)]))
+    want_geo = sticky.geo_of_hash(torch.from_numpy(h)).numpy()
+    for cap in STICKY_PARAMS:
+        t = 16 * cap
+        want, geo = sticky_scan.eval_tables(
+            cap, 1, 2**20, torch.from_numpy(h.astype(np.uint32).view(
+                np.int32)).to(dev))
+        n = torch.arange(1, 2**20 + 1)
+        assert np.array_equal(want.cpu().numpy(),
+                              sticky.want_epoch(n, t).numpy())
+        assert geo.cpu().numpy().view(np.int32).tobytes() == \
+            want_geo.view(np.int32).tobytes()
+        for s in sticky.epoch_starts(t):
+            got, _ = sticky_scan.eval_tables(cap, s - 2, 4,
+                                             torch.zeros(1, dtype=torch.int32,
+                                                         device=dev))
+            ref_n = torch.arange(s - 2, s + 2)
+            assert np.array_equal(got.cpu().numpy(),
+                                  sticky.want_epoch(ref_n, t).numpy())
