@@ -112,9 +112,13 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      starting state restored before every call; the bound the larger of
      the bytes (``sticky_bytes``: the words the plain version changed,
      each walked table's keys and each bumped table's counts) and the
-     source walk's hottest slot's dependent updates at FADD_CYCLES, from
-     a host replay (``sticky_replay``) held to the plain version's keys.
-     One entry's tensors are held at a time.
+     source walk's groups of 32 that change a key at
+     STICKY_GROUP_CYCLES each, from a host replay (``sticky_replay``)
+     held to the plain version's keys, which also counts its steps with
+     an empty slot, its full-table steps, admissions and bumps; the
+     hottest slot's dependent updates at FADD_CYCLES, the earlier
+     figure, printed beside it; each call's device time by kernel
+     (``sticky_split``). One entry's tensors are held at a time.
   3. The main path through ``SDE(device="cuda").handle``: per-stream AMS
      (the reference's defaults, [12, 2048]), CM, HLL, Bloom, FM, RHP and
      Figure-6 DFT over 65,536 hashed 63-bit ids; a data-source AMS, CM,
@@ -129,7 +133,9 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      data-source one at support 0.001, eps 0.0001 (capacity 4,096, its
      own stack); 16 ingest batches of 65,536
      Zipf(1.1) tuples (half with SDE_FUSED_PROBE=0), then 2 more under
-     ``torch.profiler`` (device-busy share and top kernels); 1,024 CM,
+     ``torch.profiler`` (device-busy share, top kernels, the Sticky walk
+     activities the profiler kept against the sticky-scan launches);
+     1,024 CM,
      1,024 Bloom, 1,025 RHP, 1,025 DFT, 1,024 AMS and 1,024 per-stream
      Lossy queries (with ``items``; the two data-source Lossy tables'
      heavy items too) in query_many, Bloom false positives, HLL, FM, AMS
@@ -218,6 +224,7 @@ last line; each phase prints its peak device memory, held under 48 GiB):
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
 import statistics
@@ -278,6 +285,14 @@ STICKY_PARAMS = {}
 STICKY_CAP4096_PARAMS = {"support": 0.001, "eps": 0.0001}
 STICKY_PAST_BATCHES = 5
 STICKY_TIMING_RUNS = 10     # its calls take ms: fewer event runs suffice
+# a walk's group of 32 tuples that changes a key (admits one, or holds a
+# bump that empties a slot): its keys must reach the next group's lookups,
+# so the least dependent chain of such a group is a lookup (two dependent shared loads: the index entry,
+# then its key), the misses' ballot, the rank's load of the empty slot and
+# the key's store: three shared-memory latencies and a ballot's
+# (34.0 and 17.2 cycles by tools/lossy_probe.py --latency on an H100)
+LDS_CYCLES, BALLOT_CYCLES = 34, 17
+STICKY_GROUP_CYCLES = 3 * LDS_CYCLES + BALLOT_CYCLES
 QUEUE_CYCLES = 4_000_000    # ~2 ms of spin at 1,980 MHz: a call's enqueue
 # the paper's Figure-6 DFT (benchmarks/fig6_dft_workflow.py)
 FIG6_DFT = {"window": 128, "n_coeffs": 8, "threshold": 0.9,
@@ -1887,7 +1902,13 @@ def sticky_replay(kind, keys, counts, n_seen: int, epoch: int,
     the walk's dependences need: ``bumps``, ``hits``, ``takes`` (empty
     slots taken), ``hottest`` (the most dependent updates of one slot: its
     adds, and a subtract at each bump) and the ``keys`` after, which a
-    caller holds to the plain version's. Synchronises; for the bound."""
+    caller holds to the plain version's; and what the kernel's walk meets:
+    ``serial_steps`` (steps that find an empty slot after their check),
+    ``full_steps`` (the rest) and ``serial_groups``: the groups of 32
+    steps from the walk's start that change a key (an admission, or a
+    bump that empties a slot: the first-step bump counts in the first
+    group, the end check's in the last), which alone hand the next group
+    work through the keys. Synchronises; for the bound."""
     from repro_torch.core import hashing, sticky
     keys = keys.cpu().numpy().copy()
     counts = counts.cpu().numpy().copy()
@@ -1895,6 +1916,8 @@ def sticky_replay(kind, keys, counts, n_seen: int, epoch: int,
     t_kind = 16 * cap
     chain = np.zeros(cap, np.int64)
     got = dict(bumps=0, hits=0, takes=0)
+    serial = np.zeros(items.shape[0], bool)
+    changed = np.zeros(max(items.shape[0], 1), bool)
     rates = np.asarray(sticky.inv_rates(), np.float32)
     slots = torch.arange(cap, dtype=torch.int64)
     m = items.shape[0]
@@ -1905,23 +1928,25 @@ def sticky_replay(kind, keys, counts, n_seen: int, epoch: int,
     coin = hashing.uniform01(hashing.as_u32(x) ^ hashing.as_u32(n[:m]),
                              kind.seed + 1).numpy()
 
-    def bump(c):
+    def bump(c, i):
         g = sticky.geo_of(hashing.hash_u32(slots ^ (c & hashing.MASK32),
                                            kind.seed)).numpy()
         d = counts - g
         counts[:] = np.where(d < 0, np.float32(0.0), d)
+        changed[i] |= bool(((counts <= 0) & (keys != -1)).any())
         keys[counts <= 0] = -1
         chain[:] += 1
         got["bumps"] += 1
 
     e = int(epoch)
     if want[0] > e:                             # the batch's first step
-        bump(int(n[0]))
+        bump(int(n[0]), 0)
         e = want[0]
     for i, item in enumerate(x.tolist()):
         if want[i] > e:
-            bump(int(n[i]))
+            bump(int(n[i]), i)
             e = want[i]
+        serial[i] = bool((keys == -1).any())
         hit = np.flatnonzero(keys == item)      # the sentinel: first empty
         if hit.size:
             j = int(hit[0])
@@ -1931,13 +1956,18 @@ def sticky_replay(kind, keys, counts, n_seen: int, epoch: int,
             j = (int(empty[0]) if empty.size
                  and coin[i] < rates[min(e, sticky.MAX_RATE_EPOCH)] else -1)
             got["takes"] += j >= 0
+            changed[i] |= j >= 0 and item != -1
         if j >= 0:
             keys[j] = item
             counts[j] = counts[j] + np.float32(1.0)
             chain[j] += 1
     if m and end_check and want[m] > e:
-        bump(int(n[m]))
-    return dict(got, hottest=int(chain.max()), keys=keys)
+        bump(int(n[m]), m - 1)
+    groups = np.zeros(-(-m // 32) * 32, bool)
+    groups[:m] = changed[:m]
+    return dict(got, hottest=int(chain.max()), keys=keys,
+                serial_steps=int(serial.sum()), full_steps=int(m - serial.sum()),
+                serial_groups=int(groups.reshape(-1, 32).any(1).sum()))
 
 
 def sticky_floats(dev) -> dict:
@@ -2018,6 +2048,23 @@ def sticky_bump_state(kind, st: dict, b, n: int, src_row: int) -> tuple:
     return first, end
 
 
+def sticky_split(kern, restore, runs: int = 3) -> dict:
+    """Device ms of a sticky-scan call a run by kernel (``device_events``
+    with PAD_LAUNCHES spin kernels first): the walk, ``bump_kernel``, the
+    row sort and the rest (key pass, flags, memsets); the state restored
+    before each call, its copy left out."""
+    groups = {"sticky_walk_kernel": "walk", "bump_kernel": "bump",
+              "sort_": "sort"}
+    split: dict = {}
+    for name, start, end in device_events(lambda: (restore(), kern()), runs,
+                                          pad=PAD_LAUNCHES):
+        if "emcpy" in name:
+            continue
+        key = next((g for k, g in groups.items() if k in name), "other")
+        split[key] = split.get(key, 0.0) + (end - start) / runs / 1e3
+    return split
+
+
 def sticky_bytes(buf0: torch.Tensor, buf: torch.Tensor, n: int, cap: int,
                  walks: int) -> int:
     """The bytes a Sticky update from ``buf0`` to ``buf`` (``sticky_stack``
@@ -2057,9 +2104,13 @@ def phase2_sticky(b, n: int, results: dict) -> None:
     (``queued_device_ms``). No one PyTorch call computes it. The bound is
     the larger of the bytes (the batch read once, or the ids' halves and
     the table slots the probes read; then ``sticky_bytes`` of the plain
-    version's change) and the source walk's hottest slot's dependent
-    updates at FADD_CYCLES (a host replay, ``sticky_replay``, whose keys
-    must equal the plain version's)."""
+    version's change) and the source walk's groups that change a key
+    at STICKY_GROUP_CYCLES each (a host replay, ``sticky_replay``, whose
+    keys must equal the plain version's; its steps with an empty slot,
+    full-table steps, admissions and bumps are printed first). The earlier
+    figure, the hottest slot's dependent updates at FADD_CYCLES, is kept
+    beside the bound: the kernel folds a slot's adds, so it no longer binds
+    it, and a kernel that reads under it is named."""
     from repro_torch import core
     from repro_torch.kernels import lossy_scan, probe, ref, sticky_scan
 
@@ -2130,6 +2181,15 @@ def phase2_sticky(b, n: int, results: dict) -> None:
                         f"some and each such row's epoch must rise")
             words_b = sticky_bytes(buf0, pbuf, n, cap, walks)
             chain_ms, mhz = chain_floor_ms(rp["hottest"])
+            group_ms, _ = chain_floor_ms(rp["serial_groups"],
+                                         STICKY_GROUP_CYCLES)
+            print(f"[phase2] sticky_scan at capacity {cap} ({label}): the "
+                  f"source walk's {b.items[b.mask].numel()} steps: "
+                  f"{rp['serial_steps']} with an empty slot, "
+                  f"{rp['serial_groups']} groups of 32 that change a key, "
+                  f"{rp['full_steps']} on a full table, {rp['takes']} "
+                  f"admissions, {rp['bumps']} bumps, {rp['hits']} hits "
+                  f"(host replay)", flush=True)
             for name in names:
                 kernel = entries[name.split("@")[0]]
                 fused = name.startswith("sticky_probe")
@@ -2152,19 +2212,28 @@ def phase2_sticky(b, n: int, results: dict) -> None:
                 kern = lambda: kernel(kst)
                 kms = cuda_ms(kern, runs=STICKY_TIMING_RUNS, prep=restore)
                 kdev = queued_device_ms(kern, restore)
+                split = sticky_split(kern, restore)
                 batch_b = (t * (8 + 4 + 1)
                            + TABLE_B * probed_slots(b, b.mask) if fused
                            else t * (4 + 4 + 1) + 4 * src.numel())
                 n_bytes = batch_b + words_b
                 t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-                bms = max(t_bytes, chain_ms)
-                by = "bytes" if t_bytes >= chain_ms else "operations"
+                bms = max(t_bytes, group_ms)
+                by = "bytes" if t_bytes >= group_ms else "operations"
                 plain_ms = pms + (probe_ms if fused else 0.0)
+                under = kdev < chain_ms
+                note = (", which the kernel reads under: it folds a slot's "
+                        "adds" if under else "")
                 out[name][label] = dict(
                     max_abs_err=err, ms=kms, plain_ms=plain_ms, bound_ms=bms,
                     bound_by=by, device_ms=kdev, walks=walks,
                     longest_run=longest, hottest_adds=rp["hottest"],
                     bumps=rp["bumps"], hits=rp["hits"], takes=rp["takes"],
+                    serial_steps=rp["serial_steps"],
+                    serial_groups=rp["serial_groups"],
+                    full_steps=rp["full_steps"], group_floor_ms=group_ms,
+                    former_chain_ms=chain_ms, under_former_chain=under,
+                    split_device_ms=split,
                     first_step_bumps=first, end_of_walk_bumps=n_end)
                 print(f"[phase2] {name} ({label}): capacity {cap}, n={n} "
                       f"rows + data-source row {src_row}, exact match (keys, "
@@ -2177,11 +2246,16 @@ def phase2_sticky(b, n: int, results: dict) -> None:
                       f"{longest} tuples; {first} rows bump at the first "
                       f"step, {n_end} after their walks; the source walk: "
                       f"{rp['hits']} hits, "
-                      f"{rp['takes']} slots taken, {rp['bumps']} bumps, the "
-                      f"hottest slot {rp['hottest']} dependent updates; "
-                      f"chain {chain_ms:.5f} ms (at {FADD_CYCLES} cycles, "
-                      f"{mhz:.0f} MHz), bytes {t_bytes:.5f} ms ({n_bytes} B):"
-                      f" bound {bms:.5f} ms ({by})", flush=True)
+                      f"{rp['takes']} slots taken, {rp['bumps']} bumps, "
+                      f"profiled device ms by kernel "
+                      f"{ {k: round(v, 4) for k, v in split.items()} }, "
+                      f"{rp['serial_groups']} groups that change a key at "
+                      f"{STICKY_GROUP_CYCLES} cycles {group_ms:.5f} ms "
+                      f"({mhz:.0f} MHz), bytes {t_bytes:.5f} ms ({n_bytes} B):"
+                      f" bound {bms:.5f} ms ({by}); beside it the former "
+                      f"chain, the hottest slot's {rp['hottest']} dependent "
+                      f"updates at {FADD_CYCLES} cycles, {chain_ms:.5f} ms"
+                      f"{note}", flush=True)
                 del kern, restore, kbuf, kst
                 free()
             del pbuf, pst
@@ -2422,8 +2496,21 @@ class ScanProbes:
 
 def profile_batches(sde, batches, first: int) -> None:
     """Ingest ``batches`` under torch.profiler; print wall and device-busy
-    ms per batch, the idle share and the top 10 device kernels."""
+    ms per batch, the idle share and the top 10 device kernels; and the
+    Sticky walk activities the profiler kept against the sticky-scan
+    launches the window made, by capacity (``launches_by_capacity``)."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import sticky_scan
+    entries = (sticky_scan.sticky_scan_update,
+               sticky_scan.sticky_probe_scan_update)
+
+    def sticky_launches() -> collections.Counter:
+        out = collections.Counter()
+        for fn in entries:
+            out.update(fn.launches_by_capacity)
+        return out
+
+    launched = sticky_launches()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2456,6 +2543,17 @@ def profile_batches(sde, batches, first: int) -> None:
         print(f"[phase3]   {tot / 1e3 / nb:.4f} ms/batch in {cnt / nb:g} "
               f"launches/batch: {name[:110]}", flush=True)
     require(dev_events, "torch.profiler recorded no device activity")
+    launched = sticky_launches() - launched
+    walks = [e for e in dev_events if "sticky_walk_kernel<" in e.name]
+    by_warps = collections.Counter(
+        e.name.split("sticky_walk_kernel<")[1].split(">")[0] for e in walks)
+    walk_ms = sum(e.time_range.elapsed_us() for e in walks) / 1e3
+    print(f"[phase3] Sticky walks: the profiler kept {len(walks)} walk "
+          f"activities ({dict(by_warps)} by the kernel's warps a block) of "
+          f"{sum(launched.values())} sticky-scan launches ({dict(launched)} "
+          f"by capacity), {walk_ms / nb:.4f} ms a batch; device busy is the "
+          f"union of every kept activity, so it holds these "
+          f"{len(walks)}", flush=True)
 
 
 def check_dft_stack(sde, stack, batches, answers, dev) -> None:
@@ -3369,6 +3467,8 @@ def main() -> None:
             "hottest_adds", "split_device_ms", "walks", "writes",
             "past_fill", "past_epochs", "capacity", "bumps", "hits",
             "takes", "first_step_bumps", "end_of_walk_bumps", "float_check",
+            "serial_steps", "serial_groups", "full_steps", "group_floor_ms",
+            "former_chain_ms", "under_former_chain",
             "device_timing",
             "start",
             "two_stacks_device_ms",

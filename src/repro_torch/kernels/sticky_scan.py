@@ -15,9 +15,13 @@ every row step through the whole batch masked to its own tuples
 (``core/sticky.walk_row`` says why these are all the bumps a row takes).
 ``csrc/sticky_scan.cu`` takes the first checks in a pass over every row,
 groups the batch by row with the stable sort of ``csrc/row_sort.cuh``
-and walks each row's own tuples once, one warp a row, the table in
-shared memory, 32 tuples at a time: each tuple's count, epoch, bump and
-coin for all at once, then the lookups a tuple at a time.
+and walks each row's own tuples once, the table in shared memory: a
+routed row's run by one warp, 32 tuples a group placed at once; a
+data-source row by a block, its masked tuples spread over its warps.
+Between bumps a key changes only where an admitted miss takes the first
+empty slot, so the walk keeps each slot's adds as a count and folds
+them into the float counts before each bump (byte for byte the plain
+version's sequential adds).
 
 The float functions ``want_epoch`` and ``geo`` reach the kernel as
 tables of their steps (``core/sticky.py``), built on the CPU from the

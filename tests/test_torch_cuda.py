@@ -43,8 +43,12 @@ both sides of epoch starts, epochs behind and ahead of their counts, a
 hot row, several source rows, and the bumps that masked steps take: a
 row's last tuple before the batch's last position, at it (the bump then
 falls on the next batch's first step, with no tuple of the row) and
-followed by masked tuples only, over two batches, byte for byte, through
-both entry points.
+followed by masked tuples only, and the walk's hard cases
+(STICKY_HARD_PATTERNS: phase 3's traffic, refills after a bump, stretches
+that end at an epoch start or cross the int32 wrap, items admitted twice
+in a group, sentinel bursts, repeated keys, counts that adds cannot take
+in closed form), over two batches, byte for byte, through both entry
+points.
 Tests marked ``cuda`` need a card; run them there with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -1803,16 +1807,140 @@ def _sticky_edges(state, batches, cap):
         epoch[row] = 0
 
 
+# counts that n adds of 1.0 cannot take in closed form, or that take it at
+# its edge (2**24 + 1 is no float32)
+STICKY_ODD_COUNTS = (2.0**24 - 3, 2.0**24 - 2, 2.0**24 - 1, 2.0**24,
+                     2.0**24 + 2, 0.5, 1e30, np.nan, np.inf, -np.inf, -0.0,
+                     -3.0)
+# the walk's hard cases: phase 3's traffic from empty tables and past an
+# epoch; a table a bump empties and the walk fills again; stretches that
+# end at an epoch start and that cross the int32 wrap; an item admitted
+# twice in a group beside more admitters than empty slots; sentinel bursts;
+# keys repeated in a row; the counts above in hit slots; per-stream rows
+# (one item a row, Zipf-hot long runs) whose runs cross an epoch start
+STICKY_HARD_PATTERNS = ("phase3", "phase3_past", "refill", "ends", "twice",
+                        "sentinels", "repeats", "odd", "streams")
+
+
+def _sticky_phase3_batch(rng, n, t):
+    """chip_smoke phase 3's traffic: Zipf(1.1) stream ids over 65,536
+    ids, 10% unrouted ids and 0.2% masked tuples, items the ids folded to
+    32 bits (``routing.fold64``); a routed id's row is its index mod n."""
+    pop = np.unique(rng.randint(0, 2**62, size=70000, dtype=np.int64))
+    pop = pop[rng.permutation(len(pop))[:65536]]
+    p = 1.0 / np.arange(1, 65537) ** 1.1
+    idx = rng.choice(65536, size=t, p=p / p.sum())
+    sids = pop[idx]
+    unrouted = rng.rand(t) < 0.10
+    sids[unrouted] = rng.randint(0, 2**62, size=int(unrouted.sum()),
+                                 dtype=np.int64) | (1 << 62)
+    rows = np.where(unrouted, -1, idx % n).astype(np.int32)
+    items = routing.fold64(sids).astype(np.int64)
+    return rows, items, rng.rand(t) >= 0.002
+
+
+def _sticky_hard(rng, n, cap, t, sources, pattern, n_batches):
+    """The state (numpy, as ``_sticky_state``) and batches of one of
+    STICKY_HARD_PATTERNS; every row's table is built alike, so the routed
+    walks meet each case as the source walks do."""
+    starts = np.asarray(sticky.epoch_starts(16 * cap), np.int64)
+    keys = np.full((n, cap), -1, np.int64)
+    counts = np.zeros((n, cap), np.float32)
+    n_seen = rng.randint(0, max(1, starts[0] - 2 * t - 2), n).astype(
+        np.int64)
+    epoch = np.zeros(n, np.int64)
+    if pattern == "streams":            # a stream a row, item its id's
+        ids = rng.randint(0, 2**62, n, dtype=np.int64)  # fold; an epoch
+        p = 1.0 / np.arange(1, n + 1) ** 1.1            # start ~200 in
+        batches = []
+        for _ in range(n_batches):
+            rows = rng.choice(n, size=t, p=p / p.sum()).astype(np.int32)
+            items = routing.fold64(ids[rows]).astype(np.int64)
+            rows[rng.rand(t) < 0.1] = -1
+            batches.append((rows, items, rng.rand(t) >= 0.002))
+        n_seen[:] = starts[0] - 200
+        return (keys, counts, n_seen, epoch), batches
+    if pattern.startswith("phase3"):
+        batches = [_sticky_phase3_batch(rng, n, t) for _ in range(n_batches)]
+        if pattern == "phase3_past":    # full, an epoch start half a walk on
+            hot = np.unique(batches[0][1])
+            keys = hot[rng.randint(0, len(hot), (n, cap))]
+            counts = rng.randint(1, 30, (n, cap)).astype(np.float32)
+            k = int(np.searchsorted(starts, starts[0] + t // 2))
+            n_seen[:] = starts[k] - t // 2
+            epoch[:] = sticky.want_of(torch.from_numpy(n_seen),
+                                      16 * cap).numpy()
+        return (keys, counts, n_seen, epoch), batches
+    pool = np.unique(np.concatenate([
+        rng.randint(0, 2**31, 3 * cap), rng.randint(2**31, 2**32 - 1, cap)]))
+    pool = pool[rng.permutation(len(pool))]
+    batches = []
+    for _ in range(n_batches):
+        items = pool[(rng.zipf(1.3, t) - 1) % len(pool)]
+        rows = rng.randint(0, n, t).astype(np.int32)
+        rows[::11] = -1
+        mask = rng.rand(t) > 0.05
+        if pattern == "twice":      # per 32 positions: one new item three
+            g = np.arange(t) // 32  # times, four more once each
+            new = 2**32 - 2 - 8 * g
+            for at, off in ((3, 0), (9, 0), (17, 0), (5, 1), (11, 2),
+                            (23, 3), (29, 4)):
+                items[at::32] = new[at::32] - off
+                mask[at::32] = True
+        if pattern == "sentinels":
+            items[(np.arange(t) % 64 >= 10) & (np.arange(t) % 64 < 50)] = \
+                0xFFFFFFFF
+        batches.append((rows, items, mask))
+    head = np.concatenate([pool[:cap // 2], pool[rng.permutation(
+        np.arange(cap // 2, len(pool)))]])[:cap]
+    for r in range(n):
+        keys[r] = head[rng.permutation(cap)]
+    counts = rng.randint(5, 30, (n, cap)).astype(np.float32)
+    if pattern == "refill":             # a bump near the walk's start
+        counts[:] = 1.0
+        n_seen[:] = starts[0] - 1 - t // 8
+    elif pattern == "ends":             # src[0]: an epoch start a third in;
+        n_seen[:] = starts[0] - 1 - t // 3      # src[1]: across the wrap
+        n_seen[sources[1]] = 2**31 - 1 - t // 4
+        epoch[sources[1]] = int(sticky.want_of(
+            torch.tensor([2**31 - 1]), 16 * cap)[0])
+    elif pattern == "twice":            # three empty slots a table
+        for r in range(n):
+            keys[r, rng.choice(cap, 3, replace=False)] = -1
+    elif pattern == "sentinels":        # a third empty, some with counts
+        keys[rng.rand(n, cap) < 0.3] = -1
+        counts[(keys == -1) & (rng.rand(n, cap) < 0.5)] = 0.0
+    elif pattern == "repeats":          # each key ~4 times: the first copy
+        keys = pool[rng.randint(0, max(1, cap // 4), (n, cap))]  # at 1
+        for r in range(n):
+            _, first = np.unique(keys[r], return_index=True)
+            counts[r, first] = 1.0
+        keys[rng.rand(n, cap) < 0.1] = -1
+        n_seen[:] = starts[0] - 1 - t // 4
+    elif pattern == "odd":              # the hot keys' first slots
+        for r in range(n):
+            at = [int(np.flatnonzero(keys[r] == x)[0])
+                  for x in pool[:len(STICKY_ODD_COUNTS)]]
+            counts[r, at] = STICKY_ODD_COUNTS
+        n_seen[:] = starts[0] - 1 - t // 2
+    return (keys, counts, n_seen, epoch), batches
+
+
 def _sticky_case(rng, n, cap, t, sources, pattern, dev, n_batches=2):
     """A Sticky Sampling stack and ``n_batches`` batches over it (the
     state and batch patterns above); ``edges`` adds the masked-step bumps
-    (``_sticky_edges``). Returns (state (keys, counts, n_seen, epoch),
+    (``_sticky_edges``); STICKY_HARD_PATTERNS build both
+    (``_sticky_hard``). Returns (state (keys, counts, n_seen, epoch),
     [(rows, items, mask, src), ...]) on ``dev``."""
-    state = _sticky_state(rng, n, cap, "epochs" if pattern in ("hot",
-                                                               "edges")
-                          else pattern)
-    batches = [_sticky_batch(rng, n, cap, t, sources, pattern == "hot")
-               for _ in range(n_batches)]
+    if pattern in STICKY_HARD_PATTERNS:
+        state, batches = _sticky_hard(rng, n, cap, t, sources, pattern,
+                                      n_batches)
+    else:
+        state = _sticky_state(rng, n, cap, "epochs" if pattern in ("hot",
+                                                                   "edges")
+                              else pattern)
+        batches = [_sticky_batch(rng, n, cap, t, sources, pattern == "hot")
+                   for _ in range(n_batches)]
     if pattern == "edges":
         _sticky_edges(state, batches, cap)
     c = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -1834,7 +1962,16 @@ _STICKY_CASES = [
     (5, 4096, 6000, [3], "epochs"), (5, 4096, 6000, [], "full"),
     (6, 4096, 20000, [4], "edges"), (3, 8, 1, [], "epochs"),
     (4, 288, 33, [3], "edges"), (4099, 288, 8000, [4098, 7], "epochs"),
-    (64, 8, 65536, [32], "hot")]
+    (64, 8, 65536, [32], "hot")] + [
+    (4, 288, 4096, [1, 2] if pattern == "ends" else [1], pattern)
+    for pattern in STICKY_HARD_PATTERNS
+    if not pattern.startswith("phase3") and pattern != "streams"] + [
+    (64, 288, 8192, [0], "streams"), (64, 4096, 8192, [0], "streams"),
+    (64, 8, 8192, [], "streams")] + [
+    (4, cap, 65536, [1], pattern) for cap in (288, 4096)
+    for pattern in ("phase3", "phase3_past")] + [
+    (3, 288, 20, [1], "epochs"), (3, 4096, 100, [1], "epochs"),
+    (5, 4096, 6000, [1, 2], "ends"), (5, 4096, 6000, [1], "odd")]
 
 
 @pytest.mark.cuda
@@ -1844,9 +1981,11 @@ def test_sticky_scan_matches_plain_byte_for_byte(dev, n, cap, t, sources,
     """The sticky-scan kernel (rows given) against its plain version over
     two batches: capacities 8, 288 and 4,096; one tuple to 65,536; a hot
     row; no source row, one also routed to, two, one listed twice; every
-    state pattern, and the bumps masked steps take (``edges``). Keys,
-    counts, n_seen and epoch byte-equal to the plain version and across
-    two kernel runs, one launch a call."""
+    state pattern, and the bumps masked steps take (``edges``); the walk's
+    hard cases (STICKY_HARD_PATTERNS), phase 3's traffic at T = 65,536
+    from empty and past an epoch among them, and source walks shorter than
+    one warp's share of a chunk. Keys, counts, n_seen and epoch byte-equal
+    to the plain version and across two kernel runs, one launch a call."""
     params = STICKY_PARAMS[cap]
     rng = np.random.RandomState(n + cap + t)
     state, batches = _sticky_case(rng, n, cap, t, sources, pattern, dev)
@@ -1873,7 +2012,8 @@ def test_sticky_scan_matches_plain_byte_for_byte(dev, n, cap, t, sources,
 @pytest.mark.parametrize("n,cap,t,sources,pattern", [
     (9, 8, 3000, [4], "epochs"), (9, 288, 3000, [8], "edges"),
     (9, 288, 3000, [2, 6], "full"), (5, 4096, 6000, [3], "hot"),
-    (4, 288, 33, [3], "edges")])
+    (4, 288, 33, [3], "edges"), (4, 288, 65536, [1], "phase3"),
+    (4, 288, 4096, [1], "odd")])
 def test_sticky_probe_scan_matches_plain_byte_for_byte(dev, n, cap, t,
                                                        sources, pattern,
                                                        cut):

@@ -9,8 +9,10 @@ sticky-scan kernel's plain version) against the reference's vmap, with
 the bumps that masked steps take built on purpose; the registry update
 (``ops.resolve_update_kernel``, the probe fused or not) against the
 reference's probe and vmap; a CPU model of the kernel's order of
-operations (a group's counts, epochs, bumps and coins at once, then the
-lookups in rounds of ballots) against the plain version; and the
+operations (``_Model``: a routed run's groups placed at once, a source
+walk's stretches spread over a block, adds pending a slot and folded
+before each bump) against the plain version, on the card cases and on
+the walk's hard cases; and the
 engine's JSON flow through ``SDE.handle`` in both packages, fused and
 unfused, then carried across by ``convert.engine_from_contents``.
 
@@ -35,8 +37,8 @@ from repro.core import sticky as jsticky
 from repro.kernels import ops as jops
 from repro.service import SDE as JaxSDE
 from test_torch_convert import jax_contents
-from test_torch_cuda import (STICKY_PARAMS, _STICKY_CASES, _sticky_case,
-                             _sticky_state)
+from test_torch_cuda import (STICKY_HARD_PATTERNS, STICKY_PARAMS,
+                             _STICKY_CASES, _sticky_case, _sticky_state)
 from test_torch_rhp import _same
 from test_torch_sampler import _registry_inputs
 from repro_torch import core as tcore
@@ -291,7 +293,11 @@ def _d_of(state):
 
 
 @pytest.mark.parametrize("n,cap,t,sources,pattern", [
-    c for c in _STICKY_CASES if c[1] < 4096 and c[0] < 100])
+    c for c in _STICKY_CASES
+    if c[1] < 4096 and c[0] < 100 and c[4] not in STICKY_HARD_PATTERNS] + [
+    (64, 288, 8192, [0], "streams")] + [
+    (4, 288, 4096, [1, 2] if p == "ends" else [1], p)
+    for p in STICKY_HARD_PATTERNS if p != "streams"])
 def test_stacked_update_matches_jax_vmap(n, cap, t, sources, pattern):
     """``batched.stacked_update``'s scan branch (the kernel wrapper's plain
     version on the CPU) against the reference's vmap of ``add_batch``
@@ -302,7 +308,10 @@ def test_stacked_update_matches_jax_vmap(n, cap, t, sources, pattern):
     steps take, (a) after a row's last tuple before position T-1, (b) on
     the next batch's first step after a row's last tuple at T-1, with no
     tuple of the row in that batch, and (c) after a row's last tuple
-    followed by masked tuples only."""
+    followed by masked tuples only; and at capacity 288 every hard case
+    (``STICKY_HARD_PATTERNS``, T = 4,096, the per-stream rows at 64 x
+    8,192) the kernel's order is held to in
+    ``test_kernel_order_holds_on_hard_cases``."""
     params = STICKY_PARAMS[cap]
     jk = jcore.make_kind("sticky_sampling", **params)
     tk = tcore.make_kind("sticky_sampling", **params)
@@ -416,133 +425,381 @@ def _mix32(h):
     return h
 
 
-def _model_scan(state, batch, params):
-    """A test-only model of the sticky-scan kernel's order of operations
-    (``csrc/sticky_scan.cu``): every row's check at the batch's first
-    step (``bump_kernel``); the key pass (routed tuples of source rows
-    dropped) and the stable sort; then each walk (a source row's masked
-    tuples 32 positions at a time, a run's sorted positions 32 at a time
-    from its start) a group at a time: each lane's count, the epoch it
-    asks for, the running epoch (a max over the lanes), its bump bit and
-    its coin for the whole group first, then the group's tuples in lane
-    order, a bump where its bit is set, a lookup in rounds of 4 x 32
-    keys (each 32 a ballot of hits and one of empty slots) and the write;
-    the check after the walk where its last tuple is not the batch's
-    last. Integer tables and numpy float32 scalars only. Returns the
-    stack (numpy) and the paths taken."""
-    keys, counts, n_seen, epoch = (x.numpy().copy() for x in state)
-    rows, items, mask, src = (None if x is None else x.numpy()
-                              for x in batch)
-    kind = tsticky.StickySampling(**params)
-    cap, n, t = kind.capacity, len(n_seen), len(rows)
-    starts = tsticky.epoch_starts(16 * cap)
-    at, vals = tsticky.geo_steps()
-    rates = np.asarray(tsticky.inv_rates(), np.float32)
-    mixes = [((s & 0xFFFFFFFF) * 0x9E3779B9 + 1) & 0xFFFFFFFF
-             for s in (kind.seed, kind.seed + 1)]
-    paths = collections.Counter()
-    i32 = lambda u: u - 2**32 if u >= 2**31 else u
+def _quiet(c):
+    """A NaN as the host's float arithmetic returns it: payload, quieted."""
+    return np.asarray(c, np.float32).reshape(1).view(np.int32).__or__(
+        0x00400000).view(np.float32)[0]
 
-    def want(nu):
-        return bisect.bisect_right(starts, i32(nu))
 
-    def due(nu, e):
-        return e < 0 or (e < len(starts) and i32(nu) >= starts[e])
+def _add_ones(c, m, paths):
+    """The kernel's fold of m adds of 1.0f into count c (``add_ones``):
+    min(c + m, 2**24) for an integer c in [-2**24, 2**24], else one add at
+    a time until it holds or the count stops moving; a NaN quieted."""
+    c = np.float32(c)
+    while m > 0:
+        if np.isnan(c):
+            paths["folds of a NaN"] += 1
+            return _quiet(c)
+        if abs(c) <= 2**24 and c == np.trunc(c):
+            paths["folds in closed form"] += 1
+            s = int(c) + m
+            return np.float32(2**24 if s >= 2**24 else s)
+        paths["fold steps one add at a time"] += 1
+        d = np.float32(c + np.float32(1.0))
+        if d == c:
+            return c
+        c, m = d, m - 1
+    return c
 
-    def bump(r, nu):
-        for j in range(cap):
-            g = np.float32(vals[bisect.bisect_right(
-                at, _mix32((j ^ nu) ^ mixes[0]))])
-            d = np.float32(counts[r, j] - g)
+
+class _ModelTable:
+    """One walk's table as ``csrc/sticky_scan.cu`` keeps it in shared
+    memory: the keys, each slot's pending adds, the item -> first slot
+    hash index (16-bit entries, linear probing, ``spread`` cap entries or
+    more: 2 for a routed walk, 8 for a source walk) and the empty slots in
+    slot order (``elist``, taken from the front)."""
+
+    def __init__(self, model, r, spread):
+        self.m, self.r = model, r
+        self.key = model.keys[r].copy()
+        self.pend = np.zeros(model.cap, np.int64)
+        bits = 5
+        while (1 << bits) < spread * model.cap:
+            bits += 1
+        self.size, self.shift = 1 << bits, 32 - bits
+        self.bumped = False
+        self.reindex()
+
+    def hslot(self, x):
+        return (((x & 0xFFFFFFFF) * 0x9E3779B1) & 0xFFFFFFFF) >> self.shift
+
+    def reindex(self):
+        self.idx = [None] * self.size
+        for j in range(self.m.cap):
+            if self.key[j] != -1:
+                self.insert(int(self.key[j]), j)
+        self.elist = np.flatnonzero(self.key == -1).tolist()
+        self.eo = 0
+
+    def insert(self, x, j):
+        h = self.hslot(x)
+        while self.idx[h] is not None:
+            if self.key[self.idx[h]] == x:
+                self.idx[h] = min(self.idx[h], j)
+                return
+            h = (h + 1) % self.size
+        self.idx[h] = j
+
+    def lookup(self, x):
+        h = self.hslot(x)
+        probes = 0
+        while self.idx[h] is not None:
+            if self.key[self.idx[h]] == x:
+                self.m.paths["lookups past their first entry"] += probes > 0
+                return self.idx[h]
+            h, probes = (h + 1) % self.size, probes + 1
+        return None
+
+    def room(self):
+        return len(self.elist) - self.eo
+
+    def fold(self):
+        counts = self.m.counts[self.r]
+        for j in np.flatnonzero(self.pend):
+            counts[j] = _add_ones(counts[j], int(self.pend[j]), self.m.paths)
+        self.pend[:] = 0
+
+    def bump(self, nu):
+        """A bump inside the walk: a NaN keeps its payload, quieted."""
+        counts = self.m.counts[self.r]
+        for j in range(self.m.cap):
+            c0 = counts[j]
+            d = (_quiet(c0) if np.isnan(c0)
+                 else np.float32(c0 - self.m.geo(j, nu)))
             c = np.float32(0.0) if d < 0 else d
-            counts[r, j] = c
+            counts[j] = c
             if c <= 0:
-                keys[r, j] = -1
+                self.key[j] = -1
+        self.bumped = True
 
-    def step(r, x, admit):
-        slot = emp = -1
-        for base in range(0, cap, 128):
-            for u in range(4):
-                chunk = keys[r, base + 32 * u:base + 32 * u + 32]
-                hit = np.flatnonzero(chunk == x)
-                e = np.flatnonzero(chunk == -1)
-                if slot < 0 and hit.size:
-                    slot = base + 32 * u + int(hit[0])
-                if emp < 0 and e.size:
-                    emp = base + 32 * u + int(e[0])
-            if slot >= 0:
-                paths["hit in round 2+"] += base > 0
-                break
-        if slot < 0 and admit:
-            slot = emp
-        if slot >= 0:
-            keys[r, slot] = x
-            counts[r, slot] = np.float32(counts[r, slot] + np.float32(1.0))
 
-    if t == 0:
-        return (keys, counts, n_seen, epoch), paths
-    for r in range(n):
-        nu = (int(n_seen[r]) + 1) & 0xFFFFFFFF
-        if due(nu, int(epoch[r])):
-            bump(r, nu)
-            epoch[r] = want(nu)
-            paths["first-step bumps"] += 1
-    srcs = []
-    for r in [] if src is None else src.tolist():
-        if 0 <= r < n and r not in srcs:
-            srcs.append(r)
-    flag = np.zeros(n, bool)
-    flag[srcs] = True
-    keep = mask & (rows >= 0) & (rows < n)
-    keep[keep] &= ~flag[rows[keep]]
-    kept = np.nonzero(keep)[0]
-    perm = kept[np.argsort(rows[kept], kind="stable")]
-    walks = [(r, np.nonzero(mask)[0], True) for r in srcs]
-    for r in np.unique(rows[perm]).tolist():
-        walks.append((r, perm[rows[perm] == r], False))
-    for r, tix, source in walks:
-        nu, e, last = int(n_seen[r]) & 0xFFFFFFFF, int(epoch[r]), -1
-        if source:      # 32 batch positions a group, masked lanes invalid
-            groups = [[p for p in range(g, min(g + 32, t)) if mask[p]]
-                      for g in range(0, t, 32)]
-        else:
-            groups = [tix[g:g + 32].tolist() for g in range(0, len(tix), 32)]
-        for grp in groups:
-            if not grp:
+class _Model:
+    """A test-only model of the sticky-scan kernel's order of operations
+    (``csrc/sticky_scan.cu``); integer tables and numpy float32 only.
+
+    Every row's check at the batch's first step (``bump_kernel``); the key
+    pass (routed tuples of source rows dropped) and the stable sort; then
+    the walks. A routed run is walked 32 sorted positions a group: each
+    lane's count and check first; the lanes before the first due check
+    placed at once (``place``), then fold, bump, index anew, and on from
+    that lane. A source row is walked 1,024 batch positions a chunk, its
+    masked tuples by rank, a stretch (``stretch``) up to each due check,
+    and the bump there taken on the spot. Adds go to ``pend`` and reach the
+    counts at a fold (before a bump, at the walk's end), in closed form
+    where exact. The check after the walk where its last tuple is not the
+    batch's last; then the keys back: every slot after a bump, else only
+    the slots the admissions took."""
+
+    def __init__(self, state, params):
+        self.keys, self.counts, self.n_seen, self.epoch = (
+            x.numpy().copy() for x in state)
+        kind = tsticky.StickySampling(**params)
+        self.cap = kind.capacity
+        self.starts = tsticky.epoch_starts(16 * self.cap)
+        self.at, self.vals = tsticky.geo_steps()
+        self.rates = np.asarray(tsticky.inv_rates(), np.float32)
+        self.mixes = [((s & 0xFFFFFFFF) * 0x9E3779B9 + 1) & 0xFFFFFFFF
+                      for s in (kind.seed, kind.seed + 1)]
+        self.paths = collections.Counter()
+
+    @staticmethod
+    def i32(u):
+        return u - 2**32 if u >= 2**31 else u
+
+    def want(self, nu):
+        return bisect.bisect_right(self.starts, self.i32(nu))
+
+    def due(self, nu, e):
+        return e < 0 or (e < len(self.starts)
+                         and self.i32(nu) >= self.starts[e])
+
+    def geo(self, j, nu):
+        return np.float32(self.vals[bisect.bisect_right(
+            self.at, _mix32((j ^ nu) ^ self.mixes[0]))])
+
+    def admits(self, x, nu, e):
+        h = _mix32(((x & 0xFFFFFFFF) ^ nu) ^ self.mixes[1])
+        u = np.float32(np.float32(h) * np.float32(2.0 ** -32))
+        return bool(u < self.rates[min(e, 128)])
+
+    def first_bump(self, r, nu):
+        """bump_kernel's decrement (numpy on the host here; on the card
+        the card's subtract, as torch's there)."""
+        for j in range(self.cap):
+            d = np.float32(self.counts[r, j] - self.geo(j, nu))
+            c = np.float32(0.0) if d < 0 else d
+            self.counts[r, j] = c
+            if c <= 0:
+                self.keys[r, j] = -1
+
+    def place(self, tab, w, xs, ns, ranks=None, arank=None):
+        """Lanes xs (counts ns) on the table as it stands; with ``arank``
+        each admission's rank (``ranks``) is appended to it."""
+        slot = [None] * len(xs)
+        miss = [False] * len(xs)
+        for i, x in enumerate(xs):
+            if x != -1:
+                slot[i] = tab.lookup(x)
+                miss[i] = slot[i] is None
+        room = tab.room()
+        sent = [i for i, x in enumerate(xs) if x == -1]
+        if room > 0 and (any(miss) or sent):
+            lead = {}                       # item -> its first admitted lane
+            for i, x in enumerate(xs):
+                if miss[i] and x not in lead and self.admits(
+                        x, ns[i] & 0xFFFFFFFF, w["epoch"]):
+                    lead[x] = i
+            order = sorted(lead.values())
+            self.paths["admitters past the last empty slot"] += \
+                len(order) > room
+            for rank, i in enumerate(order):
+                if rank < room:
+                    j = tab.elist[tab.eo + rank]
+                    tab.key[j] = xs[i]
+                    tab.insert(xs[i], j)
+                    slot[i] = j
+                    self.paths["admissions within a group"] += 1
+                    if arank is not None:
+                        arank.append(ranks[i])
+            for i, x in enumerate(xs):
+                if miss[i] and x in lead and i > lead[x]:
+                    slot[i] = slot[lead[x]]
+                    self.paths["items admitted twice in a group"] += \
+                        slot[i] is not None
+            for i in sent:
+                rank = sum(k < i for k in order)
+                if rank < room:
+                    slot[i] = tab.elist[tab.eo + rank]
+                    self.paths["sentinels into an empty slot"] += 1
+            tab.eo += min(len(order), room)
+        for s in slot:
+            if s is not None:
+                tab.pend[s] += 1
+
+    def group(self, tab, w, xs, n_first):
+        lo = 0
+        while True:
+            due = [i for i in range(lo, len(xs))
+                   if self.due((n_first + i) & 0xFFFFFFFF, w["epoch"])]
+            b = due[0] if due else len(xs)
+            if b > lo:
+                self.place(tab, w, xs[lo:b],
+                           [n_first + i for i in range(lo, b)])
+            if not due:
+                return
+            nb = (n_first + b) & 0xFFFFFFFF
+            tab.fold()
+            tab.bump(nb)
+            w["epoch"] = self.want(nb)
+            tab.reindex()
+            self.paths["bumps within a group"] += 1
+            lo = b
+
+    def stretch(self, tab, w, sx, r0, r1, n0):
+        """The ranks [r0, r1) of a source chunk, no check due among them:
+        on a full table a lookup and an add each; else every rank looks
+        its item up at once (a hit adds), the misses whose coin admits
+        them (candidates) are placed 32 at a time in rank order, then
+        every other miss hits the slot its item took at an earlier rank
+        and a sentinel adds to the empty slot the admissions before it
+        left first."""
+        if tab.room() == 0:
+            assert not (tab.key == -1).any()
+            for x in sx[r0:r1]:
+                s = tab.lookup(x) if x != -1 else None
+                if s is not None:
+                    tab.pend[s] += 1
+            self.paths["full-table stretches"] += r1 > r0
+            self.paths["full-table steps"] += r1 - r0
+            return
+        self.paths["stretches with an empty slot"] += 1
+        cls, cands = {}, []
+        for r in range(r0, r1):
+            x = sx[r]
+            if x == -1:
+                cls[r] = "sentinel"
                 continue
-            lane_n = [(nu + 1 + i) & 0xFFFFFFFF for i in range(len(grp))]
-            lane_w = [want(c) for c in lane_n]
-            after = np.maximum.accumulate(np.maximum(lane_w, e)).tolist()
-            before = [e] + after[:-1]
-            for i, p in enumerate(grp):
-                x = int(items[p])
-                h = _mix32(((x & 0xFFFFFFFF) ^ lane_n[i]) ^ mixes[1])
-                u = np.float32(np.float32(h) * np.float32(2.0 ** -32))
-                if lane_w[i] > before[i]:
-                    bump(r, lane_n[i])
-                    paths["in-walk bumps"] += 1
-                step(r, x, bool(u < rates[min(after[i], 128)]))
-            e, last, nu = after[-1], grp[-1], lane_n[-1]
-        if 0 <= last < t - 1:
-            c = (nu + 1) & 0xFFFFFFFF
-            if due(c, e):
-                bump(r, c)
-                e = want(c)
-                paths["end-of-walk bumps"] += 1
-        n_seen[r], epoch[r] = i32(nu), e
-    return (keys, counts, n_seen, epoch), paths
+            s = tab.lookup(x)
+            if s is not None:
+                tab.pend[s] += 1
+                cls[r] = "hit"
+            elif self.admits(x, (n0 + 1 + r) & 0xFFFFFFFF, w["epoch"]):
+                cls[r] = "candidate"
+                cands.append(r)
+            else:
+                cls[r] = "miss"
+        eo0, arank = tab.eo, []
+        for i in range(0, len(cands), 32):
+            grp = cands[i:i + 32]
+            self.place(tab, w, [sx[r] for r in grp],
+                       [n0 + 1 + r for r in grp], grp, arank)
+            self.paths["candidate groups"] += 1
+        assert arank == sorted(arank) and len(arank) == tab.eo - eo0
+        for r in range(r0, r1):
+            s = None
+            if cls[r] == "miss" and arank:
+                s = tab.lookup(sx[r])
+                if s is not None:
+                    k = tab.elist.index(s, eo0, tab.eo) - eo0
+                    if arank[k] > r:
+                        s = None
+                    else:
+                        self.paths["misses that hit a slot taken earlier "
+                                   "in their stretch"] += 1
+            elif cls[r] == "sentinel":
+                a = eo0 + bisect.bisect_left(arank, r)
+                if a < len(tab.elist):
+                    s = tab.elist[a]
+                    self.paths["sentinels into an empty slot"] += 1
+            if s is not None:
+                tab.pend[s] += 1
+
+    def source(self, tab, w, items, mask):
+        t = len(mask)
+        n0, last = w["n_seen"], -1
+        for c0 in range(0, t, 1024):
+            pos = [p for p in range(c0, min(c0 + 1024, t)) if mask[p]]
+            if not pos:
+                continue
+            last, total = pos[-1], len(pos)
+            sx = [int(items[p]) for p in pos]
+
+            def due_from(r0):
+                return next((r for r in range(r0, total) if self.due(
+                    (n0 + 1 + r) & 0xFFFFFFFF, w["epoch"])), total)
+
+            rstart, b = 0, due_from(0)
+            while True:
+                self.stretch(tab, w, sx, rstart, b, n0)
+                if b >= total:
+                    break
+                nb = (n0 + 1 + b) & 0xFFFFFFFF
+                tab.fold()
+                tab.bump(nb)
+                w["epoch"] = self.want(nb)
+                tab.reindex()
+                self.paths["bumps in a source walk"] += 1
+                rstart = b
+                b = due_from(rstart)
+            n0 = (n0 + total) & 0xFFFFFFFF
+        w["n_seen"] = n0
+        return last
+
+    def run(self, tab, w, items, tix):
+        for g in range(0, len(tix), 32):
+            xs = [int(items[p]) for p in tix[g:g + 32]]
+            self.group(tab, w, xs, (w["n_seen"] + 1) & 0xFFFFFFFF)
+            self.paths["groups of a routed run"] += 1
+            w["n_seen"] = (w["n_seen"] + len(xs)) & 0xFFFFFFFF
+        return int(tix[-1])
+
+    def scan(self, batch):
+        rows, items, mask, src = (None if x is None else x.numpy()
+                                  for x in batch)
+        n, t = len(self.n_seen), len(rows)
+        if t == 0:
+            return
+        for r in range(n):
+            nu = (int(self.n_seen[r]) + 1) & 0xFFFFFFFF
+            if self.due(nu, int(self.epoch[r])):
+                self.first_bump(r, nu)
+                self.epoch[r] = self.want(nu)
+                self.paths["first-step bumps"] += 1
+        srcs = []
+        for r in [] if src is None else src.tolist():
+            if 0 <= r < n and r not in srcs:
+                srcs.append(r)
+        flag = np.zeros(n, bool)
+        flag[srcs] = True
+        keep = mask & (rows >= 0) & (rows < n)
+        keep[keep] &= ~flag[rows[keep]]
+        kept = np.nonzero(keep)[0]
+        perm = kept[np.argsort(rows[kept], kind="stable")]
+        walks = [(r, None) for r in srcs]
+        walks += [(r, perm[rows[perm] == r])
+                  for r in np.unique(rows[perm]).tolist()]
+        for r, tix in walks:
+            tab = _ModelTable(self, r, 2 if tix is not None else 8)
+            w = dict(n_seen=int(self.n_seen[r]) & 0xFFFFFFFF,
+                     epoch=int(self.epoch[r]))
+            last = (self.source(tab, w, items, mask) if tix is None
+                    else self.run(tab, w, items, tix))
+            tab.fold()
+            if 0 <= last < t - 1:
+                c = (w["n_seen"] + 1) & 0xFFFFFFFF
+                if self.due(c, w["epoch"]):
+                    tab.bump(c)
+                    w["epoch"] = self.want(c)
+                    self.paths["end-of-walk bumps"] += 1
+            taken = (range(self.cap) if tab.bumped
+                     else tab.elist[:tab.eo])
+            for j in taken:
+                self.keys[r, j] = tab.key[j]
+            self.n_seen[r], self.epoch[r] = self.i32(w["n_seen"]), w["epoch"]
 
 
-def test_kernel_order_matches_the_plain_version():
-    """The sticky-scan kernel's order of operations (``_model_scan``)
-    byte for byte against the plain version (``ref.sticky_scan_update``,
-    held to the reference's vmap above) over two batches on the card
-    cases of capacity 8 and 288; the first-step, in-walk and end-of-walk
-    bumps and lookups past the first round each happen."""
-    paths = collections.Counter()
-    for n, cap, t, sources, pattern in _STICKY_CASES:
-        if cap == 4096 or n > 100:
-            continue
+def _model_scan(state, batch, params):
+    """The kernel's order (``_Model``) over one batch: returns the stack
+    (numpy) and the paths taken."""
+    model = _Model(state, params)
+    model.scan(batch)
+    return (model.keys, model.counts, model.n_seen, model.epoch), model.paths
+
+
+def _hold_model(cases, paths):
+    """Each case's batches through the model and the plain version, the
+    four leaves byte for byte after each; the model's paths added up."""
+    for n, cap, t, sources, pattern in cases:
         params = STICKY_PARAMS[cap]
         rng = np.random.RandomState(n + cap + t)
         state, batches = _sticky_case(rng, n, cap, t, sources, pattern,
@@ -553,11 +810,76 @@ def test_kernel_order_matches_the_plain_version():
             paths.update(p)
             ref.sticky_scan_update(*want, *batch, **params)
             for g, w in zip(got, want):
-                assert g.tobytes() == w.numpy().tobytes()
+                assert g.tobytes() == w.numpy().tobytes(), pattern
             state = [torch.from_numpy(g) for g in got]
-    for k in ("first-step bumps", "in-walk bumps", "end-of-walk bumps",
-              "hit in round 2+"):
+
+
+def test_kernel_order_matches_the_plain_version():
+    """The sticky-scan kernel's order of operations (``_model_scan``)
+    byte for byte against the plain version (``ref.sticky_scan_update``,
+    held to the reference's vmap above) over two batches on the card
+    cases of capacity 8 and 288 of the patterns before the hard ones; the
+    first-step, in-walk (in a routed run's group and in a source walk)
+    and end-of-walk bumps, admissions within a group, full-table
+    stretches and stretches with an empty slot (candidates placed in
+    groups, misses that hit a slot taken earlier in their stretch,
+    sentinels into empty slots) and lookups past their first index entry
+    each happen."""
+    paths = collections.Counter()
+    _hold_model([c for c in _STICKY_CASES if c[1] < 4096 and c[0] <= 100
+                 and c[4] not in STICKY_HARD_PATTERNS], paths)
+    for k in ("first-step bumps", "bumps within a group",
+              "bumps in a source walk", "end-of-walk bumps",
+              "admissions within a group", "full-table stretches",
+              "stretches with an empty slot", "candidate groups",
+              "misses that hit a slot taken earlier in their stretch",
+              "sentinels into an empty slot",
+              "lookups past their first entry"):
         assert paths[k] > 0, dict(paths)
+
+
+# each hard case, at capacity 288, and the paths it must take
+_HARD_PATHS = {
+    "phase3": ("admissions within a group", "full-table stretches",
+               "items admitted twice in a group",
+               "stretches with an empty slot"),
+    "refill": ("bumps within a group", "bumps in a source walk",
+               "admissions within a group", "full-table stretches",
+               "misses that hit a slot taken earlier in their stretch"),
+    "ends": ("bumps in a source walk", "full-table stretches"),
+    "twice": ("items admitted twice in a group",
+              "admitters past the last empty slot"),
+    "sentinels": ("sentinels into an empty slot",
+                  "admissions within a group"),
+    "repeats": ("bumps in a source walk", "admissions within a group"),
+    "odd": ("fold steps one add at a time", "folds of a NaN",
+            "folds in closed form", "bumps in a source walk"),
+    "streams": ("bumps within a group", "bumps in a source walk",
+                "items admitted twice in a group"),
+}
+
+
+@pytest.mark.parametrize("pattern", sorted(_HARD_PATHS))
+def test_kernel_order_holds_on_hard_cases(pattern):
+    """The kernel's order (``_model_scan``) byte for byte against the
+    plain version on the hard cases at capacity 288 (4 rows, a source row,
+    two batches of 4,096 tuples; ``STICKY_HARD_PATTERNS``): phase 3's
+    traffic (Zipf(1.1) ids folded by ``fold64``, 10% unique); a table a
+    bump empties and the walk fills again; a full-table stretch that ends
+    at an epoch start and one across the int32 wrap; an item admitted
+    twice in a group beside more admitters than empty slots; sentinel
+    bursts; keys repeated in a row; hit slots at 2**24 - 3 .. 2**24 + 2,
+    0.5, 1e30, NaN, +-inf, -0.0 and -3; per-stream rows (64 rows, one item
+    each, 8,192 tuples) whose long runs cross an epoch start. Each takes
+    its paths."""
+    paths = collections.Counter()
+    _hold_model([(64, 288, 8192, [0], pattern) if pattern == "streams" else
+                 (4, 288, 4096, [1, 2] if pattern == "ends" else [1],
+                  pattern)], paths)
+    for k in _HARD_PATHS[pattern]:
+        assert paths[k] > 0, (pattern, dict(paths))
+    if pattern == "ends":                       # the wrap row's counts wrap
+        assert paths["full-table steps"] > 3000
 
 
 def _requests(rng, ids, extra, n_batches=3, t=300):
