@@ -7,7 +7,7 @@ hand-written kernel against its plain PyTorch version.
 Phases (any failure raises, so the script exits non-zero without its
 last line; each phase prints its peak device memory, held under 48 GiB):
 
-  1. Card and build: ``nvidia-smi`` name and power limit, then the nine
+  1. Card and build: ``nvidia-smi`` name and power limit, then the ten
      kernel sources built by ``nvcc`` in parallel.
   2. Each of the thirteen kernel entry points against its plain version at
      the main path's shapes, on a batch of 65,536 tuples with unrouted,
@@ -118,7 +118,20 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      an empty slot, its full-table steps, admissions and bumps; the
      hottest slot's dependent updates at FADD_CYCLES, the earlier
      figure, printed beside it; each call's device time by kernel
-     (``sticky_split``). One entry's tensors are held at a time.
+     (``kernel_split``). Then GK's requantize (no TPU counterpart) at the
+     reference's defaults (eps 0.01: m = 400) on the same rows and
+     data-source row with continuous values (N(0, 10)), every row
+     requantized: rows given from empty rows
+     (``gk_requantize``) and from the state GK_IDLE_BATCHES batches leave
+     on counts in the thousands, where nearly every row takes no tuple and
+     moves anyway (``gk_requantize@idle``), and the probe fused in from
+     empty rows (``gk_probe_requantize``): values and n byte-equal to the
+     plain version and across two kernel runs, timed on the starting
+     state restored before every call (events, events queued behind a
+     spin, the profiler's split by kernel); the bound the larger of the
+     bytes (the stack read and written, the batch) and the searches'
+     shared-memory reads (m x ceil(log2(m + T + 1)) a row, 32 a cycle an
+     SM). One entry's tensors are held at a time.
   3. The main path through ``SDE(device="cuda").handle``: per-stream AMS
      (the reference's defaults, [12, 2048]), CM, HLL, Bloom, FM, RHP and
      Figure-6 DFT over 65,536 hashed 63-bit ids; a data-source AMS, CM,
@@ -131,7 +144,9 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      rows, 64.5 MiB); per-stream and data-source Sticky Sampling at the
      reference's defaults (one stack of 131,072 rows, 2,312 B a row) and a
      data-source one at support 0.001, eps 0.0001 (capacity 4,096, its
-     own stack); 16 ingest batches of 65,536
+     own stack); per-stream, data-source and continuous GK quantiles at
+     the reference's defaults (eps 0.01: m = 400, one stack of 131,072
+     rows, 1,604 B a row, built last); 16 ingest batches of 65,536
      Zipf(1.1) tuples (half with SDE_FUSED_PROBE=0), then 2 more under
      ``torch.profiler`` (device-busy share, top kernels, the Sticky walk
      activities the profiler kept against the sticky-scan launches);
@@ -162,14 +177,22 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      (9,216); the sticky-scan kernel must launch through its fused entry
      once a fused batch and through the rows-given one once an unfused
      batch on each of the two Sticky stacks, and their updates may run the
-     plain probe only in unfused batches. Each per-stream AMS answer must be
+     plain probe only in unfused batches. Each per-stream GK median (``qs``
+     [0.5]) must equal its row of the stack, the data-source GK's answers
+     at ``qs`` GK_QS (query_many and adhoc alike) lie within the
+     reference's rank bound 6 eps + 1 / N of the exact quantiles of the N
+     masked tuples ingested, the continuous GK equal src-gk's state and
+     emit once a batch, and the requantize kernel launch through its fused
+     entry once a fused batch and through the rows-given one once an
+     unfused batch, the plain probe only in unfused batches. Each
+     per-stream AMS answer must be
      float32(total)**2 of its
      stream's exact total weight, the data-source AMS within 0.15 of the
      exact F2 of the items it was fed, the continuous AMS equal to it and
      emitted once a batch. Every stack must equal a replay of the
      same batches through the plain versions on the card (AMS, RHP and
      DFT byte for byte, RHP's and DFT's answers equal to the replay's; the
-     Lossy, sampler and Sticky stacks as they stood after the first
+     Lossy, sampler, Sticky and GK stacks as they stood after the first
      LOSSY_REPLAY_BATCHES batches, copied there, byte for byte against a
      replay of those batches, since the plain Lossy scan takes tens of
      seconds a batch; the DFT
@@ -193,6 +216,18 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      must equal a numpy recomputation, prune some pairs and keep every
      pair above the threshold, and distinct streams must correlate above
      it.
+  3c. GK on continuous values (phase 3's weights are the integers 1 to
+     4, on which its rank check cannot tell most wrong quantiles apart):
+     a second ``SDE(device="cuda")`` with only GK stacks, per-stream over
+     65,536 ids and data-source at the defaults (one stack of 131,072
+     rows) and a data-source GK at eps 0.0005 (m = 8,000, past the
+     kernel's shared memory: every row through its big-row pass),
+     GK_CONT_BATCHES ingests of 65,536 Zipf(1.1) tuples (half unfused)
+     whose values are 70% N(0, 10) and 30% lognormal(3, 1). Both entry
+     points must launch, both stacks equal a replay of every batch through
+     the plain version byte for byte, and each data-source answer at
+     GK_QS (query_many and adhoc alike) lie within 6 eps + 1 / N of the
+     exact quantile of the N masked tuples.
   4. The attention entry point: ``ops.flash_attention`` once at each
      config's width, causal bfloat16, with the counts reset just before
      each call; each must launch the attention kernel exactly once and
@@ -216,7 +251,9 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      reservoir rows' ``replaces`` ``src/repro/core/sampler.py:55``, with
      their past-the-fill numbers; the three sticky-scan rows' ``replaces``
      ``src/repro/core/sticky.py:86``, with their past-epochs numbers and
-     ``@cap4096``'s launches those on tables of 4,096 slots; every row
+     ``@cap4096``'s launches those on tables of 4,096 slots; the three GK
+     rows' ``replaces`` ``src/repro/core/gk.py:51``, ``@idle``'s launches
+     all the rows-given entry's; every row
      whose counterpart lies under
      ``src/repro/core/`` has ``tpu_kernel`` null), then the device
      line.
@@ -226,6 +263,7 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -293,6 +331,13 @@ STICKY_TIMING_RUNS = 10     # its calls take ms: fewer event runs suffice
 # (34.0 and 17.2 cycles by tools/lossy_probe.py --latency on an H100)
 LDS_CYCLES, BALLOT_CYCLES = 34, 17
 STICKY_GROUP_CYCLES = 3 * LDS_CYCLES + BALLOT_CYCLES
+# GK quantiles: the reference's defaults (eps 0.01: m = 400, 1,604 B a
+# row); phase 2's idle state is the one GK_IDLE_BATCHES batches leave on
+# counts in the thousands
+GK_IDLE_BATCHES = 4
+GK_QS = [0.01, 0.25, 0.5, 0.75, 0.99]   # phase 3's data-source quantiles
+GK_CONT_BATCHES = 4                     # phase 3c's ingests
+GK_FINE_EPS = 0.0005                    # phase 3c's m = 8,000 stack
 QUEUE_CYCLES = 4_000_000    # ~2 ms of spin at 1,980 MHz: a call's enqueue
 # the paper's Figure-6 DFT (benchmarks/fig6_dft_workflow.py)
 FIG6_DFT = {"window": 128, "n_coeffs": 8, "threshold": 0.9,
@@ -522,6 +567,17 @@ def compare(a: torch.Tensor, b: torch.Tensor, chunk: int = 4096):
             close = close and torch.allclose(x, y, rtol=FLOAT_RTOL,
                                              atol=FLOAT_ATOL)
     return equal, err, close
+
+
+def bits_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The largest |a - b| over the elements whose bits differ (0.0 where
+    every element's bits agree; inf where such an element is not finite
+    in either)."""
+    diff = a.reshape(-1).view(torch.int32) != b.reshape(-1).view(torch.int32)
+    if not bool(diff.any()):
+        return 0.0
+    d = (a.reshape(-1)[diff] - b.reshape(-1)[diff]).abs()
+    return float(torch.nan_to_num(d, nan=math.inf).max())
 
 
 def same_bytes(a: torch.Tensor, b: torch.Tensor, chunk: int = 4096) -> bool:
@@ -2048,13 +2104,17 @@ def sticky_bump_state(kind, st: dict, b, n: int, src_row: int) -> tuple:
     return first, end
 
 
-def sticky_split(kern, restore, runs: int = 3) -> dict:
-    """Device ms of a sticky-scan call a run by kernel (``device_events``
-    with PAD_LAUNCHES spin kernels first): the walk, ``bump_kernel``, the
-    row sort and the rest (key pass, flags, memsets); the state restored
-    before each call, its copy left out."""
-    groups = {"sticky_walk_kernel": "walk", "bump_kernel": "bump",
-              "sort_": "sort"}
+STICKY_SPLIT = {"sticky_walk_kernel": "walk", "bump_kernel": "bump",
+                "sort_": "sort"}
+
+
+def kernel_split(kern, restore, groups: dict, runs: int = 3) -> dict:
+    """Device ms of a call a run by kernel (``device_events`` with
+    PAD_LAUNCHES spin kernels first): each activity whose name holds a key
+    of ``groups`` under its value (for the sticky scan: the walk,
+    ``bump_kernel`` and the row sort), every other one under "other" (the
+    key pass, flags, memsets, torch ops); the state restored before each
+    call, its copy left out."""
     split: dict = {}
     for name, start, end in device_events(lambda: (restore(), kern()), runs,
                                           pad=PAD_LAUNCHES):
@@ -2212,7 +2272,7 @@ def phase2_sticky(b, n: int, results: dict) -> None:
                 kern = lambda: kernel(kst)
                 kms = cuda_ms(kern, runs=STICKY_TIMING_RUNS, prep=restore)
                 kdev = queued_device_ms(kern, restore)
-                split = sticky_split(kern, restore)
+                split = kernel_split(kern, restore, STICKY_SPLIT)
                 batch_b = (t * (8 + 4 + 1)
                            + TABLE_B * probed_slots(b, b.mask) if fused
                            else t * (4 + 4 + 1) + 4 * src.numel())
@@ -2276,6 +2336,164 @@ def phase2_sticky(b, n: int, results: dict) -> None:
     results["sticky_scan"]["float_check"] = floats
 
 
+GK_SPLIT = {"gk_small_kernel": "small rows", "gk_big_kernel": "big rows",
+            "sort_": "row sort", "gk_key_kernel": "key pass",
+            "gk_bounds_kernel": "run bounds"}
+
+
+def gk_stack(n: int, m: int, dev):
+    """A GK stack's two leaves as views of one float32 buffer, so that a
+    restore is one copy: (buffer, {values [n, m], n [n]}), all zero."""
+    buf = torch.zeros(n * m + n, dtype=torch.float32, device=dev)
+    return buf, dict(values=buf[:n * m].view(n, m), n=buf[n * m:])
+
+
+def gk_idle_state(kind, b, n: int, src: torch.Tensor):
+    """The state GK_IDLE_BATCHES batches leave on rows whose counts start
+    in the thousands (1,000 to 10,000, each row's values sorted normals):
+    each batch phase 2's rows and mask permuted, values N(0, 10), through
+    the plain version. Returns its buffer."""
+    from repro_torch.kernels import ref
+    buf, st = gk_stack(n, kind.m, b.dev)
+    st["n"].copy_(torch.randint(1000, 10000, (n,), generator=b.gen,
+                                device=b.dev).to(torch.float32))
+    st["values"].copy_(torch.sort(torch.randn(
+        n, kind.m, generator=b.gen, device=b.dev) * 10, dim=1).values)
+    for _ in range(GK_IDLE_BATCHES):
+        perm = torch.randperm(b.t, generator=b.gen, device=b.dev)
+        vals = torch.randn(b.t, generator=b.gen, device=b.dev) * 10
+        ref.gk_requantize_update(st["values"], st["n"], b.rows[perm], vals,
+                                 b.mask[perm], src, m=kind.m)
+    return buf
+
+
+def phase2_gk(b, n: int, results: dict) -> None:
+    """GK's requantize (no TPU counterpart) at the reference's defaults
+    (eps 0.01: m = 400) on phase 2's batch with continuous values (N(0,
+    10), not the batch's four integer weights, so that rows merge many
+    distinct values): n rows routed as the batch's probe gives them plus
+    one data-source row (row n // 2, as the engine allocates one), every
+    row requantized. Rows given
+    (``gk_requantize``) from empty rows and (``gk_requantize@idle``) from
+    the state GK_IDLE_BATCHES batches leave on counts in the thousands,
+    where nearly every row takes no tuple and requantizes anyway; the
+    probe fused in (``gk_probe_requantize``) from empty rows. Each held
+    byte for byte (values and n) against its plain version on the card
+    (the fused entry's: the plain probe, then the plain update; its
+    ``max_abs_err`` taken from the same tensors, :func:`bits_err`) and
+    across two kernel runs; timed from its starting state restored
+    before every call: CUDA events (``ms``, host enqueue included),
+    events around the call queued behind a spin (``device_ms``) and the
+    profiler's split by kernel; the plain version from its one checked
+    call. No one PyTorch call computes it: no library time. The bound is
+    the larger of the bytes (the stack read and written once, the batch
+    and the data-source row once, the fused entry's stream ids and the
+    table slots its probes read) and the searches' shared-memory reads (m
+    x ceil(log2(m + T + 1)) a row, 32 a cycle an SM at the card's top SM
+    clock)."""
+    from repro_torch import core
+    from repro_torch.kernels import gk_requantize, probe, ref
+
+    t, dev = b.t, b.dev
+    kind = core.GKQuantiles()
+    m = kind.m
+    src_row = n // 2
+    src = torch.tensor([src_row], dtype=torch.int64, device=dev)
+    gvals = torch.randn(t, generator=b.gen, device=dev) * 10
+    tail = (gvals, b.mask, src)
+    table = (b.klo, b.khi, b.trows, b.slo, b.shi)
+    leaves = lambda st: (st["values"], st["n"])
+    rows_given = (
+        lambda st: gk_requantize.gk_requantize_update(
+            *leaves(st), b.rows, *tail, m=m),
+        lambda st: ref.gk_requantize_update(*leaves(st), b.rows, *tail,
+                                            m=m),
+        t * 4)
+    entries = {
+        "gk_requantize": rows_given + ("empty",),
+        "gk_requantize@idle": rows_given + ("idle",),
+        "gk_probe_requantize": (
+            lambda st: gk_requantize.gk_probe_requantize_update(
+                *leaves(st), *table, *tail, n_probe=b.n_probe, m=m),
+            lambda st: ref.gk_requantize_update(
+                *leaves(st), probe.probe_rows(*table, n_probe=b.n_probe),
+                *tail, m=m),
+            t * 8 + TABLE_B * probed_slots(b, b.mask), "empty")}
+    steps = (m + t).bit_length()
+    _, mhz = chain_floor_ms(0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    search_ms = n * m * steps / (32 * sms * mhz * 1e6) * 1e3
+    own = torch.bincount(b.rows[b.mask & (b.rows >= 0)].long(), minlength=n)
+    own[src_row] = int(b.mask.sum())
+    took = int((own > 0).sum())
+    starts = {"empty": gk_stack(n, m, dev)[0],
+              "idle": gk_idle_state(kind, b, n, src)}
+    for name, (kernel, plain, rows_b, start) in entries.items():
+        buf0 = starts[start]
+        runs = []
+        for _ in range(2):
+            buf, st = gk_stack(n, m, dev)
+            buf.copy_(buf0)
+            kernel(st)
+            runs.append((buf, st))
+        torch.cuda.synchronize()
+        require(same_bytes(runs[0][0], runs[1][0]),
+                f"{name}: two kernel runs differ byte-wise")
+        kbuf, kst = runs[0]
+        del runs
+        pbuf, pst = gk_stack(n, m, dev)
+        pbuf.copy_(buf0)
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        a.record()
+        plain(pst)
+        z.record()
+        z.synchronize()
+        pms = a.elapsed_time(z)
+        require(same_bytes(kbuf, pbuf),
+                f"{name}: kernel differs byte-wise from its plain version")
+        err = max(bits_err(kst[k], pst[k]) for k in ("values", "n"))
+        moved = int((kst["values"] != buf0[:n * m].view(n, m)).any(1).sum())
+        del pbuf, pst
+        restore = lambda: kbuf.copy_(buf0)
+        kern = lambda: kernel(kst)
+        kms = cuda_ms(kern, runs=STICKY_TIMING_RUNS, prep=restore)
+        kdev = queued_device_ms(kern, restore)
+        split = kernel_split(kern, restore, GK_SPLIT)
+        # the stack read and written once; the batch's rows (or stream ids
+        # and probed table slots), values and mask; the source row's index
+        n_bytes = n * (m + 1) * 4 * 2 + rows_b + t * (4 + 1) + 8
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        bms = max(t_bytes, search_ms)
+        by = "bytes" if t_bytes >= search_ms else "operations"
+        results[name] = dict(
+            max_abs_err=err, ms=kms, plain_ms=pms, library_ms=None,
+            bound_ms=bms, bound_by=by, device_ms=kdev, plain_device_ms=None,
+            library_device_ms=None, split_device_ms=split,
+            start=f"{start} rows", rows_with_tuples=took, rows_moved=moved,
+            search_floor_ms=search_ms,
+            plain_timing="one call (CUDA events); its device time not "
+                         "measured",
+            device_timing="CUDA events around the call queued behind a "
+                          "spin kernel (no host enqueue inside), median of 5",
+            library="none: no one PyTorch call computes it")
+        print(f"[phase2] {name} ({start} rows): m={m}, n={n} rows + "
+              f"data-source row {src_row}, N(0, 10) values, exact match "
+              f"(values and n byte for byte, max abs err {err}; two kernel "
+              f"runs byte-identical); {took} rows took "
+              f"tuples, {moved} rows' values moved; kernel {kms:.4f} ms "
+              f"(device {kdev:.4f} ms; by kernel "
+              f"{ {k: round(v, 4) for k, v in split.items()} }), plain "
+              f"{pms:.1f} ms (one call), no library call; bound "
+              f"{bms:.5f} ms ({by}: bytes {t_bytes:.5f} ms, {n_bytes} B; "
+              f"searches {search_ms:.5f} ms, {steps} steps a target at 32 "
+              f"reads a cycle on {sms} SMs, {mhz:.0f} MHz)", flush=True)
+        del kern, restore, kbuf, kst
+        free()
+    del starts
+    free()
+
+
 def phase2(dev, seed: int, n: int, n_streams: int, t: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     b = phase2_batch(dev, seed, n_streams, t)
@@ -2283,7 +2501,7 @@ def phase2(dev, seed: int, n: int, n_streams: int, t: int) -> dict:
     for part in (phase2_countmin, phase2_ams, phase2_hll, phase2_bloom,
                  phase2_fm, phase2_rhp, phase2_dft, phase2_corr,
                  phase2_flash, phase2_lossy, phase2_reservoir,
-                 phase2_sticky):
+                 phase2_sticky, phase2_gk):
         part(b, n, results)
         free()
     peak_gib("phase2")
@@ -2302,6 +2520,7 @@ def phase2(dev, seed: int, n: int, n_streams: int, t: int) -> dict:
 LOSSY_COUNTERPART = "src/repro/core/lossy.py:65"
 SAMPLER_COUNTERPART = "src/repro/core/sampler.py:55"
 STICKY_COUNTERPART = "src/repro/core/sticky.py:86"
+GK_COUNTERPART = "src/repro/core/gk.py:51"
 ENTRY_POINTS = {
     "onehot_scatter_add": ("onehot_matmul", "onehot_scatter_add",
                            "countmin_scatter.cu", "onehot_matmul.py:61"),
@@ -2369,6 +2588,16 @@ ENTRY_POINTS = {
                             "sticky_scan.cu", STICKY_COUNTERPART),
     "sticky_probe_scan": ("sticky_scan", "sticky_probe_scan_update",
                           "sticky_scan.cu", STICKY_COUNTERPART),
+    # no TPU kernel: its JAX counterpart is GKQuantiles.add_batch under the
+    # vmap of batched.stacked_update, every row of the stack each batch;
+    # "@idle" is phase 2's start on counts in the thousands (launches: all
+    # the rows-given entry's)
+    "gk_requantize": ("gk_requantize", "gk_requantize_update",
+                      "gk_requantize.cu", GK_COUNTERPART),
+    "gk_requantize@idle": ("gk_requantize", "gk_requantize_update",
+                           "gk_requantize.cu", GK_COUNTERPART),
+    "gk_probe_requantize": ("gk_requantize", "gk_probe_requantize_update",
+                            "gk_requantize.cu", GK_COUNTERPART),
 }
 
 
@@ -2554,6 +2783,14 @@ def profile_batches(sde, batches, first: int) -> None:
           f"by capacity), {walk_ms / nb:.4f} ms a batch; device busy is the "
           f"union of every kept activity, so it holds these "
           f"{len(walks)}", flush=True)
+    gk = [e for e in dev_events
+          if any(k in e.name for k in GK_SPLIT if k.startswith("gk_"))]
+    gk_ms = sum(e.time_range.elapsed_us() for e in gk) / 1e3
+    print(f"[phase3] GK requantize: {len(gk) / nb:g} activities a batch of "
+          f"its key, bounds, small-row and big-row kernels, {gk_ms / nb:.4f} "
+          f"ms a batch, {gk_ms / busy_ms:.4f} of device busy (its row sort "
+          f"shares its kernels' names with the other row sorts and is not "
+          f"in it)", flush=True)
 
 
 def check_dft_stack(sde, stack, batches, answers, dev) -> None:
@@ -2622,13 +2859,14 @@ def check_lossy_answers(sde, answers, q_streams, totals, heavy, fed_items,
 
 
 def check_scan_stack(stack, snap, prefix, dev) -> None:
-    """A scan-path stack (Lossy Counting, the sampler, Sticky Sampling), as
-    it stood after the first ``len(prefix)`` batches (``snap``), equals a
-    replay of those batches through the plain version on the card (the
-    plain probe, then ``ref.lossy_scan_update``,
-    ``ref.reservoir_scan_update`` or ``ref.sticky_scan_update``: torch ops
-    a step or a write, or walks on the host, so only a prefix fits the
-    run's time) byte for byte in every leaf."""
+    """A scan-path stack (Lossy Counting, the sampler, Sticky Sampling,
+    GK), as it stood after the first ``len(prefix)`` batches (``snap``),
+    equals a replay of those batches through the plain version on the
+    card (the plain probe, then ``ref.lossy_scan_update``,
+    ``ref.reservoir_scan_update``, ``ref.sticky_scan_update`` or
+    ``ref.gk_requantize_update``: torch ops a step or a write, or walks on
+    the host, so only a prefix fits the run's time) byte for byte in every
+    leaf."""
     from repro_torch import core
     from repro_torch.core import batched
     from repro_torch.kernels import probe, ref
@@ -2645,6 +2883,10 @@ def check_scan_stack(stack, snap, prefix, dev) -> None:
         plain = lambda rows, items, vals, mask, src: ref.sticky_scan_update(
             replay["keys"], replay["counts"], replay["n_seen"],
             replay["epoch"], rows, items, mask, src, **kind.params())
+    elif isinstance(kind, core.GKQuantiles):
+        name = f"GKQuantiles(m={kind.m})"
+        plain = lambda rows, items, vals, mask, src: ref.gk_requantize_update(
+            replay["values"], replay["n"], rows, vals, mask, src, m=kind.m)
     else:
         name = f"ReservoirSampler(sample_size={kind.sample_size})"
         plain = lambda *batch: ref.reservoir_scan_update(
@@ -2823,6 +3065,48 @@ def check_sticky(sde, batches, counts, answers, q_streams, pop,
           f"N tracked (not gated): {', '.join(shares)}", flush=True)
 
 
+def check_gk(sde, batches, answers, adhoc_src, q_streams) -> None:
+    """GK after the last batch: each per-stream answer (``qs`` [0.5])
+    equals its row's value at index m // 2 in the stack; the data-source
+    answers at GK_QS, in query_many and adhoc alike, lie within the
+    reference's rank bound 6 eps + 1 / N (``tests/test_properties.py``) of
+    the exact quantiles of the N masked tuples ingested (every tuple with
+    an id >= 0, routed or not: four integer values, so this check tells
+    few wrong answers apart; phase 3c makes it on continuous values); the
+    continuous GK, a data-source row too,
+    holds src-gk's state byte for byte and emitted once a batch, its last
+    emission its query_many answer."""
+    kind = sde.entries["src-gk"].kind_key
+    m = kind.m
+    stack = sde.stacks[kind]
+    rows = torch.tensor([sde.entries[f"gk/{int(s)}"].row for s in q_streams],
+                        device=stack.state["values"].device)
+    want = stack.state["values"][rows, m // 2].cpu().numpy()
+    got = np.asarray([np.asarray(a)[0] for a in answers[:len(q_streams)]],
+                     np.float32)
+    require(got.tobytes() == want.tobytes(),
+            "a per-stream GK answer differs from its row of the stack")
+    data = np.concatenate([v[s >= 0] for s, v in batches]).astype(np.float32)
+    tol = 6 * kind.eps + 1.0 / len(data)
+    src_q = np.asarray(answers[len(q_streams)], np.float32)
+    brackets = gk_rank_check(data, src_q, kind.eps, "src-gk")
+    require(adhoc_src.ok and np.asarray(adhoc_src.value, np.float32).tobytes()
+            == src_q.tobytes(), "src-gk's adhoc answer differs from its "
+                                "query_many answer")
+    require(same_leaves(sde.state_of("cq-gk"), sde.state_of("src-gk")),
+            "the continuous GK (a data-source row) differs from src-gk")
+    cq = [c.value for c in sde.continuous_out if c.synopsis_id == "cq-gk"]
+    require(len(cq) == len(batches) and np.asarray(cq[-1]).tobytes()
+            == np.asarray(answers[len(q_streams) + 1]).tobytes(),
+            "the continuous GK did not emit once a batch, or its last "
+            "emission differs from its query_many answer")
+    print(f"[phase3] GK (m={m}): {len(q_streams)} per-stream medians equal "
+          f"their rows of the stack; src-gk over N={len(data)} masked "
+          f"tuples, (q, answer, rank below, rank at or below): {brackets}, "
+          f"each within {tol:.6f} of q; cq-gk equals src-gk and emitted "
+          f"{len(cq)} times", flush=True)
+
+
 def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
            n_queries: int, n_profiled: int = 2) -> dict:
     from repro_torch import core
@@ -2875,7 +3159,10 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
             ("ss", "sticky_sampling", STICKY_PARAMS, per_stream),
             ("src-sticky", "sticky_sampling", STICKY_PARAMS, {}),
             ("src-sticky-cap4096", "sticky_sampling", STICKY_CAP4096_PARAMS,
-             {})):
+             {}),
+            ("gk", "gk_quantiles", {}, per_stream),
+            ("src-gk", "gk_quantiles", {}, {}),
+            ("cq-gk", "gk_quantiles", {}, {"continuous": True})):
         r = sde.handle({"type": "build", "request_id": f"b-{sid}",
                         "synopsis_id": sid, "kind": kind, "params": params,
                         **extra})
@@ -2899,7 +3186,8 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
                 for sid, st in sticky_stacks.items()}
 
     with ScanProbes(core.ReservoirSampler) as sampler_probes, \
-            ScanProbes(core.StickySampling) as sticky_probes:
+            ScanProbes(core.StickySampling) as sticky_probes, \
+            ScanProbes(core.GKQuantiles) as gk_probes:
         for b, (sids, vals) in enumerate(batches[:n_batches]):
             os.environ["SDE_FUSED_PROBE"] = "1" if b % 2 == 0 else "0"
             r = sde.handle({"type": "ingest", "request_id": f"i{b}",
@@ -2913,7 +3201,8 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
                              for kind, st in sde.stacks.items()
                              if isinstance(kind, (core.LossyCounting,
                                                   core.ReservoirSampler,
-                                                  core.StickySampling))}
+                                                  core.StickySampling,
+                                                  core.GKQuantiles))}
         torch.cuda.synchronize()
         ingest_s = time.perf_counter() - t0
         profile_batches(sde, batches[n_batches:], n_batches)
@@ -2983,7 +3272,11 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
                 for s in q_streams]
                + [{"synopsis_id": sid,
                    "query": {"items": [int(x) for x in items]}}
-                  for sid, items in sticky_heavy.items()])}
+                  for sid, items in sticky_heavy.items()]),
+        "gk": ([{"synopsis_id": f"gk/{int(s)}", "query": {"qs": [0.5]}}
+                for s in q_streams]
+               + [{"synopsis_id": "src-gk", "query": {"qs": GK_QS}},
+                  {"synopsis_id": "cq-gk"}])}
     queries = [q for part in parts.values() for q in part]
     t0 = time.perf_counter()
     r = sde.handle({"type": "query_many", "request_id": "qm",
@@ -2993,9 +3286,11 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
              for sid in ("src-hll", f"hll/{ids[0]}", "cq-hll", "src-fm",
                          f"fm/{ids[0]}", "cq-fm", "cq-dft", "src-ams",
                          "cq-ams")}
+    adhoc_gk = sde.handle({"type": "adhoc", "request_id": "a-src-gk",
+                           "synopsis_id": "src-gk", "query": {"qs": GK_QS}})
     torch.cuda.synchronize()
     query_s = time.perf_counter() - t0
-    n_answered = len(queries) + len(adhoc)
+    n_answered = len(queries) + len(adhoc) + 1
     require(r.ok, f"query_many failed: {r.error}")
     answers, at = {}, 0
     for key, part in parts.items():
@@ -3036,7 +3331,7 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
                                         f"{rel['src-hll']:.3f}")
     require(abs(rel["src-fm"]) < 0.35, f"data-source FM off by "
                                        f"{rel['src-fm']:.3f}")
-    require(len(sde.continuous_out) == 5 * (n_batches + n_profiled),
+    require(len(sde.continuous_out) == 6 * (n_batches + n_profiled),
             "one continuous response per continuous query and batch "
             "expected")
     # the data-source AMS against the exact F2 of the items it was fed
@@ -3063,6 +3358,7 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
                   pop)
     check_sticky(sde, batches, sticky_counts, answers["ss"], q_streams, pop,
                  sticky_heavy)
+    check_gk(sde, batches, answers["gk"], adhoc_gk, q_streams)
     cq_rs = [c.value for c in sde.continuous_out
              if c.synopsis_id == "cq-rs"]
     require(len(cq_rs) == n_batches + n_profiled
@@ -3094,6 +3390,16 @@ def phase3(dev, seed: int, n_streams: int, t: int, n_batches: int,
             f"{list(want_ss.values())} (on each of the two Sticky stacks "
             f"the fused entry once a fused batch, the rows-given one once an "
             f"unfused batch)")
+    want_gk = {"gk_probe_requantize": n_fused,
+               "gk_requantize": n_all - n_fused}
+    require(all(launches[k] == v for k, v in want_gk.items()),
+            f"the requantize kernel's launches "
+            f"{[launches[k] for k in want_gk]}, not "
+            f"{list(want_gk.values())} (the fused entry once a fused batch, "
+            f"the rows-given one once an unfused batch)")
+    require(gk_probes == {"fused": 0, "unfused": n_all - n_fused},
+            f"the GK stack's plain probes by batch kind: {gk_probes}, not "
+            f"none in a fused batch and one in each unfused batch")
     require(sticky_probes == {"fused": 0, "unfused": 2 * (n_all - n_fused)},
             f"the Sticky stacks' plain probes by batch kind: {sticky_probes},"
             f" not none in a fused batch and one a stack in each unfused "
@@ -3348,6 +3654,102 @@ def phase3b(dev, seed: int, n_streams: int, n_batches: int) -> int:
     return corr_launches
 
 
+def gk_rank_check(data: np.ndarray, answer, eps: float, name: str) -> list:
+    """Each answer at GK_QS lies within the reference's rank bound
+    6 eps + 1 / N (``tests/test_properties.py``) of the exact quantile of
+    ``data``; returns (q, answer, rank below, rank at or below)."""
+    tol = 6 * eps + 1.0 / len(data)
+    out = []
+    for x, q in zip(np.asarray(answer, np.float32), GK_QS):
+        below, upto = float((data < x).mean()), float((data <= x).mean())
+        out.append((q, float(x), round(below, 5), round(upto, 5)))
+        require(below <= q + tol and upto >= q - tol,
+                f"{name}'s {q}-quantile {x} has ranks [{below}, {upto}], "
+                f"outside {q} +- {tol}")
+    return out
+
+
+def phase3c(dev, seed: int, n_streams: int, t: int, n_batches: int) -> None:
+    """GK through ``SDE(device="cuda").handle`` on continuous values:
+    per-stream over ``n_streams`` ids and data-source GK at the defaults
+    (one stack), a data-source GK at eps GK_FINE_EPS (its own stack, its
+    state past the kernel's shared memory); ``n_batches`` ingests of
+    Zipf(1.1) ids whose values are 70% N(0, 10) and 30% lognormal(3, 1),
+    half with SDE_FUSED_PROBE=0. Both entry points must launch, each stack
+    equal a replay of every batch through the plain version byte for
+    byte, and each data-source answer at GK_QS lie within the rank bound
+    of the exact quantiles of the masked tuples ingested."""
+    from repro_torch.kernels import gk_requantize
+    from repro_torch.service import SDE
+
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.RandomState(seed + 3)
+    pop = np.unique(rng.randint(0, 2**63 - 1, size=n_streams, dtype=np.int64))
+    sde = SDE(device=dev)
+    for sid, params, extra in (
+            ("gk", {}, dict(per_stream_of_source=True,
+                            stream_ids=[int(s) for s in pop])),
+            ("src-gk", {}, {}),
+            ("src-gk-fine", {"eps": GK_FINE_EPS}, {})):
+        r = sde.handle({"type": "build", "request_id": f"b-{sid}",
+                        "synopsis_id": sid, "kind": "gk_quantiles",
+                        "params": params, **extra})
+        require(r.ok, f"build {sid} failed: {r.error}")
+    batches = []
+    for _ in range(n_batches):
+        sids, _ = make_batch(rng, pop, t)
+        vals = np.where(rng.rand(t) < 0.3, rng.lognormal(3, 1, t),
+                        rng.randn(t) * 10).astype(np.float32)
+        batches.append((sids, vals))
+    entries = (gk_requantize.gk_requantize_update,
+               gk_requantize.gk_probe_requantize_update)
+    before = [fn.launches for fn in entries]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b, (sids, vals) in enumerate(batches):
+        os.environ["SDE_FUSED_PROBE"] = "1" if b % 2 == 0 else "0"
+        r = sde.handle({"type": "ingest", "request_id": f"i{b}",
+                        "stream_ids": sids.tolist(),
+                        "values": vals.tolist()})
+        require(r.ok, f"ingest {b} failed: {r.error}")
+    os.environ.pop("SDE_FUSED_PROBE", None)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    made = [fn.launches - n for fn, n in zip(entries, before)]
+    n_fused = len(range(0, n_batches, 2))
+    require(made == [2 * (n_batches - n_fused), 2 * n_fused],
+            f"the requantize kernel's launches (rows given, fused) {made}, "
+            f"not one a stack and batch through the batch's entry")
+    qs = {"qs": GK_QS}
+    r = sde.handle({"type": "query_many", "request_id": "qm", "queries": [
+        {"synopsis_id": sid, "query": qs}
+        for sid in ("src-gk", "src-gk-fine")]})
+    require(r.ok and all(a["ok"] for a in r.value),
+            f"query_many failed: {r.error}")
+    data = np.concatenate([v[s >= 0] for s, v in batches])
+    for sid, a in zip(("src-gk", "src-gk-fine"), r.value):
+        adhoc = sde.handle({"type": "adhoc", "request_id": f"a-{sid}",
+                            "synopsis_id": sid, "query": qs})
+        require(adhoc.ok and np.asarray(adhoc.value, np.float32).tobytes()
+                == np.asarray(a["value"], np.float32).tobytes(),
+                f"{sid}'s adhoc answer differs from its query_many answer")
+        eps = sde.entries[sid].kind_key.eps
+        brackets = gk_rank_check(data, a["value"], eps, sid)
+        print(f"[phase3c] {sid} (eps {eps}, m = "
+              f"{sde.entries[sid].kind_key.m}) over N={len(data)} masked "
+              f"continuous tuples, (q, answer, rank below, rank at or "
+              f"below): {brackets}, each within "
+              f"{6 * eps + 1.0 / len(data):.6f} of q", flush=True)
+    for stack in sde.stacks.values():
+        check_scan_stack(stack, stack.state, batches, dev)
+    print(f"[phase3c] {n_batches} batches x {t} tuples into the two GK "
+          f"stacks in {ingest_s:.4f} s (host clock, synchronized); "
+          f"requantize launches (rows given, fused) {made}", flush=True)
+    sde.close()
+    free()
+    peak_gib("phase3c")
+
+
 def phase4(dev, seed: int) -> dict:
     """The attention entry point: ``ops.flash_attention`` once at each
     config's width (ATTN_WIDTHS), S = 4096, causal bfloat16, with the
@@ -3412,7 +3814,8 @@ def main() -> None:
     t0 = time.perf_counter()
     build.build(["countmin_scatter", "bitset_or", "rhp_project",
                  "sliding_dft", "pairwise_corr", "flash_attention",
-                 "lossy_scan", "reservoir_scan", "sticky_scan"])
+                 "lossy_scan", "reservoir_scan", "sticky_scan",
+                 "gk_requantize"])
     print(f"[phase1] kernels built in {time.perf_counter() - t0:.2f} s",
           flush=True)
     for name, log in build.BUILD_LOG.items():
@@ -3433,6 +3836,9 @@ def main() -> None:
                                         n_streams=2 * n_streams,
                                         n_batches=192)
     print(f"[phase3b] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    phase3c(dev, args.seed, n_streams, t, n_batches=GK_CONT_BATCHES)
+    print(f"[phase3c] done in {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     launches.update(phase4(dev, args.seed))
     print(f"[phase4] done in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3471,7 +3877,8 @@ def main() -> None:
             "former_chain_ms", "under_former_chain",
             "device_timing",
             "start",
-            "two_stacks_device_ms",
+            "two_stacks_device_ms", "rows_with_tuples", "rows_moved",
+            "search_floor_ms",
             "first_touch_ms", "first_touch_device_ms",
             "lanes", "sectors", "hottest_lane", "k", "plain_timing",
             "library") if k in r})

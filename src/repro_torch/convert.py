@@ -20,7 +20,9 @@ lanes; DFT's six leaves, with int32 ``pos`` and ``count``; Lossy
 Counting's ``counts`` and ``error`` float32 ``[n, k]``; the sampler's
 ``values`` float32 ``[n, S]`` and ``n_seen`` int32 ``[n]``; Sticky
 Sampling's ``counts`` float32 ``[n, capacity]``, ``n_seen`` and
-``epoch`` int32 ``[n]``), except that a uint32 leaf (the ``keys`` of
+``epoch`` int32 ``[n]``; GK's ``values`` float32 ``[n, m]`` and ``n``
+float32 ``[n]``, byte for byte, whatever order a row's values are in),
+except that a uint32 leaf (the ``keys`` of
 Lossy Counting and of Sticky Sampling, whose empty sentinel is
 0xFFFFFFFF, and the sampler's ``items``) is viewed as int32, bit for
 bit, as the port holds it.

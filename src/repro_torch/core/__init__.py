@@ -1,9 +1,9 @@
 """Synopsis kinds (port of ``repro/core/__init__.py``).
 
 The port registers CountMin, AMS, HyperLogLog, Bloom, FM, RHP, DFT, Lossy
-Counting, the chain sampler and Sticky Sampling so far, under the
-reference's names; building any other kind (the other scan-path kinds
-among them: GK, CoreSetTree) answers ok=False through the registry's
+Counting, the chain sampler, Sticky Sampling and GK quantiles so far,
+under the reference's names; building any other kind (CoreSetTree, the
+last scan-path kind, among them) answers ok=False through the registry's
 KeyError (``synopsis.make_kind``).
 """
 from . import hashing  # noqa: F401
@@ -19,6 +19,7 @@ from .dft import DFT
 from .lossy import LossyCounting
 from .sampler import ReservoirSampler
 from .sticky import StickySampling
+from .gk import GKQuantiles
 from . import batched  # noqa: F401
 
 for _name, _factory in {
@@ -32,10 +33,11 @@ for _name, _factory in {
     "lossy_counting": LossyCounting,
     "sticky_sampling": StickySampling,
     "chain_sampler": ReservoirSampler,
+    "gk_quantiles": GKQuantiles,
 }.items():
     register_kind(_name, _factory)
 
 __all__ = ["Synopsis", "register_kind", "make_kind", "known_kinds",
            "kind_params", "CountMin", "AMS", "HyperLogLog", "BloomFilter",
            "FMSketch", "RHP", "DFT", "LossyCounting", "StickySampling",
-           "ReservoirSampler", "batched"]
+           "ReservoirSampler", "GKQuantiles", "batched"]

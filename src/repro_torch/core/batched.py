@@ -16,9 +16,10 @@ Differences from the reference:
   * The scan branch of ``stacked_update`` hands the batch to the kind's
     ``scan_update``, which groups it by row and takes each row's own
     tuples once (Lossy Counting: the hand-written scan kernel; the
-    sampler: the hand-written reservoir kernel), where the reference vmaps
-    ``add_batch`` over every row with the whole batch masked to that
-    row's tuples. The rows' results are the same.
+    sampler: the hand-written reservoir kernel; GK: the hand-written
+    requantize kernel, which requantizes the rows that took none too),
+    where the reference vmaps ``add_batch`` over every row with the whole
+    batch masked to that row's tuples. The rows' results are the same.
 """
 from __future__ import annotations
 

@@ -62,8 +62,8 @@ from typing import Callable, Dict, Optional
 import torch
 
 from repro_torch.core import batched, hashing
-from . import (bitset_or, flash_attention as fa, fm_bitmap, hll_max,
-               onehot_matmul, pairwise_corr, probe, reservoir_scan,
+from . import (bitset_or, flash_attention as fa, fm_bitmap, gk_requantize,
+               hll_max, onehot_matmul, pairwise_corr, probe, reservoir_scan,
                rhp_project, sliding_dft, sticky_scan)
 
 _FALSY = ("0", "false", "no", "off")
@@ -226,6 +226,19 @@ def register_update_kernel(name: str, builder: Callable, *,
         raise ValueError(f"update kernel {name!r} already registered "
                          "(pass overwrite=True to replace)")
     UPDATE_KERNELS[name] = builder
+
+
+def check_on_card(kind) -> None:
+    """Raise ValueError where the kind's kernel on the card cannot take
+    its parameters: GK's requantize holds at most ``gk_requantize.MAX_M``
+    state values. The engine calls it at a build on a CUDA device, before
+    anything is allocated, so that no ingest fails on them later."""
+    if (getattr(kind, "update_kernel", None) == "gk_requantize"
+            and kind.m > gk_requantize.MAX_M):
+        raise ValueError(
+            f"{type(kind).__name__}(eps={kind.eps}) needs m = {kind.m} "
+            f"state values; the card's requantize kernel takes at most "
+            f"{gk_requantize.MAX_M} (eps >= 4 / {gk_requantize.MAX_M})")
 
 
 def resolve_update_kernel(kind, fuse_probe: bool | None = None):
@@ -391,6 +404,25 @@ def _sticky_kernel(kind, fuse):
     return fn
 
 
+def _gk_kernel(kind, fuse):
+    """GK's update: every row of the stack requantized, routed rows and
+    data-source rows in one call of the requantize kernel, the probe
+    inside its key pass or ahead of it."""
+    def fn(state, klo, khi, trows, slo, shi, items, vals, msk, src_rows, *,
+           n_probe):
+        leaves = (state["values"], state["n"])
+        if fuse:
+            gk_requantize.gk_probe_requantize_update(
+                *leaves, klo, khi, trows, slo, shi, vals, msk, src_rows,
+                n_probe=n_probe, m=kind.m)
+        else:
+            syn = route_probe(klo, khi, trows, slo, shi, n_probe=n_probe)
+            gk_requantize.gk_requantize_update(*leaves, syn, vals, msk,
+                                               src_rows, m=kind.m)
+        return state
+    return fn
+
+
 register_update_kernel("countmin_scatter", _countmin_kernel)
 register_update_kernel("ams_scatter", _ams_kernel)
 register_update_kernel("hll_max", _hll_kernel)
@@ -399,3 +431,4 @@ register_update_kernel("fm_bitmap", _fm_kernel)
 register_update_kernel("rhp_project", _rhp_kernel)
 register_update_kernel("reservoir_scan", _sampler_kernel)
 register_update_kernel("sticky_scan", _sticky_kernel)
+register_update_kernel("gk_requantize", _gk_kernel)

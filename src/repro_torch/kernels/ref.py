@@ -3,8 +3,8 @@ scatter, sliding-DFT, pairwise-correlation and attention oracles in
 ``repro/kernels/ref.py``, and of the one-hot max cube of
 ``repro/kernels/bitset_or.py``, which has no oracle there; and the
 stacked scans of Lossy Counting, of the reservoir sampler and of Sticky
-Sampling, whose reference is no kernel but the kind's ``add_batch`` under
-the vmap of ``batched.stacked_update``).
+Sampling, and GK's stacked requantize, whose reference is no kernel but
+the kind's ``add_batch`` under the vmap of ``batched.stacked_update``).
 
 The wrappers run these on CPU tensors; ``chip_smoke.py`` holds each CUDA
 kernel against them on the card. The updates work in place (the
@@ -24,7 +24,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core import lossy, sampler, sticky
+from repro_torch.core import gk, lossy, sampler, sticky
 from . import probe
 
 
@@ -213,6 +213,162 @@ def sticky_scan_update(keys: torch.Tensor, counts: torch.Tensor,
     counts[rows] = torch.from_numpy(c_host).to(keys.device)
     n_seen[rows] = torch.tensor(s_host, dtype=torch.int32, device=keys.device)
     epoch[rows] = torch.tensor(e_host, dtype=torch.int32, device=keys.device)
+
+
+def _gk_tail(mid: torch.Tensor, h: torch.Tensor,
+             tail: torch.Tensor) -> torch.Tensor:
+    """The sort keys of a row's running sums at virtual positions ``mid``
+    >= h (its head's length; ``tail [R, 8]``: the keys of each level's
+    sum at the head's last entry, :func:`gk_requantize_update`): position
+    p reads level 0's where p's block of 16 is the head's last one, else
+    level l + 1's where ``(p >> 4) - 1`` reads level l + 1's, and so on
+    up the levels."""
+    out = tail[:, -1:].expand_as(mid)
+    done = torch.zeros_like(mid, dtype=torch.bool)
+    j, last = mid, h - 1
+    for lvl in range(tail.shape[1]):
+        hit = ~done & ((j >> 4) == (last >> 4))
+        out = torch.where(hit, tail[:, lvl:lvl + 1], out)
+        done |= hit
+        j, last = (j >> 4) - 1, last >> 4
+    return out
+
+
+def gk_requantize_update(values: torch.Tensor, n: torch.Tensor,
+                         syn_idx: torch.Tensor, vals: torch.Tensor,
+                         mask: torch.Tensor,
+                         source_rows: Optional[torch.Tensor] = None, *,
+                         m: int) -> None:
+    """GK's stacked update, in place, equal byte for byte to the
+    reference's vmap of ``add_batch`` over EVERY row of the stack, each
+    with the whole batch of T tuples masked to its own (row r: ``mask &
+    (syn_idx == r)``; a data-source row: ``mask``; rows outside [0, n) and
+    masked tuples feed none), without that vmap's n x (m + T) arrays.
+    values [n, m] f32; n [n] f32; syn_idx [T] i32; vals [T] f32; mask [T]
+    bool.
+
+    Why it is the same. A row's sorted array there is its state (weight
+    n / m, sorted first on ties) merged with its k own tuples (weight 1,
+    in batch order on ties), then its T - k other tuples as +inf with
+    weight 0. Where the row's own tuples hold no +inf or NaN and its
+    state no NaN, the first h = m + k entries (the head) are the merge
+    and the rest (the tail) all weigh 0. Each level of the blocked scan
+    (``core/gk.blocked_cumsum``) groups its entries by position alone, so
+    the head's sums are those of the head scanned by itself, and a tail
+    position's sum is one of the head's level sums: level 0's at the
+    head's last entry within the head's last block of 16; past it, what
+    the previous block's level-1 sum is, which within the head's last
+    block of 16 blocks is level 1's at the head's last block, and so on
+    up (adding a weight or a total of 0 changes no sum). So the search
+    (``core/gk.searchsorted_scan``) runs over the virtual length m + T,
+    reading the head's midpoint ranks below h and these level sums above
+    it (:func:`_gk_tail`), for ``ceil(log2(m + T + 1))`` steps; the
+    result is clipped to m + T - 1 (the head's last entry when the row
+    took every tuple) and reads the head's value below h, else +inf.
+
+    The heads of a run of rows (``_GK_CHUNK`` at a time) come from one
+    stable sort of (row, key) over their state entries listed first, then
+    each row's tuples in batch order; rows are scanned and searched
+    together, grouped by their head length's power of two. A row whose
+    own tuples hold a +inf or a NaN, or whose state holds a NaN, places
+    weighted entries among or past the zero-weight ones; it goes through
+    the one-row ``add_batch`` of ``core/gk.py``, which builds its m + T
+    entries."""
+    rows_n = values.shape[0]
+    if values.shape[1:] != (m,) or n.shape != (rows_n,):
+        raise ValueError(f"values must be [n, {m}] and n [n], got "
+                         f"{tuple(values.shape)} and {tuple(n.shape)}")
+    if rows_n == 0:
+        return
+    dev = values.device
+    keep = mask & (syn_idx >= 0) & (syn_idx < rows_n)
+    src = []
+    if source_rows is not None:
+        src = sorted({int(r) for r in source_rows.tolist()
+                      if 0 <= r < rows_n})
+    if src:
+        is_src = torch.zeros(rows_n, dtype=torch.bool, device=dev)
+        is_src[src] = True
+        keep &= ~is_src[syn_idx.clamp(0, rows_n - 1).long()]
+    routed = torch.nonzero(keep)[:, 0]
+    masked = torch.nonzero(mask)[:, 0]
+    # (row, tuple) pairs: each row's own tuples, grouped by row, each
+    # row's in batch order
+    pair_row = torch.cat([syn_idx[routed].long()] + [
+        torch.full_like(masked, r) for r in src])
+    by_row = torch.sort(pair_row, stable=True)
+    pair_row = by_row.values
+    pair_t = torch.cat([routed] + [masked] * len(src))[by_row.indices]
+    k = torch.bincount(pair_row, minlength=rows_n)
+    pv = vals[pair_t]
+    special = torch.isnan(values).any(1)
+    special[pair_row[torch.isnan(pv) | (pv == math.inf)]] = True
+    total = n + k.to(torch.float32)
+    ends = torch.cumsum(k, 0).tolist()
+    for r0 in range(0, rows_n, _GK_CHUNK):
+        r1 = min(r0 + _GK_CHUNK, rows_n)
+        p0, p1 = (ends[r0 - 1] if r0 else 0), ends[r1 - 1]
+        _gk_rows(values[r0:r1], n[r0:r1], total[r0:r1], k[r0:r1],
+                 special[r0:r1], pair_row[p0:p1] - r0, pv[p0:p1], m,
+                 m + vals.shape[0])
+    for r in torch.nonzero(special)[:, 0].tolist():
+        own = mask if r in src else keep & (syn_idx == r)
+        values[r], _ = gk.add_row(values[r], n[r], vals, own, m)
+    n.copy_(total)
+
+
+_GK_CHUNK = 1 << 14     # rows a step of the plain version takes at once
+
+
+def _gk_rows(values, n, total, k, special, pair_row, pv, m, big):
+    """:func:`gk_requantize_update` on a run of rows, in place on their
+    values (not the special rows'): ``pair_row`` / ``pv`` their own
+    tuples' rows (from 0) and values, grouped by row, each row's in batch
+    order; ``big`` = m + T."""
+    dev = values.device
+    rows_n = values.shape[0]
+    # every row's head: its state, then its own tuples in batch order,
+    # stably sorted by (row, value key)
+    state_row = torch.arange(rows_n, device=dev).repeat_interleave(m)
+    flat_row = torch.cat([state_row, pair_row])
+    flat_v = torch.cat([values.reshape(-1), pv])
+    flat_w = torch.cat([gk.true_div(n, m).repeat_interleave(m),
+                        torch.ones_like(pv)])
+    key = (flat_row << 32) | (gk.sort_key(flat_v).long() + (1 << 31))
+    order = torch.sort(key, stable=True).indices
+    sv, sw = flat_v[order], flat_w[order]
+    h = m + k
+    off = torch.arange(rows_n, device=dev) * m + torch.cumsum(k, 0) - k
+    width = (2 ** torch.ceil(torch.log2(h.double()))).long().clamp(min=16)
+    width[special] = 0
+    for hb in torch.unique(width).tolist():
+        if hb == 0:
+            continue
+        rows = torch.nonzero(width == hb)[:, 0]
+        hr = h[rows][:, None]
+        col = torch.arange(hb, device=dev)[None, :]
+        pos = (off[rows][:, None] + col).clamp(max=sv.shape[0] - 1)
+        w = torch.where(col < hr, sw[pos], torch.zeros_like(sw[pos]))
+        lev = gk.blocked_cumsum(w, levels=True)
+        kcum = gk.sort_key(lev[0] - 0.5 * w)
+        tail = [gk.sort_key(torch.gather(x, 1, (hr - 1) >> (4 * i)))
+                for i, x in enumerate(lev)]
+        tail = torch.cat(tail + tail[-1:] * (8 - len(tail)), dim=1)
+        kt = gk.sort_key(gk.targets_of(m, total[rows]))
+        lo = torch.zeros(kt.shape, dtype=torch.int64, device=dev)
+        hi = torch.full(kt.shape, big, dtype=torch.int64, device=dev)
+        for _ in range(big.bit_length()):
+            mid = (lo + hi) // 2
+            kc = torch.where(mid < hr,
+                             torch.gather(kcum, 1, mid.clamp(max=hb - 1)),
+                             _gk_tail(mid, hr, tail))
+            left = kt <= kc
+            lo = torch.where(left, lo, mid)
+            hi = torch.where(left, mid, hi)
+        idx = hi.clamp(max=big - 1)
+        got = torch.gather(sv[pos], 1, idx.clamp(max=hb - 1))
+        values[rows] = torch.where(idx < hr, got,
+                                   torch.full_like(got, math.inf))
 
 
 def sliding_dft_step(re: torch.Tensor, im: torch.Tensor, delta: torch.Tensor,

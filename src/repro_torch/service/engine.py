@@ -10,16 +10,19 @@ service maintaining thousands of synopses for thousands of streams.
     one stacked-estimate call per kind answers every query of that kind.
 
 The port serves CountMin, AMS, HyperLogLog, Bloom, FM, RHP, DFT, Lossy
-Counting, the chain sampler and Sticky Sampling so far: build (per
-stream, per stream of a source, data source), ingest, adhoc, query_many,
-stop, status, flush and shutdown, with continuous queries emitted
-eagerly. DFT is a time-series kind: each ingest batch ticks every stream
-once with its last routed value (``_step_all``). Lossy Counting, the
-sampler and Sticky Sampling are scan-path kinds. Lossy Counting declares
-no registry kernel, so ingest probes the rows and hands the batch to
-``batched.stacked_update``'s scan branch (its hand-written scan kernel);
-the sampler and Sticky Sampling declare one (the reservoir update, the
-sticky scan), the probe fused in.
+Counting, the chain sampler, Sticky Sampling and GK quantiles so far:
+build (per stream, per stream of a source, data source), ingest, adhoc,
+query_many, stop, status, flush and shutdown, with continuous queries
+emitted eagerly. DFT is a time-series kind: each ingest batch ticks every
+stream once with its last routed value (``_step_all``). Lossy Counting,
+the sampler, Sticky Sampling and GK are scan-path kinds. Lossy Counting
+declares no registry kernel, so ingest probes the rows and hands the
+batch to ``batched.stacked_update``'s scan branch (its hand-written scan
+kernel); the sampler, Sticky Sampling and GK declare one (the reservoir
+update, the sticky scan, the requantize, which takes every row of the
+stack on every batch, as the reference's vmap does), the probe fused in.
+GK's queries take ``qs`` (quantiles, default ``[0.5]``); its continuous
+queries answer the default.
 
 Differences from the reference:
 
@@ -237,6 +240,8 @@ class SDE:
 
     def _build(self, req: api.BuildSynopsis) -> api.Response:
         kind = core.make_kind(req.kind, **req.params)
+        if self.device.type == "cuda":
+            kops.check_on_card(kind)
         # validate EVERY routed stream id before any allocation: a failed
         # build must not commit partial entries
         if req.per_stream_of_source:
@@ -574,9 +579,11 @@ class SDE:
 # blue-path update: the kind's registry kernel (probe fused unless
 # SDE_FUSED_PROBE is off), routed rows and data-source rows in one call,
 # state updated in place; the chain sampler's is the reservoir kernel,
-# Sticky Sampling's the sticky-scan kernel. A kind without a registry
-# kernel (Lossy Counting) takes the probe, then ``batched.stacked_update``,
-# as in the reference; SDE_FUSED_PROBE does not touch it. Time-series kinds take the step path (``_step_all``) instead.
+# Sticky Sampling's the sticky-scan kernel, GK's the requantize kernel. A
+# kind without a registry kernel (Lossy Counting) takes the probe, then
+# ``batched.stacked_update``, as in the reference; SDE_FUSED_PROBE does
+# not touch it. Time-series kinds take the step path (``_step_all``)
+# instead.
 # ---------------------------------------------------------------------------
 def _update(kind, n_probe, state, klo, khi, trows, sid_lo, sid_hi, items,
             vals, msk, src_rows=None):
@@ -618,7 +625,8 @@ def _step_all(kind, n_probe, state, klo, khi, trows, sid_lo, sid_hi, vals,
 # red-path query planning: normalize N query dicts for one kind into padded
 # batched device args + a per-query result slicer. CountMin, Bloom, Lossy
 # Counting and Sticky Sampling take per-query ``items`` (default ``[0]``)
-# as ONE [N, L] arg (L = padded max arg length); AMS, HyperLogLog, FM,
+# and GK per-query ``qs`` (float32, default ``[0.5]``) as ONE [N, L] arg
+# (L = padded max arg length, padded with 0); AMS, HyperLogLog, FM,
 # RHP, DFT and the sampler are arg-free and return their estimate per row
 # (AMS's the L2-norm^2; RHP's a dict: signature, hamming_weight, bucket;
 # DFT's a dict: bucket, coeffs, coords; the sampler's a dict: items as
@@ -666,23 +674,33 @@ def _plan_queries(kind, queries: Sequence[Dict[str, Any]], device):
     query ``i``'s args failed to coerce (that query gets default args so
     ONE bad query never poisons the rest of the batch)."""
     errors: List[Optional[str]] = [None] * len(queries)
-    if not isinstance(kind, _ITEM_KINDS):
+    if isinstance(kind, core.GKQuantiles):
+        key, default, np_dtype = "qs", [0.5], np.float32
+    elif isinstance(kind, _ITEM_KINDS):
+        key, default, np_dtype = "items", [0], np.uint32
+    else:
         def take(out, i):
             return batched.tree_map(lambda x: x[i], out)
         return (), take, errors
     lists = []
     for i, q in enumerate(queries):
         try:
-            lists.append(_coerce_items(q.get("items"), [0]))
+            if key == "items":
+                lists.append(_coerce_items(q.get(key), default))
+            else:
+                lists.append(
+                    np.asarray(q.get(key, default), np_dtype).ravel())
         except (TypeError, ValueError, OverflowError) as e:
-            lists.append(np.asarray([0], np.uint32))
-            errors[i] = f"bad 'items' in query: {e!r}"
+            lists.append(np.asarray(default, np_dtype).ravel())
+            errors[i] = f"bad {key!r} in query: {e!r}"
     lens = [len(lst) for lst in lists]
     width = _next_pow2(max(max(lens), 1))
-    arg = np.zeros((len(queries), width), np.uint32)
+    arg = np.zeros((len(queries), width), np_dtype)
     for i, lst in enumerate(lists):
         arg[i, :len(lst)] = lst
 
     def take(out, i):
         return out[i, :lens[i]]
-    return (_to_device(arg.view(np.int32), device),), take, errors
+    if key == "items":            # uint32 identities as int32 bit patterns
+        arg = arg.view(np.int32)
+    return (_to_device(arg, device),), take, errors

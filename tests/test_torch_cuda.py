@@ -48,12 +48,17 @@ followed by masked tuples only, and the walk's hard cases
 that end at an epoch start or cross the int32 wrap, items admitted twice
 in a group, sentinel bursts, repeated keys, counts that adds cannot take
 in closed form), over two batches, byte for byte, through both entry
-points.
+points; for GK's requantize m = 8, 400, 1,000 and 4,096 (a state in
+shared memory) and 8,000 and 20,000 (in global scratch), T = 0 to
+65,536, new, idle, out-of-order and hot rows, +inf, -inf and NaN tuples
+and state values, data-source rows, byte for byte, through both entry
+points, and through the engine at m = 8,000, with a build above the
+kernel's largest state refused.
 Tests marked ``cuda`` need a card; run them there with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-The one test without the marker holds the plain versions those tests
+The tests without the marker hold the plain versions those tests
 compare against to a serial loop, on the CPU. This file imports no JAX,
 so it also runs where JAX is not installed.
 """
@@ -62,11 +67,11 @@ import pytest
 import torch
 
 from repro_torch.kernels import (bitset_or, build, flash_attention,
-                                 fm_bitmap, hll_max, lossy_scan,
-                                 onehot_matmul, ops, pairwise_corr, probe,
-                                 ref, reservoir_scan, rhp_project,
-                                 sliding_dft, sticky_scan)
-from repro_torch.core import sticky
+                                 fm_bitmap, gk_requantize, hll_max,
+                                 lossy_scan, onehot_matmul, ops,
+                                 pairwise_corr, probe, ref, reservoir_scan,
+                                 rhp_project, sliding_dft, sticky_scan)
+from repro_torch.core import gk, sticky
 from repro_torch.service import routing
 
 
@@ -2118,3 +2123,205 @@ def test_sticky_tables_equal_the_float_functions(dev):
             ref_n = torch.arange(s - 2, s + 2)
             assert np.array_equal(got.cpu().numpy(),
                                   sticky.want_epoch(ref_n, t).numpy())
+
+
+GK_PATTERNS = ("empty", "idle", "mixed", "hot", "nonfinite")
+
+
+def _gk_case(rng, n, m, t, sources, pattern, dev):
+    """A GK stack [n, m] and a batch over it: rows -1 and n, masked
+    tuples, values rounded to a few steps (ties) with -0.0 and 0.0 mixed
+    in, the first source row also routed to and listed twice.
+    ``pattern`` sets the state and the rows:
+
+      empty      every row at n = 0, its values zero (a new stack)
+      idle       counts in the thousands, each row's values sorted; 1% of
+                 the tuples masked in, so nearly every row takes none
+      mixed      counts 0 to 10**6, half the rows' values out of order
+      hot        mixed, and one row taking ~70% of the batch
+      nonfinite  mixed, with +inf, -inf and NaN tuples, and rows holding
+                 +inf, -inf and NaN state values
+    """
+    counts = rng.randint(0, 10**6, n).astype(np.float32)
+    values = (np.round(rng.randn(n, m) * 4) / 2).astype(np.float32)
+    if pattern == "empty":
+        counts[:] = 0
+        values[:] = 0
+    elif pattern == "idle":
+        counts = rng.randint(1000, 10000, n).astype(np.float32)
+        values.sort(axis=1)
+    else:
+        values[::2].sort(axis=1)
+        counts[::3] = 0
+    if pattern == "nonfinite":
+        values[1::4, :3] = np.inf
+        values[2::4, -2:] = -np.inf
+        values[3::5, m // 2] = np.nan
+    vals = (np.round(rng.randn(t) * 4) / 2).astype(np.float32)
+    vals[rng.rand(t) < 0.1] = -0.0
+    if pattern == "nonfinite":
+        for x, share in ((np.inf, 0.03), (-np.inf, 0.02), (np.nan, 0.02)):
+            vals[rng.rand(t) < share] = x
+    rows = rng.randint(0, n, t).astype(np.int32)
+    if pattern == "hot":
+        rows[rng.rand(t) < 0.7] = n // 2
+    rows[::11] = -1
+    rows[5::13] = n
+    if sources:
+        rows[1::17] = sources[0]
+    mask = rng.rand(t) < (0.01 if pattern == "idle" else 0.9)
+    c = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    src = (c(np.asarray(sources + sources[:1], np.int64)) if sources
+           else None)
+    return (c(values), c(counts)), (c(rows), c(vals), c(mask), src)
+
+
+_GK_CASES = [
+    (16, 0.5, 1, [], "empty"), (16, 0.5, 15, [3], "mixed"),
+    (16, 0.5, 16, [], "nonfinite"), (16, 0.5, 17, [0, 9], "hot"),
+    (8, 0.5, 4096, [2], "mixed"), (8, 0.5, 4096, [], "nonfinite"),
+    (5, 0.5, 0, [1], "mixed"),
+    (100, 0.01, 1000, [7], "idle"), (100, 0.01, 1000, [], "mixed"),
+    (64, 0.01, 4096, [5, 63], "hot"), (64, 0.01, 4096, [6], "nonfinite"),
+    (2000, 0.01, 65536, [1999], "idle"), (2000, 0.01, 65536, [3], "mixed"),
+    (40, 0.004, 3000, [2], "hot"), (9, 4 / 4096, 2500, [4], "nonfinite"),
+    (9, 4 / 4096, 700, [], "idle"),
+    (6, 0.0005, 3000, [2], "nonfinite"), (5, 0.0005, 700, [], "idle"),
+    (4, 0.0002, 257, [1], "hot"), (3, 0.0005, 0, [0], "mixed")]
+
+
+def _gk_run(update, state, *args, **kwargs):
+    st = [x.clone() for x in state]
+    update(*st, *args, **kwargs)
+    return st
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True], ids=["rows", "fused"])
+@pytest.mark.parametrize("n,eps,t,sources,pattern", _GK_CASES)
+def test_gk_requantize_matches_plain_byte_for_byte(dev, n, eps, t, sources,
+                                                   pattern, fused):
+    """The requantize kernel, rows given or the probe fused (over a table
+    at 0.7 load, every id found), against its plain version: m = 8, 400,
+    1,000 and 4,096; T = 0 to 65,536; new, idle, out-of-order, hot and
+    non-finite rows, data-source rows, and states of 8,000 and 20,000
+    values (past shared memory); every row's values and n byte-equal
+    to the plain version and across two kernel runs, one launch a call."""
+    m = gk.GKQuantiles(eps=eps).m
+    rng = np.random.RandomState(n + m + t)
+    state, (rows, vals, mask, src) = _gk_case(rng, n, m, t, sources,
+                                              pattern, dev)
+    if fused:
+        table, sids, n_probe = _reservoir_probe_case(rng, n, t, rows, dev, 0)
+        entry = gk_requantize.gk_probe_requantize_update
+        args = (*table, *sids, vals, mask, src)
+        kw = dict(n_probe=n_probe, m=m)
+    else:
+        entry = gk_requantize.gk_requantize_update
+        args = (rows, vals, mask, src)
+        kw = dict(m=m)
+    before = entry.launches
+    outs = [_gk_run(entry, state, *args, **kw) for _ in range(2)]
+    assert entry.launches == before + 2
+    torch.cuda.synchronize()
+    want = _gk_run(ref.gk_requantize_update, state, rows, vals, mask, src,
+                   m=m)
+    for a, b, w in zip(*outs, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert torch.equal(a.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_gk_requantize_rejects_bad_operands(dev):
+    rng = np.random.RandomState(3)
+    state, (rows, vals, mask, src) = _gk_case(rng, 5, 8, 64, [1], "mixed",
+                                              dev)
+    values, counts = state
+    update = gk_requantize.gk_requantize_update
+    fused = gk_requantize.gk_probe_requantize_update
+    table, sids, n_probe = _reservoir_probe_case(rng, 5, 64, rows, dev, 0)
+    before = (update.launches, fused.launches)
+    for bad, err in (((values, counts.long()), TypeError),
+                     ((values, counts.cpu()), ValueError),
+                     ((values[:, :-1].contiguous(), counts), ValueError),
+                     ((values.t().contiguous().t(), counts), ValueError)):
+        with pytest.raises(err):
+            update(*bad, rows, vals, mask, src, m=8)
+        with pytest.raises(err):
+            fused(*bad, *table, *sids, vals, mask, src, n_probe=n_probe, m=8)
+    with pytest.raises(TypeError):
+        update(values, counts, rows, vals, mask.to(torch.int32), src, m=8)
+    with pytest.raises(ValueError):
+        update(values, counts, rows[:-1], vals, mask, src, m=8)
+    with pytest.raises(ValueError):                  # size not a power of 2
+        fused(values, counts, *[x[:-1] for x in table], *sids, vals, mask,
+              src, n_probe=n_probe, m=8)
+    big_m = gk_requantize.MAX_M + 1
+    big = torch.zeros((2, big_m), dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError):                  # m above the kernel's
+        update(big, counts[:2], rows, vals, mask, None, m=big_m)
+    assert (update.launches, fused.launches) == before
+
+
+@pytest.mark.cuda
+def test_gk_engine_state_past_shared_memory(dev):
+    """A GK build at eps 0.0005 (m = 8,000, every row through the big-row
+    pass) on the card's engine: per-stream and data-source rows over two
+    ingests of continuous values, the stack byte-equal to the CPU
+    engine's; a build at eps 3e-6 (m above the kernel's largest) is
+    refused before anything is allocated, on the card only."""
+    from repro_torch.service import SDE
+    rng = np.random.RandomState(11)
+    ids = [int(s) for s in rng.randint(0, 2**62, size=10, dtype=np.int64)]
+    engines = (SDE(device=dev), SDE(device="cpu"))
+    for e in engines:
+        for sid, extra in (("gk", {"per_stream_of_source": True,
+                                   "stream_ids": ids}), ("src-gk", {})):
+            r = e.handle({"type": "build", "request_id": sid,
+                          "synopsis_id": sid, "kind": "gk_quantiles",
+                          "params": {"eps": 0.0005}, **extra})
+            assert r.ok, r.error
+    for _ in range(2):
+        sids = np.asarray(ids, np.int64)[rng.randint(0, 10, 3000)]
+        sids[::17] = -1
+        vals = (rng.randn(3000) * 10).astype(np.float32)
+        for e in engines:
+            e.ingest(sids, vals)
+    card, cpu = (next(iter(e.stacks.values())).state for e in engines)
+    for k in ("values", "n"):
+        assert torch.equal(card[k].cpu().view(torch.int32),
+                           cpu[k].view(torch.int32))
+    card_sde, cpu_sde = engines
+    r = card_sde.handle({"type": "build", "request_id": "fine",
+                         "synopsis_id": "fine", "kind": "gk_quantiles",
+                         "params": {"eps": 3e-6}})
+    assert not r.ok and "at most" in r.error
+    assert "fine" not in card_sde.entries and len(card_sde.stacks) == 1
+
+
+def test_gk_plain_matches_a_row_loop():
+    """The plain stacked version (``ref.gk_requantize_update``: every row's
+    head merged at once, its tail virtual) against a loop of the one-row
+    update that builds each row's m + T entries (``core/gk.add_row``), on
+    the CPU, over the card tests' patterns and three chained batches."""
+    for n, eps, t, sources, pattern in _GK_CASES[:11]:
+        m = gk.GKQuantiles(eps=eps).m
+        rng = np.random.RandomState(n + m + t)
+        state, (rows, vals, mask, src) = _gk_case(
+            rng, n, m, t, sources, pattern, torch.device("cpu"))
+        values, counts = [x.clone() for x in state]
+        loop_v, loop_n = [x.clone() for x in state]
+        listed = {int(r) for r in src.tolist()} if src is not None else set()
+        routed = mask & ~torch.isin(rows, torch.tensor(sorted(listed),
+                                                       dtype=torch.int32))
+        for _ in range(3):
+            ref.gk_requantize_update(values, counts, rows, vals, mask, src,
+                                     m=m)
+            for r in range(n):
+                own = mask if r in listed else routed & (rows == r)
+                loop_v[r], loop_n[r] = gk.add_row(loop_v[r], loop_n[r], vals,
+                                                  own, m)
+            assert torch.equal(values.view(torch.int32),
+                               loop_v.view(torch.int32)), (n, m, t, pattern)
+            assert torch.equal(counts.view(torch.int32),
+                               loop_n.view(torch.int32))

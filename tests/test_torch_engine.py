@@ -219,7 +219,7 @@ def test_rebuilt_synopsis_reads_zero_and_later_slices_answer_not_ok(
                    "synopsis_id": f"cm/{ids[2]}", "query": {"items": [ids[2]]}})
     assert r.ok and float(r.value[0]) == 0.0
     r = te.handle({"type": "build", "request_id": "b", "synopsis_id": "x",
-                   "kind": "gk_quantiles"})
+                   "kind": "coreset_tree"})
     assert not r.ok and "unknown synopsis kind" in r.error
     for req, slice_name in (
             ({"type": "build_multidim", "request_id": "md",

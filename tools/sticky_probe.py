@@ -23,7 +23,7 @@ restored before it, for this checkout's build and each ``--src``
 checkout's (such as a parent unpacked by ``git archive``; its library is
 called through the same C interface). Every build's result must equal
 this checkout's byte for byte. Then this checkout's whole call by kernel
-(``chip_smoke.sticky_split``) and the ptxas lines of every build.
+(``chip_smoke.kernel_split``) and the ptxas lines of every build.
 """
 from __future__ import annotations
 
@@ -128,7 +128,7 @@ def main() -> None:
                           f"{build_label:8s} {ms:.4f} ms device", flush=True)
             whole = lambda: updates["this"](st, b.rows, b.items, b.mask, src,
                                             kind)
-            split = cs.sticky_split(whole, restore)
+            split = cs.kernel_split(whole, restore, cs.STICKY_SPLIT)
             print(f"[sticky] capacity {cap} {label} whole, by kernel: "
                   f"{ {k: round(v, 4) for k, v in split.items()} }",
                   flush=True)
