@@ -124,7 +124,8 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      requantized: rows given from empty rows
      (``gk_requantize``) and from the state GK_IDLE_BATCHES batches leave
      on counts in the thousands, where nearly every row takes no tuple and
-     moves anyway (``gk_requantize@idle``), and the probe fused in from
+     moves anyway (``gk_requantize@idle``), that state with half its rows
+     out of order (``gk_requantize@unsorted``), and the probe fused in from
      empty rows (``gk_probe_requantize``): values and n byte-equal to the
      plain version and across two kernel runs, timed on the starting
      state restored before every call (events, events queued behind a
@@ -227,7 +228,9 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      points must launch, both stacks equal a replay of every batch through
      the plain version byte for byte, and each data-source answer at
      GK_QS (query_many and adhoc alike) lie within 6 eps + 1 / N of the
-     exact quantile of the N masked tuples.
+     exact quantile of the N masked tuples. Each stack's device ms a
+     batch and its split by kernel are printed (the rows-given entry on
+     the last batch).
   4. The attention entry point: ``ops.flash_attention`` once at each
      config's width, causal bfloat16, with the counts reset just before
      each call; each must launch the attention kernel exactly once and
@@ -252,8 +255,8 @@ last line; each phase prints its peak device memory, held under 48 GiB):
      their past-the-fill numbers; the three sticky-scan rows' ``replaces``
      ``src/repro/core/sticky.py:86``, with their past-epochs numbers and
      ``@cap4096``'s launches those on tables of 4,096 slots; the three GK
-     rows' ``replaces`` ``src/repro/core/gk.py:51``, ``@idle``'s launches
-     all the rows-given entry's; every row
+     rows' ``replaces`` ``src/repro/core/gk.py:51``, ``@idle``'s and
+     ``@unsorted``'s launches all the rows-given entry's; every row
      whose counterpart lies under
      ``src/repro/core/`` has ``tpu_kernel`` null), then the device
      line.
@@ -2336,7 +2339,8 @@ def phase2_sticky(b, n: int, results: dict) -> None:
     results["sticky_scan"]["float_check"] = floats
 
 
-GK_SPLIT = {"gk_small_kernel": "small rows", "gk_big_kernel": "big rows",
+GK_SPLIT = {"gk_warp_kernel": "warp rows", "gk_small_kernel": "small rows",
+            "gk_big_kernel": "big rows",
             "sort_": "row sort", "gk_key_kernel": "key pass",
             "gk_bounds_kernel": "run bounds"}
 
@@ -2367,6 +2371,18 @@ def gk_idle_state(kind, b, n: int, src: torch.Tensor):
     return buf
 
 
+def gk_unsorted_state(idle: torch.Tensor, n: int, m: int, gen):
+    """The idle state with every other row's values shuffled out of order
+    (their counts kept): half the rows without tuples take the sort.
+    Returns its buffer."""
+    buf = idle.clone()
+    values = buf[:n * m].view(n, m)
+    perm = torch.argsort(torch.rand(n // 2, m, generator=gen,
+                                    device=buf.device), dim=1)
+    values[::2] = torch.gather(values[::2], 1, perm)
+    return buf
+
+
 def phase2_gk(b, n: int, results: dict) -> None:
     """GK's requantize (no TPU counterpart) at the reference's defaults
     (eps 0.01: m = 400) on phase 2's batch with continuous values (N(0,
@@ -2374,10 +2390,12 @@ def phase2_gk(b, n: int, results: dict) -> None:
     distinct values): n rows routed as the batch's probe gives them plus
     one data-source row (row n // 2, as the engine allocates one), every
     row requantized. Rows given
-    (``gk_requantize``) from empty rows and (``gk_requantize@idle``) from
+    (``gk_requantize``) from empty rows, (``gk_requantize@idle``) from
     the state GK_IDLE_BATCHES batches leave on counts in the thousands,
-    where nearly every row takes no tuple and requantizes anyway; the
-    probe fused in (``gk_probe_requantize``) from empty rows. Each held
+    where nearly every row takes no tuple and requantizes anyway, and
+    (``gk_requantize@unsorted``) from that state with half the rows out
+    of order (those without tuples take the sort); the probe fused in
+    (``gk_probe_requantize``) from empty rows. Each held
     byte for byte (values and n) against its plain version on the card
     (the fused entry's: the plain probe, then the plain update; its
     ``max_abs_err`` taken from the same tensors, :func:`bits_err`) and
@@ -2412,6 +2430,7 @@ def phase2_gk(b, n: int, results: dict) -> None:
     entries = {
         "gk_requantize": rows_given + ("empty",),
         "gk_requantize@idle": rows_given + ("idle",),
+        "gk_requantize@unsorted": rows_given + ("unsorted",),
         "gk_probe_requantize": (
             lambda st: gk_requantize.gk_probe_requantize_update(
                 *leaves(st), *table, *tail, n_probe=b.n_probe, m=m),
@@ -2428,6 +2447,7 @@ def phase2_gk(b, n: int, results: dict) -> None:
     took = int((own > 0).sum())
     starts = {"empty": gk_stack(n, m, dev)[0],
               "idle": gk_idle_state(kind, b, n, src)}
+    starts["unsorted"] = gk_unsorted_state(starts["idle"], n, m, b.gen)
     for name, (kernel, plain, rows_b, start) in entries.items():
         buf0 = starts[start]
         runs = []
@@ -2590,12 +2610,15 @@ ENTRY_POINTS = {
                           "sticky_scan.cu", STICKY_COUNTERPART),
     # no TPU kernel: its JAX counterpart is GKQuantiles.add_batch under the
     # vmap of batched.stacked_update, every row of the stack each batch;
-    # "@idle" is phase 2's start on counts in the thousands (launches: all
-    # the rows-given entry's)
+    # "@idle" is phase 2's start on counts in the thousands, "@unsorted"
+    # that start with half its rows out of order (launches: all the
+    # rows-given entry's)
     "gk_requantize": ("gk_requantize", "gk_requantize_update",
                       "gk_requantize.cu", GK_COUNTERPART),
     "gk_requantize@idle": ("gk_requantize", "gk_requantize_update",
                            "gk_requantize.cu", GK_COUNTERPART),
+    "gk_requantize@unsorted": ("gk_requantize", "gk_requantize_update",
+                               "gk_requantize.cu", GK_COUNTERPART),
     "gk_probe_requantize": ("gk_requantize", "gk_probe_requantize_update",
                             "gk_requantize.cu", GK_COUNTERPART),
 }
@@ -2787,7 +2810,8 @@ def profile_batches(sde, batches, first: int) -> None:
           if any(k in e.name for k in GK_SPLIT if k.startswith("gk_"))]
     gk_ms = sum(e.time_range.elapsed_us() for e in gk) / 1e3
     print(f"[phase3] GK requantize: {len(gk) / nb:g} activities a batch of "
-          f"its key, bounds, small-row and big-row kernels, {gk_ms / nb:.4f} "
+          f"its key, bounds, warp, small-row and big-row kernels, "
+          f"{gk_ms / nb:.4f} "
           f"ms a batch, {gk_ms / busy_ms:.4f} of device busy (its row sort "
           f"shares its kernels' names with the other row sorts and is not "
           f"in it)", flush=True)
@@ -3669,6 +3693,30 @@ def gk_rank_check(data: np.ndarray, answer, eps: float, name: str) -> list:
     return out
 
 
+def gk_batch_device_ms(stack, batch, dev) -> tuple:
+    """The device ms of one GK stack's requantize on ``batch`` (its rows
+    from the plain probe, as the engine's unfused route takes them), on a
+    copy of the stack's state restored before each call
+    (``queued_device_ms``), and its split by kernel (``kernel_split``)."""
+    from repro_torch.kernels import gk_requantize, probe
+    from repro_torch.service import routing
+    sids, vals = batch
+    sid64 = sids.astype(np.int64)
+    lo, hi = routing.split64(sid64)
+    dt = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    rows = probe.probe_rows(*stack.device_table(), dt(lo.view(np.int32)),
+                            dt(hi.view(np.int32)), n_probe=stack.n_probe)
+    vals_d, mask_d = dt(vals), dt(sid64 >= 0)
+    values, counts = (stack.state[k].clone() for k in ("values", "n"))
+    start = (values.clone(), counts.clone())
+    restore = lambda: (values.copy_(start[0]), counts.copy_(start[1]))
+    kern = lambda: gk_requantize.gk_requantize_update(
+        values, counts, rows, vals_d, mask_d, stack.source_rows_idx(),
+        m=stack.kind.m)
+    return (queued_device_ms(kern, restore),
+            kernel_split(kern, restore, GK_SPLIT))
+
+
 def phase3c(dev, seed: int, n_streams: int, t: int, n_batches: int) -> None:
     """GK through ``SDE(device="cuda").handle`` on continuous values:
     per-stream over ``n_streams`` ids and data-source GK at the defaults
@@ -3678,7 +3726,8 @@ def phase3c(dev, seed: int, n_streams: int, t: int, n_batches: int) -> None:
     half with SDE_FUSED_PROBE=0. Both entry points must launch, each stack
     equal a replay of every batch through the plain version byte for
     byte, and each data-source answer at GK_QS lie within the rank bound
-    of the exact quantiles of the masked tuples ingested."""
+    of the exact quantiles of the masked tuples ingested. Then each
+    stack's device ms a batch and its split (``gk_batch_device_ms``)."""
     from repro_torch.kernels import gk_requantize
     from repro_torch.service import SDE
 
@@ -3745,6 +3794,15 @@ def phase3c(dev, seed: int, n_streams: int, t: int, n_batches: int) -> None:
     print(f"[phase3c] {n_batches} batches x {t} tuples into the two GK "
           f"stacks in {ingest_s:.4f} s (host clock, synchronized); "
           f"requantize launches (rows given, fused) {made}", flush=True)
+    for stack in sde.stacks.values():
+        ms, split = gk_batch_device_ms(stack, batches[-1], dev)
+        print(f"[phase3c] GKQuantiles(m={stack.kind.m}) stack of "
+              f"{stack.capacity} rows: {ms:.4f} ms device a batch (the "
+              f"rows-given entry on the last batch, from the state it "
+              f"left, restored before each call; events around calls "
+              f"queued behind a spin, median of 5; by kernel "
+              f"{ {k: round(v, 4) for k, v in split.items()} })",
+              flush=True)
     sde.close()
     free()
     peak_gib("phase3c")

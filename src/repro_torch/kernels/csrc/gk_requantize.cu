@@ -46,32 +46,57 @@
 //   sort     row_sort.cuh's stable grouping by row of those keys: a row's
 //            run lists its tuples by value, ties in batch order
 //   bounds   each row's run [start, end)
-//   small    a block (256 threads) a row: its state sorted in shared
-//            memory (bitonic, on (value key, slot)), merged with its run
-//            (each tuple's place: its rank + the state entries <= it; a
-//            state entry's: its rank + the tuples below it, a count
+//   warp     a warp a row, several rows a block, for a row that takes no
+//            tuple, is no data-source row and holds no NaN, and whose
+//            state is in order (below): its head is its state at weight
+//            n / m as it stands, scanned (a lane a block of 16 at each
+//            level), checked, its targets placed and gathered, all in the
+//            warp's shared memory with no block barrier. Every other row
+//            goes to the block list.
+//   small    a persistent grid of blocks (256 threads) over the block
+//            list, a row at a time: its state sorted in shared memory
+//            (bitonic, on (value key, slot)) unless in order, merged with
+//            its run (each tuple's place: its rank + the state entries <=
+//            it; a state entry's: its rank + the tuples below it, a count
 //            histogram), the blocked scan (a thread a block of 16 at each
-//            level, then the prefixes down), the m searches (a thread a
-//            target) and the gathers, all in shared memory. A data-source
-//            row, a row with a non-finite tuple or NaN state, and a row
-//            whose head exceeds the block's room go to the big list.
+//            level, then the prefixes down), checked, the m targets placed
+//            and gathered, all in shared memory. A data-source row, a row
+//            with a non-finite tuple or NaN state, and a row whose head
+//            exceeds the block's room go to the big list.
 //   big      a block (512 threads) a listed row, in turn, its head (or its
 //            m + T entries) in that block's global scratch. A state above
 //            kSharedM values (eps < 4 / 4,096) does not fit a small
 //            block: then the small pass is not launched, every row is
 //            big, and the state's sort and counts sit in the block's
 //            global scratch too.
+// Two checks on each row's own data decide its shortcuts on the card:
+//   in order  the m state keys do not fall by slot: the sort on (key <<
+//             32 | slot) is then the identity, and no stage runs (-0.0
+//             beside 0.0 and +inf tops tie or rise in key order already);
+//   rising    the head's midpoint ranks c[0, h) do not fall in key order,
+//             nor do c[h - 1] and the tail's level sums over the levels
+//             the positions [h, N) read, and the total is not below 0 (so
+//             the targets rise with i): the halvings then give each
+//             target's lower bound, so a team member places a run of
+//             consecutive targets, the first by a lower bound over the
+//             head and each next by walking on (a target past the head
+//             lands in the tail: +inf, or the head's last entry where
+//             N = h). Where a row does not rise (the masked tail's sums
+//             are grouped otherwise than the head's), it runs the
+//             halvings over its N virtual positions as before.
 // Floats: __fadd_rn / __fsub_rn / __fmul_rn / __fdiv_rn only, so no
 // multiply-add is contracted and no division becomes a reciprocal's
 // product; no float atomics: the same bytes on every run, equal to the
 // plain version's.
 //
 // What bounds it on this card: its bytes (the stack read and written,
-// 1,604 B a row at m = 400: 0.125 ms for 131,072 rows at 3.35 TB/s) and
-// the searches' shared-memory reads (m x 17 a row at T = 65,536, 32 a
-// cycle an SM: 0.107 ms) about equally; this first design is held up
-// longer by each row's dependent steps: the sort's 45 stages, the scan's
-// levels and each search's 17 dependent shared loads.
+// 1,604 B a row at m = 400: 0.125 ms for 131,072 rows at 3.35 TB/s). The
+// first design (a block a row, a sort and 17-step halvings for every row)
+// took 4.26 ms in its small-row kernel, held up by each row's dependent
+// steps; a row that takes no tuple and is in order now costs a warp a few
+// hundred instructions and no barrier, and a rising row's targets about
+// log2(h) + 2 shared reads each where the halvings took ceil(log2(N + 1))
+// level loops.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -84,6 +109,8 @@ namespace {
 
 constexpr int kKeyThreads = 256;
 constexpr int kSmallThreads = 256;
+constexpr int kWarpRows = 8;           // rows a block of the warp pass, at most
+constexpr size_t kMaxShared = 232448;  // dynamic shared memory a block, at most
 constexpr int kBigThreads = 512;
 constexpr int kSharedM = 4096;         // the largest state in shared memory
 constexpr int kMaxM = 1 << 20;         // the largest state (eps >= 4 / 2**20)
@@ -157,8 +184,10 @@ struct Args {
   int32_t* run_start;            // [n]
   int32_t* run_end;              // [n]
   uint8_t* flag;                 // [n]: a +inf or NaN among the row's own
-  int32_t* misc;                 // [0]: the source flag, [1]: big rows
+  int32_t* misc;                 // [0]: the source flag, then the rows
+                                 // by path (gk_requantize's comment)
   int32_t* big_list;             // [n]
+  int32_t* block_list;           // [n]: rows for the small pass
   uint32_t* big;                 // the big blocks' scratch
   long long big_stride;          // words a block
   long long state_words;         // the state's sort and counts there, or 0
@@ -218,9 +247,12 @@ struct Own {
 
 // The row's m state values, keyed (value key << 32 | slot) and sorted in
 // s_pair (pads of all ones after them); s_val keeps their bits by slot.
-// Sets *s_nan where a value is a NaN.
-__device__ void sort_state(const Args& a, int r, uint64_t* s_pair,
-                           uint32_t* s_val, int* s_nan) {
+// Sets *s_nan where a value is a NaN. With `check_order`, a state whose
+// keys do not fall by slot is left as it stands: its pairs are sorted.
+// Returns whether the sort ran.
+__device__ bool sort_state(const Args& a, int r, uint64_t* s_pair,
+                           uint32_t* s_val, int* s_nan,
+                           bool check_order = false) {
   const float* row = a.values + (size_t)r * a.m;
   for (int i = threadIdx.x; i < a.P; i += blockDim.x) {
     if (i < a.m) {
@@ -233,6 +265,12 @@ __device__ void sort_state(const Args& a, int r, uint64_t* s_pair,
     }
   }
   __syncthreads();
+  if (check_order) {
+    bool in_order = true;
+    for (int i = threadIdx.x; i < a.m - 1; i += blockDim.x)
+      in_order = in_order && (s_pair[i] >> 32) <= (s_pair[i + 1] >> 32);
+    if (__syncthreads_and(in_order)) return false;
+  }
   for (int k = 2; k <= a.P; k <<= 1) {
     for (int j = k >> 1; j > 0; j >>= 1) {
       for (int p = threadIdx.x; p < a.P / 2; p += blockDim.x) {
@@ -246,6 +284,7 @@ __device__ void sort_state(const Args& a, int r, uint64_t* s_pair,
       __syncthreads();
     }
   }
+  return true;
 }
 
 __device__ __forceinline__ uint32_t state_key(const uint64_t* s_pair,
@@ -320,11 +359,40 @@ __device__ void merge_head(const Args& a, const uint64_t* s_pair,
   __syncthreads();
 }
 
-// The blocked scan of hw [0, h): c[j] = cum[j] - 0.5 hw[j] (the midpoint
-// ranks), s_V[l] = level l's inclusive sum at the head's last entry (for
-// levels past the last, the last's). lv holds levels 1, 2, ...
-__device__ void blocked_scan(const float* hw, float* c, float* lv, int h,
-                             float* s_V) {
+// The threads that take a row: a block, or one warp of a block.
+struct BlockTeam {
+  __device__ int rank() const { return threadIdx.x; }
+  __device__ int size() const { return blockDim.x; }
+  __device__ void sync() const { __syncthreads(); }
+  __device__ bool all(bool x) const { return __syncthreads_and(x) != 0; }
+};
+
+struct WarpTeam {
+  int lane;
+  __device__ int rank() const { return lane; }
+  __device__ int size() const { return 32; }
+  __device__ void sync() const { __syncwarp(); }
+  __device__ bool all(bool x) const { return __all_sync(kFull, x) != 0; }
+};
+
+// A head's weights: merged (hw), or a state's alone, all n / m.
+struct HeadWeights {
+  const float* hw;
+  __device__ float operator()(int j) const { return hw[j]; }
+};
+
+struct StateWeight {
+  float w;
+  __device__ float operator()(int) const { return w; }
+};
+
+// The blocked scan of the head's weights w(0 .. h - 1) by a team:
+// c[j] = cum[j] - 0.5 w(j) (the midpoint ranks), s_V[l] = level l's
+// inclusive sum at the head's last entry (for levels past the last, the
+// last's). lv holds levels 1, 2, ...
+template <class Team, class Weights>
+__device__ void team_scan(const Team& g, const Weights& w, float* c,
+                          float* lv, int h, float* s_V) {
   int cnt[kLevels];
   long long off[kLevels];
   int top = 0;
@@ -338,51 +406,52 @@ __device__ void blocked_scan(const float* hw, float* c, float* lv, int h,
   }
   // up: each block's sums in order, its total to the level above
   for (int l = 0; l <= top; ++l) {
-    const float* in = l == 0 ? hw : lv + off[l];
     float* out = l == 0 ? c : lv + off[l];
     const int groups = (cnt[l] + 15) / 16;
-    for (int g = threadIdx.x; g < groups; g += blockDim.x) {
-      const int b = g * 16;
+    for (int q = g.rank(); q < groups; q += g.size()) {
+      const int b = q * 16;
       const int e = b + 16 < cnt[l] ? b + 16 : cnt[l];
-      float s = in[b];
+      float s = l == 0 ? w(b) : out[b];
       out[b] = s;
       for (int i = b + 1; i < e; ++i) {
-        s = __fadd_rn(s, in[i]);
+        s = __fadd_rn(s, l == 0 ? w(i) : out[i]);
         out[i] = s;
       }
-      if (l < top) lv[off[l + 1] + g] = s;
+      if (l < top) lv[off[l + 1] + q] = s;
     }
-    __syncthreads();
+    g.sync();
   }
   // down: each block after the first takes the inclusive sum of the totals
   // before it
   for (int l = top - 1; l >= 1; --l) {
     float* A = lv + off[l];
     const float* U = lv + off[l + 1];
-    for (int j = threadIdx.x; j < cnt[l]; j += blockDim.x) {
+    for (int j = g.rank(); j < cnt[l]; j += g.size()) {
       if (j >= 16) A[j] = __fadd_rn(U[(j >> 4) - 1], A[j]);
     }
-    __syncthreads();
+    g.sync();
   }
-  for (int j = threadIdx.x; j < h; j += blockDim.x) {
+  for (int j = g.rank(); j < h; j += g.size()) {
     float v = c[j];
     if (top > 0 && j >= 16) v = __fadd_rn(lv[off[1] + (j >> 4) - 1], v);
     if (j == h - 1) s_V[0] = v;
-    c[j] = __fsub_rn(v, __fmul_rn(0.5f, hw[j]));
+    c[j] = __fsub_rn(v, __fmul_rn(0.5f, w(j)));
   }
-  __syncthreads();
-  if (threadIdx.x == 0) {
+  g.sync();
+  if (g.rank() == 0) {
     for (int l = 1; l < kLevels; ++l)
       s_V[l] = l <= top ? lv[off[l] + cnt[l] - 1] : s_V[l - 1];
   }
-  __syncthreads();
+  g.sync();
 }
 
-// The midpoint rank at virtual position p of a row whose head holds h
-// entries: the head's below h, else the level sum the position reads.
-__device__ __forceinline__ float cum_at(long long p, int h, const float* c,
-                                        const float* s_V) {
-  if (p < h) return c[p];
+__device__ __forceinline__ uint32_t key_of(float x) {
+  return sort_key(__float_as_uint(x));
+}
+
+// The level whose sum at the head's last entry a virtual position p >= h
+// reads, of a row whose head holds h entries.
+__device__ __forceinline__ int tail_level(long long p, int h) {
   long long j = p, last = h - 1;
   int l = 0;
   while ((j >> 4) != (last >> 4) && l < kLevels - 1) {
@@ -390,10 +459,32 @@ __device__ __forceinline__ float cum_at(long long p, int h, const float* c,
     last >>= 4;
     ++l;
   }
-  return s_V[l];
+  return l;
 }
 
-// The m searches and gathers of row r, and its new count.
+// The midpoint rank at virtual position p: the head's below h, else the
+// level sum the position reads.
+__device__ __forceinline__ float cum_at(long long p, int h, const float* c,
+                                        const float* s_V) {
+  return p < h ? c[p] : s_V[tail_level(p, h)];
+}
+
+// jnp.searchsorted's halvings of a target's key over the N virtual
+// positions, clipped to N - 1.
+__device__ __forceinline__ long long halvings(const Args& a, uint32_t kt,
+                                              int h, const float* c,
+                                              const float* s_V) {
+  long long lo = 0, hi = a.N;
+  for (int s = 0; s < a.steps; ++s) {
+    const long long mid = (lo + hi) >> 1;
+    if (kt <= key_of(cum_at(mid, h, c, s_V))) hi = mid;
+    else lo = mid;
+  }
+  return hi < a.N - 1 ? hi : a.N - 1;
+}
+
+// The m searches and gathers of row r, and its new count (the big-row
+// pass).
 __device__ void search_row(const Args& a, int r, const uint32_t* hv,
                            const float* c, int h, const float* s_V,
                            float total) {
@@ -401,17 +492,70 @@ __device__ void search_row(const Args& a, int r, const uint32_t* hv,
   for (int i = threadIdx.x; i < a.m; i += blockDim.x) {
     const float tg = __fmul_rn(
         __fdiv_rn(__fadd_rn((float)i, 0.5f), (float)a.m), total);
-    const uint32_t kt = sort_key(__float_as_uint(tg));
-    long long lo = 0, hi = a.N;
-    for (int s = 0; s < a.steps; ++s) {
-      const long long mid = (lo + hi) >> 1;
-      if (kt <= sort_key(__float_as_uint(cum_at(mid, h, c, s_V)))) hi = mid;
-      else lo = mid;
-    }
-    const long long idx = hi < a.N - 1 ? hi : a.N - 1;
+    const long long idx = halvings(a, key_of(tg), h, c, s_V);
     out[i] = __uint_as_float(idx < h ? hv[idx] : kInfBits);
   }
   if (threadIdx.x == 0) a.n_state[r] = total;
+}
+
+// The rising check: whether the row's midpoint ranks over its N virtual
+// positions never fall in key order and its total is not below 0 (the
+// targets (i + 0.5) / m * total then rise with i). The tail's positions
+// read the level sums from tail_level(h) to tail_level(N - 1), each of
+// those levels over a run of positions, in order.
+template <class Team>
+__device__ bool rising(const Args& a, const Team& g, const float* c, int h,
+                       const float* s_V, float total) {
+  bool ok = total >= 0.0f;
+  for (int j = g.rank(); j < h - 1; j += g.size())
+    ok = ok && key_of(c[j]) <= key_of(c[j + 1]);
+  if (g.rank() == 0 && a.N > h) {
+    uint32_t prev = key_of(c[h - 1]);
+    const int last = tail_level(a.N - 1, h);
+    for (int l = tail_level(h, h); l <= last; ++l) {
+      const uint32_t k = key_of(s_V[l]);
+      ok = ok && prev <= k;
+      prev = k;
+    }
+  }
+  return g.all(ok);
+}
+
+// Each target's new value into dst [m] (q [m]: (i + 0.5) / m). A rising
+// row: a team member takes a run of consecutive targets, places the first
+// at its lower bound over the head's keys and walks on for each next one;
+// one past the head is +inf where the row has a tail, else the head's
+// last entry. Otherwise the halvings, a target a member at a time.
+template <class Team>
+__device__ void place(const Args& a, const Team& g, const uint32_t* hv,
+                      const float* c, int h, const float* s_V, float total,
+                      const float* q, bool sweep, uint32_t* dst) {
+  if (!sweep) {
+    for (int i = g.rank(); i < a.m; i += g.size()) {
+      const long long idx =
+          halvings(a, key_of(__fmul_rn(q[i], total)), h, c, s_V);
+      dst[i] = idx < h ? hv[idx] : kInfBits;
+    }
+    return;
+  }
+  const uint32_t past = a.N > h ? kInfBits : hv[h - 1];
+  const int per = (a.m + g.size() - 1) / g.size();
+  int i = g.rank() * per;
+  const int end = i + per < a.m ? i + per : a.m;
+  if (i >= end) return;
+  uint32_t kt = key_of(__fmul_rn(q[i], total));
+  int lo = 0, hi = h;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (key_of(c[mid]) < kt) lo = mid + 1;
+    else hi = mid;
+  }
+  for (int p = lo;;) {
+    dst[i] = p < h ? hv[p] : past;
+    if (++i == end) break;
+    kt = key_of(__fmul_rn(q[i], total));
+    while (p < h && key_of(c[p]) < kt) ++p;
+  }
 }
 
 struct Shared {
@@ -463,8 +607,100 @@ __host__ __device__ inline size_t shared_bytes(int m, int P, int cap,
   return at;
 }
 
+// (i + 0.5) / m for i in [0, m): the targets' fractions, a block's.
+__device__ void fill_fractions(const Args& a, float* q) {
+  for (int i = threadIdx.x; i < a.m; i += blockDim.x)
+    q[i] = __fdiv_rn(__fadd_rn((float)i, 0.5f), (float)a.m);
+  __syncthreads();
+}
+
 // ---------------------------------------------------------------------------
-// small rows: a block a row, all in shared memory
+// rows without tuples: a warp a row, several rows a block
+// ---------------------------------------------------------------------------
+
+// A warp's row in shared memory: the state's bits by slot (sv), its
+// midpoint ranks (c), the new values (ov), the scan's levels (lv) and the
+// level sums (s_V).
+struct WarpRow {
+  uint32_t* sv;
+  float* c;
+  uint32_t* ov;
+  float* lv;
+  float* s_V;
+};
+
+__host__ __device__ inline size_t warp_row_bytes(int m, WarpRow* w,
+                                                 unsigned char* base) {
+  const size_t words = align16(4 * (size_t)m);
+  const size_t lv = 3 * words;
+  const size_t s_V = lv + align16(4 * (size_t)level_words(m));
+  if (w != nullptr) {
+    w->sv = reinterpret_cast<uint32_t*>(base);
+    w->c = reinterpret_cast<float*>(base + words);
+    w->ov = reinterpret_cast<uint32_t*>(base + 2 * words);
+    w->lv = reinterpret_cast<float*>(base + lv);
+    w->s_V = reinterpret_cast<float*>(base + s_V);
+  }
+  return s_V + align16(4 * kLevels);
+}
+
+// Rows a block of the warp pass: as many warps as fit beside the
+// fractions, up to kWarpRows.
+__host__ __device__ inline int warp_rows(int m) {
+  const size_t room = (kMaxShared - align16(4 * (size_t)m)) /
+                      warp_row_bytes(m, nullptr, nullptr);
+  return room < 1 ? 1 : (room < kWarpRows ? (int)room : kWarpRows);
+}
+
+// A row that takes no tuple (its head is its state at weight n / m), is
+// no data-source row, is not flagged, holds no NaN and is in order: its
+// update on one warp. Every other row goes to the block list.
+__global__ void __launch_bounds__(kWarpRows * 32)
+gk_warp_kernel(const Args a, int rows) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* q = reinterpret_cast<float*>(smem);
+  fill_fractions(a, q);
+  const int warp = threadIdx.x >> 5;
+  const int r = blockIdx.x * rows + warp;
+  if (r >= a.n) return;
+  const WarpTeam g{(int)(threadIdx.x & 31)};
+  const size_t per = warp_row_bytes(a.m, nullptr, nullptr);
+  WarpRow s;
+  warp_row_bytes(a.m, &s, smem + align16(4 * (size_t)a.m) + warp * per);
+  float* row = a.values + (size_t)r * a.m;
+  bool general = (a.T > 0 && a.run_end[r] != a.run_start[r]) ||
+                 a.flag[r] != 0 || is_source(a.src, a.n_src, r);
+  if (!general) {
+    bool nan = false;
+    for (int i = g.lane; i < a.m; i += 32) {
+      const uint32_t u = __float_as_uint(row[i]);
+      nan = nan || (u & 0x7fffffffu) > 0x7f800000u;
+      s.sv[i] = u;
+    }
+    __syncwarp();
+    bool in_order = true;
+    for (int i = g.lane; i < a.m - 1; i += 32)
+      in_order = in_order && sort_key(s.sv[i]) <= sort_key(s.sv[i + 1]);
+    general = __any_sync(kFull, nan) || !__all_sync(kFull, in_order);
+  }
+  if (general) {
+    if (g.lane == 0) a.block_list[atomicAdd(a.misc + 2, 1)] = r;
+    return;
+  }
+  const float n0 = a.n_state[r];
+  const float total = __fadd_rn(n0, 0.0f);
+  team_scan(g, StateWeight{__fdiv_rn(n0, (float)a.m)}, s.c, s.lv, a.m,
+            s.s_V);
+  const bool sweep = rising(a, g, s.c, a.m, s.s_V, total);
+  if (!sweep && g.lane == 0) atomicAdd(a.misc + 3, 1);
+  place(a, g, s.sv, s.c, a.m, s.s_V, total, q, sweep, s.ov);
+  __syncwarp();
+  for (int i = g.lane; i < a.m; i += 32) row[i] = __uint_as_float(s.ov[i]);
+  if (g.lane == 0) a.n_state[r] = total;
+}
+
+// ---------------------------------------------------------------------------
+// small rows: the block list, a block a row, all in shared memory
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kSmallThreads)
 gk_small_kernel(const Args a) {
@@ -472,25 +708,44 @@ gk_small_kernel(const Args a) {
   __shared__ float s_V[kLevels];
   __shared__ int s_nan;
   Shared s;
-  shared_bytes(a.m, a.P, a.cap, true, &s, smem);
-  const int r = blockIdx.x;
-  if (threadIdx.x == 0) s_nan = 0;
-  __syncthreads();
-  sort_state(a, r, s.pair, s.val, &s_nan);
-  const int start = a.T > 0 ? a.run_start[r] : 0;
-  const int k = a.T > 0 ? a.run_end[r] - start : 0;
-  if (s_nan || a.flag[r] || is_source(a.src, a.n_src, r) ||
-      a.m + k > a.cap) {
-    if (threadIdx.x == 0) a.big_list[atomicAdd(a.misc + 1, 1)] = r;
-    return;
+  float* q = reinterpret_cast<float*>(
+      smem + shared_bytes(a.m, a.P, a.cap, true, &s, smem));
+  fill_fractions(a, q);
+  const BlockTeam g;
+  const int count = a.misc[2];
+  for (int b = blockIdx.x; b < count; b += gridDim.x) {
+    const int r = a.block_list[b];
+    __syncthreads();               // the previous row's reads of s_nan
+    if (threadIdx.x == 0) s_nan = 0;
+    __syncthreads();
+    const bool sorted = sort_state(a, r, s.pair, s.val, &s_nan, true);
+    const int start = a.T > 0 ? a.run_start[r] : 0;
+    const int k = a.T > 0 ? a.run_end[r] - start : 0;
+    if (s_nan || a.flag[r] || is_source(a.src, a.n_src, r) ||
+        a.m + k > a.cap) {
+      if (threadIdx.x == 0) a.big_list[atomicAdd(a.misc + 1, 1)] = r;
+      continue;
+    }
+    const float n0 = a.n_state[r];
+    const float total = __fadd_rn(n0, (float)k);
+    const Own own = {a.sort.srow != nullptr ? a.sort.perm : nullptr, start};
+    merge_head(a, s.pair, s.val, a.m, own, k, __fdiv_rn(n0, (float)a.m),
+               s.hv, s.hw, s.cnt);
+    const int h = a.m + k;
+    team_scan(g, HeadWeights{s.hw}, s.c, s.lv, h, s_V);
+    const bool sweep = rising(a, g, s.c, h, s_V, total);
+    if (threadIdx.x == 0) {
+      if (!sweep) atomicAdd(a.misc + 4, 1);
+      if (sorted) atomicAdd(a.misc + 5, 1);
+    }
+    uint32_t* dst = reinterpret_cast<uint32_t*>(s.cnt);   // merged: free
+    place(a, g, s.hv, s.c, h, s_V, total, q, sweep, dst);
+    __syncthreads();
+    float* out = a.values + (size_t)r * a.m;
+    for (int i = threadIdx.x; i < a.m; i += blockDim.x)
+      out[i] = __uint_as_float(dst[i]);
+    if (threadIdx.x == 0) a.n_state[r] = total;
   }
-  const float n0 = a.n_state[r];
-  const float wst = __fdiv_rn(n0, (float)a.m);
-  const Own own = {a.sort.srow != nullptr ? a.sort.perm : nullptr, start};
-  merge_head(a, s.pair, s.val, a.m, own, k, wst, s.hv, s.hw, s.cnt);
-  const int h = a.m + k;
-  blocked_scan(s.hw, s.c, s.lv, h, s_V);
-  search_row(a, r, s.hv, s.c, h, s_V, __fadd_rn(n0, (float)k));
 }
 
 // ---------------------------------------------------------------------------
@@ -609,7 +864,7 @@ gk_big_kernel(const Args a) {
       merge_head(a, s.pair, s.val, a.m, own, K, wst, hv, hw, s.cnt);
       h = a.m + K;
     }
-    blocked_scan(hw, c, lv, h, s_V);
+    team_scan(BlockTeam{}, HeadWeights{hw}, c, lv, h, s_V);
     search_row(a, r, hv, c, h, s_V, __fadd_rn(n0, (float)K));
     __syncthreads();
   }
@@ -621,8 +876,9 @@ gk_big_kernel(const Args a) {
 
 // The scratch of a call, in int32 words from a 128-byte aligned base.
 struct Layout {
-  long long sort, key, rowt, run_start, run_end, flag, misc, big_list, big;
-  long long zero_words;          // run_start .. misc, zeroed each call
+  long long misc, run_start, run_end, flag, sort, key, rowt, big_list,
+      block_list, big;
+  long long zero_words;          // misc .. flag, zeroed each call
   long long state, stride, total;
   int blocks;                    // big blocks
 };
@@ -630,16 +886,17 @@ struct Layout {
 Layout layout(int n, int m, int T) {
   Layout l;
   const long long N = (long long)m + T;
-  l.sort = 0;
-  l.key = l.sort + (T > 0 ? sde::sort_words(T) : 0);
-  l.rowt = l.key + sde::round32(T);
-  l.run_start = l.rowt + sde::round32(T);
+  l.misc = 0;                    // first: gk_requantize's comment
+  l.run_start = l.misc + 32;
   l.run_end = l.run_start + sde::round32(n);
   l.flag = l.run_end + sde::round32(n);
-  l.misc = l.flag + sde::round32((n + 3) / 4);
-  l.big_list = l.misc + 32;
-  l.zero_words = l.big_list - l.run_start;
-  l.big = l.big_list + sde::round32(n);
+  l.sort = l.flag + sde::round32((n + 3) / 4);
+  l.zero_words = l.sort - l.misc;
+  l.key = l.sort + (T > 0 ? sde::sort_words(T) : 0);
+  l.rowt = l.key + sde::round32(T);
+  l.big_list = l.rowt + sde::round32(T);
+  l.block_list = l.big_list + sde::round32(n);
+  l.big = l.block_list + sde::round32(n);
   // a state above kSharedM: its sorted pairs (2P words), bits (P) and
   // counts (m + 1) ahead of the head in each big block's scratch
   const long long P = next_pow2(m);
@@ -670,11 +927,12 @@ int launch(Args& a, int32_t* scratch, cudaStream_t stream) {
   a.flag = reinterpret_cast<uint8_t*>(scratch + l.flag);
   a.misc = scratch + l.misc;
   a.big_list = scratch + l.big_list;
+  a.block_list = scratch + l.block_list;
   a.big = reinterpret_cast<uint32_t*>(scratch + l.big);
   a.big_stride = l.stride;
   a.state_words = l.state;
   if (a.src == nullptr) a.n_src = 0;
-  cudaError_t err = cudaMemsetAsync(scratch + l.run_start, 0,
+  cudaError_t err = cudaMemsetAsync(scratch + l.misc, 0,
                                     sizeof(int32_t) * l.zero_words, stream);
   if (err != cudaSuccess) return (int)err;
   a.sort = sde::SortScratch{};
@@ -692,9 +950,17 @@ int launch(Args& a, int32_t* scratch, cudaStream_t stream) {
   }
   size_t big_smem = 0;
   if (a.state_words == 0) {
+    const int rows = warp_rows(a.m);
+    const size_t warp_smem = align16(4 * (size_t)a.m) +
+                             rows * warp_row_bytes(a.m, nullptr, nullptr);
     const size_t small_smem =
-        shared_bytes(a.m, a.P, a.cap, true, nullptr, nullptr);
+        shared_bytes(a.m, a.P, a.cap, true, nullptr, nullptr) +
+        align16(4 * (size_t)a.m);
     big_smem = shared_bytes(a.m, a.P, a.cap, false, nullptr, nullptr);
+    err = cudaFuncSetAttribute(gk_warp_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)warp_smem);
+    if (err != cudaSuccess) return (int)err;
     err = cudaFuncSetAttribute(gk_small_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)small_smem);
@@ -703,7 +969,18 @@ int launch(Args& a, int32_t* scratch, cudaStream_t stream) {
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)big_smem);
     if (err != cudaSuccess) return (int)err;
-    gk_small_kernel<<<a.n, kSmallThreads, small_smem, stream>>>(a);
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, gk_small_kernel, kSmallThreads, small_smem);
+    if (err != cudaSuccess) return (int)err;
+    const long long fit = (long long)(per_sm < 1 ? 1 : per_sm) *
+                          sde::sm_count();
+    gk_warp_kernel<<<(a.n + rows - 1) / rows, rows * 32, warp_smem,
+                     stream>>>(a, rows);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    gk_small_kernel<<<(int)(fit < a.n ? fit : a.n), kSmallThreads,
+                      small_smem, stream>>>(a);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -726,7 +1003,11 @@ int gk_words(int n, int m, int T, long long* words, int* max_m) {
 // vals [T] f32; mask [T] bytes (0 / 1); order [T] i32 (the masked tuples
 // first, each part by value key, ties in batch order); nmask: the masked
 // tuples, one i32 on the card; src [n_src] i64 (data-source rows) or null;
-// scratch: gk_words(n, m, T) words, 128-byte aligned.
+// scratch: gk_words(n, m, T) words, 128-byte aligned. After the call, its
+// words 1 to 5 count the rows by path (with m <= kSharedM): [1] the
+// big-row pass, [2] the block list (the warp pass's others, big rows
+// among them), [3] warp rows and [4] block rows that ran the halvings
+// (the rising check false), [5] block rows whose state was sorted.
 int gk_requantize(float* values, float* n_state, int n, int m,
                   const int32_t* rows, const float* vals,
                   const uint8_t* mask, int T, const int32_t* order,

@@ -48,12 +48,13 @@ followed by masked tuples only, and the walk's hard cases
 that end at an epoch start or cross the int32 wrap, items admitted twice
 in a group, sentinel bursts, repeated keys, counts that adds cannot take
 in closed form), over two batches, byte for byte, through both entry
-points; for GK's requantize m = 8, 400, 1,000 and 4,096 (a state in
-shared memory) and 8,000 and 20,000 (in global scratch), T = 0 to
+points; for GK's requantize m = 8, 400, 1,000, 1,334 and 4,096 (a state
+in shared memory) and 8,000 and 20,000 (in global scratch), T = 0 to
 65,536, new, idle, out-of-order and hot rows, +inf, -inf and NaN tuples
-and state values, data-source rows, byte for byte, through both entry
-points, and through the engine at m = 8,000, with a build above the
-kernel's largest state refused.
+and state values, counts not whole or near 2**30, data-source rows,
+byte for byte, through both entry points, with the kernel's own counts
+of rows by path showing each branch taken, and through the engine at
+m = 8,000, with a build above the kernel's largest state refused.
 Tests marked ``cuda`` need a card; run them there with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -2125,7 +2126,8 @@ def test_sticky_tables_equal_the_float_functions(dev):
                                   sticky.want_epoch(ref_n, t).numpy())
 
 
-GK_PATTERNS = ("empty", "idle", "mixed", "hot", "nonfinite")
+GK_PATTERNS = ("empty", "idle", "mixed", "hot", "nonfinite", "unsorted_idle",
+               "inf_top", "wide", "huge")
 
 
 def _gk_case(rng, n, m, t, sources, pattern, dev):
@@ -2141,18 +2143,32 @@ def _gk_case(rng, n, m, t, sources, pattern, dev):
       hot        mixed, and one row taking ~70% of the batch
       nonfinite  mixed, with +inf, -inf and NaN tuples, and rows holding
                  +inf, -inf and NaN state values
+      unsorted_idle  idle, but half the rows' values out of order, so
+                 that rows without tuples take the sort
+      inf_top    idle, each row's top eighth of its values +inf
+      wide       mixed, counts below 10**6 and not whole (with hundreds
+                 of tuples a row: heads past 256 entries, whose masked
+                 tails' level sums need not rise)
+      huge       mixed, counts near 2**30 (a tuple's weight below a
+                 sum's rounding: midpoint ranks that need not rise)
     """
     counts = rng.randint(0, 10**6, n).astype(np.float32)
     values = (np.round(rng.randn(n, m) * 4) / 2).astype(np.float32)
     if pattern == "empty":
         counts[:] = 0
         values[:] = 0
-    elif pattern == "idle":
+    elif pattern in ("idle", "unsorted_idle", "inf_top"):
         counts = rng.randint(1000, 10000, n).astype(np.float32)
-        values.sort(axis=1)
+        values[::1 if pattern != "unsorted_idle" else 2].sort(axis=1)
+        if pattern == "inf_top":
+            values[:, -max(1, m // 8):] = np.inf
     else:
         values[::2].sort(axis=1)
         counts[::3] = 0
+    if pattern == "wide":
+        counts = (rng.rand(n) * 10**6).astype(np.float32)
+    elif pattern == "huge":
+        counts = (2.0**30 + rng.randint(0, 2**20, n)).astype(np.float32)
     if pattern == "nonfinite":
         values[1::4, :3] = np.inf
         values[2::4, -2:] = -np.inf
@@ -2169,7 +2185,8 @@ def _gk_case(rng, n, m, t, sources, pattern, dev):
     rows[5::13] = n
     if sources:
         rows[1::17] = sources[0]
-    mask = rng.rand(t) < (0.01 if pattern == "idle" else 0.9)
+    mask = rng.rand(t) < (0.01 if "idle" in pattern or pattern == "inf_top"
+                          else 0.9)
     c = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     src = (c(np.asarray(sources + sources[:1], np.int64)) if sources
            else None)
@@ -2187,7 +2204,18 @@ _GK_CASES = [
     (40, 0.004, 3000, [2], "hot"), (9, 4 / 4096, 2500, [4], "nonfinite"),
     (9, 4 / 4096, 700, [], "idle"),
     (6, 0.0005, 3000, [2], "nonfinite"), (5, 0.0005, 700, [], "idle"),
-    (4, 0.0002, 257, [1], "hot"), (3, 0.0005, 0, [0], "mixed")]
+    (4, 0.0002, 257, [1], "hot"), (3, 0.0005, 0, [0], "mixed"),
+    (16, 0.5, 300, [2], "unsorted_idle"), (16, 0.5, 300, [], "inf_top"),
+    (100, 0.01, 1000, [7], "unsorted_idle"), (64, 0.004, 4096, [],
+                                              "inf_top"),
+    (9, 4 / 4096, 700, [4], "unsorted_idle"), (9, 4 / 4096, 0, [],
+                                               "inf_top"),
+    (2000, 0.01, 65536, [1999], "unsorted_idle"),
+    (2000, 0.01, 65536, [], "inf_top"),
+    (16, 0.01, 8192, [3], "wide"), (16, 0.01, 8192, [], "huge"),
+    (16, 0.5, 4096, [2], "huge"), (16, 0.003, 8192, [5], "wide"),
+    (16, 0.003, 8192, [], "huge"), (300, 0.003, 4096, [], "idle"),
+    (300, 0.003, 4096, [7], "unsorted_idle")]
 
 
 def _gk_run(update, state, *args, **kwargs):
@@ -2204,9 +2232,11 @@ def test_gk_requantize_matches_plain_byte_for_byte(dev, n, eps, t, sources,
     """The requantize kernel, rows given or the probe fused (over a table
     at 0.7 load, every id found), against its plain version: m = 8, 400,
     1,000 and 4,096; T = 0 to 65,536; new, idle, out-of-order, hot and
-    non-finite rows, data-source rows, and states of 8,000 and 20,000
-    values (past shared memory); every row's values and n byte-equal
-    to the plain version and across two kernel runs, one launch a call."""
+    non-finite rows, idle rows out of order or with +inf tops (the warp
+    pass and both checks' fallbacks), data-source rows, and states of
+    8,000 and 20,000 values (past shared memory); every row's values and
+    n byte-equal to the plain version and across two kernel runs, one
+    launch a call."""
     m = gk.GKQuantiles(eps=eps).m
     rng = np.random.RandomState(n + m + t)
     state, (rows, vals, mask, src) = _gk_case(rng, n, m, t, sources,
@@ -2229,6 +2259,67 @@ def test_gk_requantize_matches_plain_byte_for_byte(dev, n, eps, t, sources,
     for a, b, w in zip(*outs, want):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
         assert torch.equal(a.view(torch.int32), w.view(torch.int32))
+
+
+def _gk_paths(state, rows, vals, mask, src, m):
+    """One rows-given call through the kernel's C interface, on a copy of
+    the state: (values, n, the kernel's own counts of rows by path), read
+    from the first words of its scratch (the comment on ``gk_requantize``
+    in ``csrc/gk_requantize.cu``)."""
+    values, counts = [x.clone() for x in state]
+    scratch, order, nmask = gk_requantize._prepare(values, values.shape[0],
+                                                   m, vals, mask)
+    err = gk_requantize._lib().gk_requantize(
+        values.data_ptr(), counts.data_ptr(), values.shape[0], m,
+        rows.data_ptr(), vals.data_ptr(), mask.data_ptr(), vals.shape[0],
+        order.data_ptr(), nmask.data_ptr(), build.ptr(src),
+        0 if src is None else src.shape[0], scratch.data_ptr(),
+        build.stream(values.device))
+    build.check_launch(err, "gk_requantize")
+    _, big, listed, warp_h, block_h, sorted_ = scratch[:6].tolist()
+    return values, counts, {"warp": values.shape[0] - listed,
+                            "warp halvings": warp_h,
+                            "block": listed - big, "block halvings": block_h,
+                            "sorted": sorted_, "big": big}
+
+
+# (a _GK_CASES entry, the paths its rows must take on the card)
+_GK_PATH_CASES = [
+    ((300, 0.003, 4096, [], "idle"), ("warp", "warp halvings", "block",
+                                      "block halvings")),
+    ((300, 0.003, 4096, [7], "unsorted_idle"), ("warp", "warp halvings",
+                                                "sorted", "big")),
+    ((2000, 0.01, 65536, [1999], "unsorted_idle"), ("warp", "sorted",
+                                                    "block halvings")),
+    ((16, 0.01, 8192, [], "huge"), ("sorted", "block halvings")),
+    ((16, 0.003, 8192, [5], "wide"), ("block halvings", "big"))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,expect", _GK_PATH_CASES)
+def test_gk_requantize_takes_each_path(dev, case, expect):
+    """The kernel's own counts of its rows by path, on card-test cases
+    whose rows call for each branch: a warp row and a block row whose
+    midpoint ranks do not rise (the halvings; at m = 1,334, not a
+    multiple of 16, an idle row's tail reads the head's level-0 sum),
+    a block row whose state is sorted, and a big row. The call's bytes
+    equal the plain version's, and the counts add up to the rows."""
+    n, eps, t, sources, pattern = case
+    assert case in _GK_CASES
+    m = gk.GKQuantiles(eps=eps).m
+    rng = np.random.RandomState(n + m + t)
+    state, (rows, vals, mask, src) = _gk_case(rng, n, m, t, sources,
+                                              pattern, dev)
+    got_v, got_n, paths = _gk_paths(state, rows, vals, mask, src, m)
+    want = _gk_run(ref.gk_requantize_update, state, rows, vals, mask, src,
+                   m=m)
+    assert torch.equal(got_v.view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got_n.view(torch.int32), want[1].view(torch.int32))
+    assert paths["warp"] + paths["block"] + paths["big"] == n
+    assert paths["warp halvings"] <= paths["warp"]
+    assert paths["block halvings"] <= paths["block"]
+    missing = [k for k in expect if paths[k] == 0]
+    assert not missing, (missing, paths)
 
 
 @pytest.mark.cuda

@@ -18,6 +18,7 @@ port's bytes are those of the reference run op by op, whose divisions are
 true float32 divisions; under ``jit`` XLA multiplies by ``float32(1 /
 m)`` instead (ROADMAP section 3a), which moves a few targets across a
 midpoint rank, so the jitted reference is held to a tolerance."""
+import bisect
 import collections
 
 import jax
@@ -328,6 +329,250 @@ def test_jitted_reference_within_a_neighbour():
     exact_v, _ = _reference_rows(jkind, values, counts, rows, vals, mask,
                                  [4])
     assert _bytes(got) == _bytes(exact_v)
+
+
+# ---------------------------------------------------------------------------
+# the requantize kernel's per-row decisions (csrc/gk_requantize.cu)
+# ---------------------------------------------------------------------------
+_WARP, _BLOCK = 32, 256    # a team: a row without tuples, a row with them
+_LEVELS = 8                # the kernel's kLevels
+
+
+def _tail_levels(p, h):
+    """The level whose sum at the head's last entry each virtual position
+    ``p`` >= h reads (the kernel's ``tail_level``)."""
+    j, last = p.clone(), torch.full_like(p, h - 1)
+    lvl = torch.full_like(p, _LEVELS - 1)
+    done = torch.zeros_like(p, dtype=torch.bool)
+    for i in range(_LEVELS - 1):
+        hit = ~done & ((j >> 4) == (last >> 4))
+        lvl[hit] = i
+        done |= hit
+        j, last = (j >> 4) - 1, last >> 4
+    return lvl
+
+
+def _sweep(kc, kt, h, big, team):
+    """The kernel's sweep: member i of a team of ``team`` takes a
+    contiguous run of the targets, places its first by a lower bound over
+    the head's keys ``kc`` and walks on from there for each next one.
+    Returns each target's position, ``h`` for one past the head (+inf
+    where the row has a tail, else clipped to h - 1)."""
+    m = len(kt)
+    per = -(-m // team)
+    idx = []
+    for i0 in range(0, m, per):
+        p = bisect.bisect_left(kc, kt[i0], 0, h)
+        for i in range(i0, min(m, i0 + per)):
+            while p < h and kc[p] < kt[i]:
+                p += 1
+            idx.append(p if p < h or big > h else h - 1)
+    return torch.tensor(idx, dtype=torch.int64)
+
+
+def _kernel_row(values, n, own, big, team, taken):
+    """One row of a stack as the kernel updates it, with no +inf or NaN
+    among its own tuples ``own`` (batch order) and no NaN state; ``big``
+    = m + T. The order check: a state whose keys do not fall by slot is
+    its own sorted order (no sort), else it is sorted stably. The
+    monotone check: where the midpoint ranks of the head rise, the tail's
+    level sums after them rise over the levels read up to ``big`` and the
+    row's total is not below 0 (the targets then rise), every target is
+    placed by the sweep; else by the halvings of ``searchsorted_scan``
+    over the whole virtual row. Counts each decision in ``taken``."""
+    m, k = values.shape[0], own.shape[0]
+    key = tgk.sort_key(values)
+    in_order = bool((key[:-1] <= key[1:]).all())
+    state = values if in_order else values[torch.sort(key,
+                                                      stable=True).indices]
+    own = own[torch.sort(tgk.sort_key(own), stable=True).indices]
+    head_v = torch.cat([state, own])
+    head_w = torch.cat([tgk.true_div(n.expand(m), m), torch.ones(k)])
+    merged = torch.sort(tgk.sort_key(head_v), stable=True).indices
+    hv, hw = head_v[merged], head_w[merged]
+    h = m + k
+    lev = tgk.blocked_cumsum(hw, levels=True)
+    c = lev[0] - 0.5 * hw
+    s_v = torch.stack([x[-1] for x in lev] + [lev[-1][-1]] *
+                      (_LEVELS - len(lev)))
+    virtual = torch.cat([c, s_v[_tail_levels(torch.arange(h, big), h)]])
+    kc, ks = tgk.sort_key(c).tolist(), tgk.sort_key(s_v).tolist()
+    rising = all(a <= b for a, b in zip(kc, kc[1:]))
+    if big > h:
+        reads = _tail_levels(torch.tensor([h, big - 1]), h).tolist()
+        chain = [kc[-1]] + ks[reads[0]:reads[1] + 1]
+        tail_rising = all(a <= b for a, b in zip(chain, chain[1:]))
+    else:
+        tail_rising = True
+    kv = tgk.sort_key(virtual)
+    # the chain over the levels read is exactly the virtual row rising
+    assert (rising and tail_rising) == bool((kv[:-1] <= kv[1:]).all())
+    total = n + torch.tensor(float(k))
+    sweep = rising and tail_rising and bool(total >= 0)
+    targets = tgk.targets_of(m, total)
+    if sweep:
+        idx = _sweep(kc, tgk.sort_key(targets).tolist(), h, big, team)
+        taken["tail"] += int(idx[-1] >= h)
+    else:
+        idx = tgk.searchsorted_scan(virtual, targets).clamp(max=big - 1)
+    taken["in_order" if in_order else "sorted"] += 1
+    taken["sweep" if sweep else ("halvings, tail" if rising else
+                                 "halvings, head")] += 1
+    taken["warp halvings"] += team == _WARP and not sweep
+    got = hv[idx.clamp(max=h - 1)]
+    return torch.where(idx < h, got, torch.full_like(got, np.inf)), total
+
+
+def _kernel_model(values, counts, rows, vals, mask, sources):
+    """The stacked update as the kernel routes each row: a data-source
+    row, a row with a +inf or NaN own tuple or NaN state, or one whose
+    head passes the small rows' room, through ``core/gk.add_row`` (the
+    big-row pass); a row without tuples whose state is in order on a
+    warp; every other row on a block. Returns (values, n, taken): the
+    count of rows by path and by each check's outcome."""
+    n, m = values.shape
+    big = m + vals.shape[0]
+    cap = 2 ** int(np.ceil(np.log2(m))) + 512
+    keep = mask & (rows >= 0) & (rows < n) & ~torch.isin(
+        rows, torch.tensor(sorted(sources), dtype=rows.dtype))
+    out_v, out_n = values.clone(), counts.clone()
+    taken = collections.Counter()
+    for r in range(n):
+        own_mask = mask if r in sources else keep & (rows == r)
+        own = vals[own_mask]
+        key = tgk.sort_key(values[r])
+        if (r in sources or torch.isnan(values[r]).any()
+                or (torch.isnan(own) | (own == np.inf)).any()
+                or m + own.shape[0] > cap):
+            out_v[r], out_n[r] = tgk.add_row(values[r], counts[r], vals,
+                                             own_mask, m)
+            taken["big"] += 1
+            continue
+        warp = own.shape[0] == 0 and bool((key[:-1] <= key[1:]).all())
+        taken["warp" if warp else "block"] += 1
+        out_v[r], out_n[r] = _kernel_row(values[r], counts[r], own, big,
+                                         _WARP if warp else _BLOCK, taken)
+    return out_v, out_n, taken
+
+
+def _model_case(rng, n, m, t, pattern):
+    """A stack of n rows and a batch for the kernel's model, over the
+    rows each check meets. Row 0 is the data-source row; rows 1 to n / 3
+    take a few tuples each (for ``wide`` and ``huge`` rows 1 to n - 2
+    hundreds), the others none; the rest of the batch is masked out, or
+    masked in and routed to rows -1 and n (zero-weight tail entries of
+    every row):
+
+      unsorted_idle  counts in the thousands, half the rows' values out of
+                     order
+      inf_top        rows in order whose top values are +inf
+      ties           values on a few steps, -0.0 and 0.0 side by side in
+                     slot order
+      cold           every row at n = 0, its values zero
+      wide           heads past 256 entries, whose masked tails' level
+                     sums need not rise; counts below 10**6, not whole
+      huge           counts near 2**30, where a tuple's weight is below a
+                     sum's rounding and the head's midpoint ranks need
+                     not rise
+    """
+    counts = rng.randint(1000, 10000, n).astype(np.float32)
+    values = np.sort((rng.randn(n, m) * 10).astype(np.float32), axis=1)
+    if pattern == "unsorted_idle":
+        for r in range(0, n, 2):
+            rng.shuffle(values[r])
+    elif pattern == "inf_top":
+        values[:, -max(1, m // 8):] = np.inf
+    elif pattern == "ties":
+        values = np.sort(np.round(values / 8).astype(np.float32), axis=1)
+        values[:, ::2][values[:, ::2] == 0] = -0.0
+    elif pattern == "cold":
+        counts[:] = 0
+        values[:] = 0
+    elif pattern == "wide":
+        counts = (rng.rand(n) * 10**6).astype(np.float32)
+    elif pattern == "huge":
+        counts = (2.0**30 + rng.randint(0, 2**20, n)).astype(np.float32)
+    vals = (rng.randn(t) * 10).astype(np.float32)
+    if pattern == "ties":
+        vals = np.round(vals / 8).astype(np.float32)
+        vals[rng.rand(t) < 0.3] = -0.0
+    rows = np.where(rng.rand(t) < 0.5, -1, n).astype(np.int32)
+    mask = rng.rand(t) < 0.5
+    many = pattern in ("wide", "huge")
+    pos = rng.permutation(t)
+    at = 0
+    for r in range(1, n - 1 if many else n // 3):
+        k = rng.randint(250, 500) if many else rng.randint(1, 20)
+        rows[pos[at:at + k]] = r
+        mask[pos[at:at + k]] = True
+        at += k
+    return values, counts, rows, vals, mask
+
+
+# (eps, T, pattern, the outcomes its rows must show)
+_COMMON = ("warp", "block", "sweep")
+_MODEL_CASES = [
+    (0.5, 16384, "unsorted_idle", _COMMON + ("in_order", "sorted")),
+    (0.5, 16384, "inf_top", _COMMON + ("in_order",)),
+    (0.5, 16384, "ties", _COMMON + ("in_order",)),
+    (0.5, 16384, "cold", _COMMON + ("tail",)),
+    (0.5, 16384, "wide", ("block", "sweep")),
+    (0.5, 16384, "huge", ("block", "sweep", "tail", "halvings, head",
+                          "halvings, tail")),
+    (0.01, 65536, "unsorted_idle", _COMMON + ("in_order", "sorted", "tail",
+                                              "halvings, tail")),
+    (0.01, 65536, "inf_top", _COMMON + ("tail",)),
+    (0.01, 65536, "ties", _COMMON + ("tail",)),
+    (0.01, 65536, "cold", _COMMON + ("tail",)),
+    (0.01, 65536, "wide", ("block", "sweep", "tail", "halvings, tail")),
+    (0.01, 65536, "huge", ("block", "sweep", "halvings, head")),
+    (0.003, 16384, "ties", _COMMON + ("warp halvings",)),
+    (0.003, 65536, "unsorted_idle", _COMMON + ("in_order", "sorted",
+                                               "warp halvings")),
+    (0.003, 16384, "huge", ("block", "sweep", "halvings, head",
+                            "warp halvings"))]
+
+
+@pytest.mark.parametrize("eps,t,pattern,expect", _MODEL_CASES)
+def test_kernel_model_matches_plain_version(eps, t, pattern, expect):
+    """The kernel's per-row decisions, modelled here (:func:`_kernel_row`),
+    byte-equal to the plain version (``ref.gk_requantize_update``) over
+    two chained batches at m = 8 (T = 16,384), m = 400 (T = 65,536) and
+    m = 1,334 (not a multiple of 16: a warp row's tail reads the head's
+    level-0 sum, whose rounding may fall below level 1's): each check's
+    shortcut (a state in order read as it stands, the targets placed by
+    the sweep) and its fallback (the sort, the halvings over the whole
+    virtual row, for a head or a tail that does not rise, on a block and
+    on a warp) taken where the pattern's rows call for it, the sweep's
+    last target past the head (+inf) among them. The check over the tail
+    is held to the whole virtual row rising, position by position. The
+    plain version is held in turn to a loop of the reference's op-by-op
+    ``add_batch`` on the same rows, at these sizes and counts (heads past
+    256 entries, counts near 2**30)."""
+    jkind = jcore.GKQuantiles(eps=eps)
+    m = tgk.GKQuantiles(eps=eps).m
+    rng = np.random.RandomState(t + m + len(pattern))
+    n = 24
+    values, counts, rows, vals, mask = _model_case(rng, n, m, t, pattern)
+    state = dict(values=_t(values), n=_t(counts))
+    model_v, model_n = _t(values), _t(counts)
+    taken = collections.Counter()
+    for _ in range(2):
+        values, counts = _reference_rows(jkind, values, counts, rows, vals,
+                                         mask, {0})
+        ref.gk_requantize_update(state["values"], state["n"], _t(rows),
+                                 _t(vals), _t(mask), _t(np.asarray([0])),
+                                 m=m)
+        model_v, model_n, step = _kernel_model(model_v, model_n, _t(rows),
+                                               _t(vals), _t(mask), {0})
+        taken += step
+        assert _bytes(state["values"].numpy()) == _bytes(values)
+        assert _bytes(state["n"].numpy()) == _bytes(counts)
+        assert _bytes(model_v.numpy()) == _bytes(state["values"].numpy())
+        assert _bytes(model_n.numpy()) == _bytes(state["n"].numpy())
+        _, _, rows, vals, mask = _model_case(rng, n, m, t, pattern)
+    missing = [k for k in expect if taken[k] == 0]
+    assert not missing, (missing, taken)
 
 
 # ---------------------------------------------------------------------------
